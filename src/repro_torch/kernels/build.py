@@ -29,10 +29,11 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: kernel name -> C functions it exports, with their ctypes signatures
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "dft_power": {"dft_power_launch": ([_P, _P, _I, _I, _I, _P], _I)},
     "autocorr": {"autocorr_launch": ([_P, _P, _P, _I, _I, _I, _P], _I)},
+    "dirty_delta": {"dirty_delta_launch": ([_P, _P, _P, _L, _L, _I, _P], _I)},
 }
 
 _LOCK = threading.Lock()

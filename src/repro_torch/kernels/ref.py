@@ -1,17 +1,19 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They compute the same functions as ``csrc/dft_power.cu`` and
-``csrc/autocorr.cu`` on the same inputs, by the same sums: the DFT as
-explicit cos/sin products over every time step, the autocorrelation as the
-lag products of each row. Both accumulate in float64 and return float32,
-which makes them the yardstick the f32 kernels are held to on the card.
+They compute the same functions as ``csrc/dft_power.cu``,
+``csrc/autocorr.cu`` and ``csrc/dirty_delta.cu`` on the same inputs, by the
+same sums: the DFT as explicit cos/sin products over every time step, the
+autocorrelation as the lag products of each row, the dirty-block scan as a
+max of exact f32 differences per block. The first two accumulate in float64
+and return float32, which makes them the yardstick the f32 kernels are held
+to on the card; the third must equal its kernel bit for bit.
 ``kernels/ops.py`` sends every CPU tensor here, so they are also the CPU
 path of the port.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -62,3 +64,28 @@ def autocorr_score_ref(x: torch.Tensor, lags: torch.Tensor) -> torch.Tensor:
         if p < N:
             out[:, li] = (x64[:, : N - p] * x64[:, p:]).sum(dim=1)
     return out.float()
+
+
+def block_reduce(x: torch.Tensor, block: int,
+                 reduce: Callable[..., torch.Tensor]) -> torch.Tensor:
+    """``reduce(rows, dim=1)`` over the ``ceil(n / block)`` blocks of the
+    flat ``x``; the ragged last block is reduced as it is, not padded."""
+    flat = x.reshape(-1)
+    full = flat.numel() // block
+    parts = [reduce(flat[: full * block].view(full, block), dim=1)]
+    if flat.numel() > full * block:
+        parts.append(reduce(flat[full * block:].view(1, -1), dim=1))
+    return torch.cat(parts)
+
+
+def max_abs_delta_ref(new: torch.Tensor, old: torch.Tensor,
+                      block: Optional[int] = None) -> torch.Tensor:
+    """Per-block ``max |f32(new) - f32(old)|`` -> (n_blocks, 1) f32, NaN
+    where a block holds a NaN difference. ``block=None`` takes
+    (n_blocks, block) tiles; else the flat inputs are cut into
+    ``ceil(n / block)`` blocks, the last one as if zero-padded (a padded
+    |0 - 0| adds nothing to a max of absolute values)."""
+    if block is None:
+        block = new.shape[1]
+    d = (new.reshape(-1).float() - old.reshape(-1).float()).abs()
+    return block_reduce(d, block, torch.amax)[:, None]
