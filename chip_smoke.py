@@ -1,12 +1,13 @@
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's two paths, the paper's ALMA decide loop at the fleet
-size its users run and live pre-copy of a full-width serving replica, and
-holds every hand-written kernel against its plain PyTorch version:
+Drives the port's paths, the paper's ALMA decide loop at the fleet size
+its users run, live pre-copy of a full-width serving replica (attention
+and SSM-hybrid) and serving of an RWKV model, and holds every hand-written
+kernel against its plain PyTorch version:
 
-  1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu`` and
-               ``csrc/dirty_delta.cu`` with nvcc (one process each, in
-               parallel);
+  1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
+               ``csrc/dirty_delta.cu`` and ``csrc/ssm_scan.cu`` with nvcc
+               (one process each, in parallel);
   2. kernels — each kernel against its plain version at the tick's shape,
                at FleetSim's Table 3 windows (1,440 and 2,880 samples,
                with the lag grids its refinement scores there) and at
@@ -32,13 +33,29 @@ holds every hand-written kernel against its plain PyTorch version:
                destination checked bit for bit and each round's dirty
                blocks against the ring slots the decode wrote; then the
                same model, 2 layers deep in f32, on the card against the
-               CPU.
+               CPU;
+  6. ssm     — first (before any replica is built) the chunked SSM-scan
+               kernel against its plain version at zamba2's and rwkv6's
+               prefill shapes and on the edges (S of 1, 33 and 4,095, a
+               decay below the clamp, an initial state, f32 inputs, the
+               smoke widths), the edges against the step recurrence too,
+               each bit-equal on a second launch; after phase 5, a
+               full-width, full-depth ``zamba2_2p7b`` replica (bf16)
+               prefills 16 x 4,096 tokens and pre-copies with one decode
+               step per round, each round's pair of trees also scanned by
+               the dirty-block kernel's plain version (every SSD- and
+               conv-state block dirty, the ring slots written, totals
+               equal); ``rwkv6_1p6b`` at full width and depth prefills and
+               decodes; each model prefills once more with CUDA events
+               around its layers, the scan kernel and the causal attention
+               (where its time goes); both models shallow in f32 on the
+               card against the CPU.
 
 Every phase raises on failure. The kernels' launch counters are set to 0
-before each path (phases 3, 4 and 5's migration) and read after it: each
-kernel of the path must have run in it. The last lines are the card
-(``nvidia-smi``), one JSON object per kernel, and
-``{"ok": true, "device": ...}``.
+before each path (phases 3, 4, 5's migration, 6's two prefills and its
+migration) and read after it: each kernel of the path must have run in
+it. The last lines are the card (``nvidia-smi``), one JSON object per
+kernel, and ``{"ok": true, "device": ...}``.
 
 Run from the repository root with one CUDA device: ``python3 chip_smoke.py``.
 """
@@ -505,13 +522,15 @@ def phase_dirty_delta(torch, ref, dirty_delta):
     return record
 
 
-def _ring_dirty_bytes(cfg, batch: int, W: int, slot: int, block: int) -> int:
+def _ring_dirty_bytes(cfg, batch: int, W: int, slot: int, block: int,
+                      layers=None) -> int:
     """Bytes of the blocks that writing one ring slot of every (layer,
-    sequence) dirties in the K and V rings (L, B, W, Hkv, hd), plus the
-    one block of the int32 ``pos`` leaf."""
+    sequence) dirties in the bf16 K and V rings (L, B, W, Hkv, hd), L =
+    ``layers`` (default ``cfg.num_layers``), plus the one block of the int32
+    ``pos`` leaf."""
     seg = cfg.num_kv_heads * cfg.head_dim
     blocks = set()
-    for lb in range(cfg.num_layers * batch):
+    for lb in range((layers or cfg.num_layers) * batch):
         start = (lb * W + slot) * seg
         blocks.update(range(start // block, (start + seg - 1) // block + 1))
     return 2 * len(blocks) * block * 2 + block * 4
@@ -552,6 +571,50 @@ def phase_placement(torch):
     print(f"[serve] pre-copy card -> host: {runs[1][1].rounds} rounds, "
           f"per-round bytes {runs[1][0]} equal the unplaced run's, host "
           f"copy bit-equal")
+
+
+def _traced_round(torch, decode_once, state, dest, tag: str):
+    """One more pre-copy round after a migration (decode, scan, merge)
+    under ``torch.profiler``; the destination must keep up bit for bit.
+    Returns (wall us, device busy us, idle share or None)."""
+    from repro_torch import tree
+    from repro_torch.core import precopy
+
+    def one_round():
+        decode_once()
+        masks, _, _ = precopy.dirty_scan(state(), dest, PCFG["block_elems"])
+        precopy.merge_dirty(state(), dest, masks, PCFG["block_elems"])
+
+    wall_us, busy_us = _traced(torch, one_round, tag)
+    idle = 1.0 - busy_us / wall_us if busy_us > 0 else None
+    print(f"[{tag}] one traced pre-copy round: wall {wall_us / 1e3:.4f} ms, "
+          f"device busy {busy_us / 1e3:.4f} ms, idle share {idle}")
+    if not all(_same_bytes(torch, a, b) for a, b in
+               zip(tree.leaves(dest), tree.leaves(state()))):
+        raise AssertionError(f"{tag}: traced round left the destination "
+                             f"behind")
+    return wall_us, busy_us, idle
+
+
+def _resume_on_destination(torch, decode, params, box, dest, tag: str,
+                           steps: int = 8) -> float:
+    """Decode resumes on the destination as on the live replica (the same
+    tokens); then ``steps`` timed steps there. Returns s per step."""
+    t_live, l_live, _ = decode(params, box["tok"], box["cache"])
+    tok, l_dest, dcache = decode(dest["params"], box["tok"], dest["cache"])
+    if not torch.equal(t_live, tok):
+        raise AssertionError(f"{tag}: decode on the destination picks other "
+                             f"tokens")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, _, dcache = decode(dest["params"], tok, dcache)
+    torch.cuda.synchronize()
+    t_tok = (time.perf_counter() - t0) / steps
+    print(f"[{tag}] decode resumed on the destination (tokens equal, logits "
+          f"max diff {float((l_live - l_dest).abs().max())}); decode "
+          f"{1e3 * t_tok:.4f} ms per step of {SERVE_BATCH} tokens")
+    return t_tok
 
 
 def phase_serve(torch, ops_mod, ref, dirty_delta):
@@ -649,36 +712,10 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
     print(f"[serve] dirty_delta on both KV rings after a decode step: "
           f"bit-equal to the plain version, {ring_blocks} dirty blocks each")
 
-    # one more pre-copy round, traced: decode, scan, merge
-    def one_round():
-        decode_once()
-        masks, _, _ = precopy.dirty_scan(state(), dest, PCFG["block_elems"])
-        precopy.merge_dirty(state(), dest, masks, PCFG["block_elems"])
-
-    wall_us, busy_us = _traced(torch, one_round, "serve")
-    idle = 1.0 - busy_us / wall_us if busy_us > 0 else None
-    print(f"[serve] one traced pre-copy round: wall {wall_us / 1e3:.4f} ms, "
-          f"device busy {busy_us / 1e3:.4f} ms, idle share {idle}")
-    if not all(_same_bytes(torch, a, b) for a, b in
-               zip(tree.leaves(dest), tree.leaves(state()))):
-        raise AssertionError("traced round left the destination behind")
-
-    # decode resumes on the destination, as on the live replica
-    t_live, l_live, _ = decode(params, box["tok"], box["cache"])
-    tok, l_dest, dcache = decode(dest["params"], box["tok"], dest["cache"])
-    if not torch.equal(t_live, tok):
-        raise AssertionError("decode on the destination picks other tokens")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = 8
-    for _ in range(steps):
-        tok, _, dcache = decode(dest["params"], tok, dcache)
-    torch.cuda.synchronize()
-    t_tok = (time.perf_counter() - t0) / steps
-    print(f"[serve] decode resumed on the destination (tokens equal, logits "
-          f"max diff {float((l_live - l_dest).abs().max())}); decode "
-          f"{1e3 * t_tok:.4f} ms per step of {SERVE_BATCH} tokens")
-    del r, params, batch, dest, live, box, cache, dcache, logits
+    wall_us, busy_us, idle = _traced_round(torch, decode_once, state, dest,
+                                           "serve")
+    t_tok = _resume_on_destination(torch, decode, params, box, dest, "serve")
+    del r, params, batch, dest, live, box, cache, logits
     torch.cuda.empty_cache()
     return launches, {
         "state_gb": rep.v_mem / 1e9, "prefill_s": t_prefill,
@@ -690,34 +727,43 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
         "round_device_busy_ms": busy_us / 1e3, "round_idle_share": idle}
 
 
+def _card_and_cpu(torch, cfg, batch: int = 2, prompt: int = 128,
+                  steps: int = 8):
+    """``cfg`` prefilled (``batch`` x ``prompt``) and decoded ``steps``
+    greedy tokens on the card and on the CPU from the same weights.
+    Returns ((card logits, card tokens), (CPU logits, CPU tokens))."""
+    from repro_torch import tree
+    from repro_torch.data import make_batch
+    from repro_torch.models import lm
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    p_card = lm.init_params(cfg, SEED, device="cuda")
+    runs = {}
+    for dev, params in (("cuda", p_card),
+                        ("cpu", tree.map(lambda t: t.cpu(), p_card))):
+        b = make_batch(cfg, batch, prompt, device=dev)
+        b.pop("targets")
+        logits, cache = make_prefill_step(cfg, prompt + steps)(params, b)
+        decode = make_decode_step(cfg)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        rows, toks = [logits.cpu()], [tok.cpu()]
+        for _ in range(steps):
+            tok, logits, cache = decode(params, tok, cache)
+            rows.append(logits.cpu())
+            toks.append(tok.cpu())
+        runs[dev] = torch.stack(rows), torch.cat(toks, 1)
+    return runs["cuda"], runs["cpu"]
+
+
 def phase_serve_cpu_check(torch):
     """The same model 2 layers deep in f32 (batch 2, prompt 128, 8 greedy
     tokens) on the card and on the CPU, from the same weights. TF32 is
     off, so the two differ only in summation order: logits within rtol
     1e-3 / atol 1e-3, tokens equal."""
-    from repro_torch import tree
     from repro_torch.configs import get_config
-    from repro_torch.data import make_batch
-    from repro_torch.models import lm
-    from repro_torch.train import make_decode_step, make_prefill_step
 
     cfg = get_config(ARCH).replace(num_layers=2, param_dtype="float32")
-    p_card = lm.init_params(cfg, SEED, device="cuda")
-    runs = {}
-    for dev, params in (("cuda", p_card),
-                        ("cpu", tree.map(lambda t: t.cpu(), p_card))):
-        batch = make_batch(cfg, 2, 128, device=dev)
-        batch.pop("targets")
-        logits, cache = make_prefill_step(cfg, 128 + 8)(params, batch)
-        decode = make_decode_step(cfg)
-        tok = logits.argmax(-1)[:, None].to(torch.int32)
-        rows, toks = [logits.cpu()], [tok.cpu()]
-        for _ in range(8):
-            tok, logits, cache = decode(params, tok, cache)
-            rows.append(logits.cpu())
-            toks.append(tok.cpu())
-        runs[dev] = torch.stack(rows), torch.cat(toks, 1)
-    (lg, tg), (lc, tc) = runs["cuda"], runs["cpu"]
+    (lg, tg), (lc, tc) = _card_and_cpu(torch, cfg)
     err = (lg - lc).abs()
     if not torch.equal(tg, tc) or \
             not bool((err <= 1e-3 + 1e-3 * lc.abs()).all()):
@@ -728,6 +774,492 @@ def phase_serve_cpu_check(torch):
           f"err {float(err.max()):.6g} (size {float(lc.abs().max()):.4f}), "
           f"9 x 2 greedy tokens equal")
     return float(err.max())
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the SSM serving path and kernel B4
+# ---------------------------------------------------------------------------
+SSM_ARCH, RWKV_ARCH = "zamba2_2p7b", "rwkv6_1p6b"
+# cache slots past the prompt: 8 migration steps, a traced round, a resume
+# check and 8 timed steps on the destination
+SSM_TOKENS = 24
+RWKV_STEPS = 8
+SCAN_TOL = 2e-4           # rtol and atol of tests/test_kernels.py's ssm scan
+# f32 sums over thousands of tokens: atol also scales with the output's
+# peak (PERF.md), as B1's does above N = 2048
+SCAN_PEAK_ATOL = 1e-6
+CPU_CHECK_RTOL = 1e-4     # card against CPU in f32, relative to the peak
+
+
+def _distinct_bytes(t) -> int:
+    """Bytes a function must read of ``t``: its distinct elements (a
+    stride-0 dimension holds one), each once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _scan_flops(B: int, H: int, S: int, Dk: int, Dv: int, *,
+                qk_shared: bool = False) -> float:
+    """The scan's least work: the chunked form's flops at the chunk size Q
+    that needs fewest (B4 itself runs Q = 32). Per (b, h): the state's
+    readout and update (2 S Dk Dv each) and its decay once per chunk
+    (Dk Dv); per chunk, for each causal pair, the score (2 Dk, once per b
+    when every head shares q and k, then 1 for the head's decay) and its
+    product with v (2 Dv). Exponentials and scalings are not counted."""
+    def work(Q: int) -> float:
+        n, r = divmod(S, Q)
+        pairs = n * Q * (Q + 1) // 2 + r * (r + 1) // 2
+        chunks = n + (r > 0)
+        per_pair = 2.0 * Dk / H + 1.0 if qk_shared else 2.0 * Dk
+        return B * H * (pairs * (per_pair + 2.0 * Dv) + chunks * Dk * Dv
+                        + 4.0 * S * Dk * Dv)
+    return min(work(Q) for Q in range(1, min(S, 256) + 1))
+
+
+def _scan_case(torch, g, kind, B, H, S, Dk, Dv, *, dtype=None, ssd=True,
+               decay_scale=0.3, init=False):
+    """Inputs of one B4 case on the card: ((q, k, v, log_decay), bonus,
+    initial state). ``mamba``: q/k broadcast over heads and the per-head
+    decay over Dk (stride-0 views), v a head view of (B, S, H, Dv), decay
+    -exp(U(log 1e-3, log 1.6)) as dt * A spans; ``rwkv``: head views of
+    (B, S, H, D), decay -exp(U(-6, -1)) as ``decay_base`` spans, bonus u;
+    ``plain``: contiguous f32, decay -|N(0, 1)| * ``decay_scale``."""
+    def rn(*shape, dt=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=g).to(dt)
+
+    def neg_exp_u(lo, hi, *shape):
+        u = torch.rand(*shape, device="cuda", generator=g)
+        return -torch.exp(lo + (hi - lo) * u)
+
+    u = None
+    if kind == "mamba":
+        q = rn(B, S, Dk, dt=dtype)[:, None].expand(B, H, S, Dk)
+        k = rn(B, S, Dk, dt=dtype)[:, None].expand(B, H, S, Dk)
+        v = rn(B, S, H, Dv, dt=dtype).permute(0, 2, 1, 3)
+        lw = neg_exp_u(math.log(1e-3), math.log(1.6), B, S, H).permute(
+            0, 2, 1)[..., None].expand(B, H, S, Dk)
+    elif kind == "rwkv":
+        q, k, v = (rn(B, S, H, D, dt=dtype).permute(0, 2, 1, 3)
+                   for D in (Dk, Dk, Dv))
+        lw = neg_exp_u(-6.0, -1.0, B, S, H, Dk).permute(0, 2, 1, 3)
+        u = 0.5 * rn(H, Dk)
+    else:
+        q, k, v = rn(B, H, S, Dk), rn(B, H, S, Dk), rn(B, H, S, Dv)
+        lw = -decay_scale * rn(B, H, S, Dk).abs()
+        u = None if ssd else rn(H, Dk)
+    return (q, k, v, lw), u, (rn(B, H, Dk, Dv) if init else None)
+
+
+def _scan_err(torch, got, want):
+    """(max abs err over y and state, the atol used); raises past
+    rtol/atol SCAN_TOL with the atol raised to SCAN_PEAK_ATOL x the peak."""
+    worst, atol_used = 0.0, SCAN_TOL
+    for a, b in zip(got, want):
+        atol = max(SCAN_TOL, SCAN_PEAK_ATOL * float(b.abs().max()))
+        err = (a - b).abs()
+        if not bool((err <= atol + SCAN_TOL * b.abs()).all()):
+            raise AssertionError(f"max abs err {float(err.max())} over "
+                                 f"atol {atol}")
+        worst, atol_used = max(worst, float(err.max())), max(atol_used, atol)
+    return worst, atol_used
+
+
+def phase_ssm_kernel(torch, ref, gla, ssm_scan):
+    """B4 against its plain version (``gla_chunked`` on the card) at
+    zamba2's and rwkv6's prefill shapes, and against the step recurrence
+    too on the edges; a second launch must be bit-equal. Returns the
+    record at zamba2's shape."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16 = torch.bfloat16
+    cases = [  # name, kind, (B, H, S, Dk, Dv), options, step oracle
+        ("zamba2 prefill: SSD, stride-0 bf16 q/k, f32 decay", "mamba",
+         (SERVE_BATCH, 80, SERVE_PROMPT, 64, 64), dict(dtype=bf16), False),
+        ("rwkv6 prefill: RWKV + u, bf16 r/k/v", "rwkv",
+         (SERVE_BATCH, 32, SERVE_PROMPT, 64, 64), dict(dtype=bf16), False),
+        ("S=1 SSD f32", "plain", (2, 3, 1, 64, 64), dict(ssd=True), True),
+        ("S=33 RWKV f32", "plain", (2, 3, 33, 64, 64), dict(ssd=False),
+         True),
+        ("S=4095 SSD f32", "plain", (2, 3, 4095, 64, 64), dict(ssd=True),
+         True),
+        ("S=4095 RWKV f32", "plain", (2, 3, 4095, 64, 64),
+         dict(ssd=False), True),
+        ("decay below the clamp, RWKV", "plain", (2, 3, 100, 64, 64),
+         dict(ssd=False, decay_scale=6.0), True),
+        ("initial state, SSD", "plain", (2, 3, 70, 64, 64),
+         dict(ssd=True, init=True), True),
+        ("initial state, RWKV", "plain", (2, 3, 70, 64, 64),
+         dict(ssd=False, init=True), True),
+        ("smoke dims Dk=16 Dv=32, stride-0 bf16", "mamba", (2, 8, 45, 16, 32),
+         dict(dtype=bf16), True),
+    ]
+    record = None
+    for name, kind, (B, H, S, Dk, Dv), kw, step in cases:
+        ins, u, s0 = _scan_case(torch, g, kind, B, H, S, Dk, Dv, **kw)
+        got = ssm_scan.ssm_scan(*ins, u, s0)
+        again = ssm_scan.ssm_scan(*ins, u, s0)
+        want = gla.gla_chunked(*ins, bonus=u, initial_state=s0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssm_scan not deterministic on {name}")
+        try:
+            err, atol = _scan_err(torch, got, want)
+            if step:
+                err_ref, _ = _scan_err(torch, got, ref.ssm_scan_ref(
+                    *ins, bonus=u, initial_state=s0))
+        except AssertionError as e:
+            raise AssertionError(f"ssm_scan disagrees on {name}: {e}")
+        line = (f"[ssm] ssm_scan {name} {(B, H, S, Dk, Dv)}: max_abs_err "
+                f"{err:.6g} (atol {atol:.3g}, y peak "
+                f"{float(want[0].abs().max()):.4g})")
+        if step:
+            line += f", against the step recurrence {err_ref:.6g}"
+        if kind != "plain" and not step:
+            ms = _median_ms(lambda: ssm_scan.ssm_scan(*ins, u, s0))
+            plain = _median_ms(lambda: gla.gla_chunked(
+                *ins, bonus=u, initial_state=s0), 5)
+            nbytes = (sum(_distinct_bytes(t) for t in ins)
+                      + 4.0 * B * H * (S * Dv + Dk * Dv)
+                      + (0 if u is None else _distinct_bytes(u)))
+            shared = ins[0].stride(1) == 0 and ins[1].stride(1) == 0
+            bound, by = _bound_ms(
+                _scan_flops(B, H, S, Dk, Dv, qk_shared=shared), nbytes)
+            line += (f"; kernel {ms:.4f} ms plain {plain:.4f} ms bound "
+                     f"{bound:.6g} ms ({by}, {nbytes / 1e9:.4f} GB)")
+            if record is None:
+                record = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by, library_ms=None)
+        print(line + ", bit-equal on a second launch")
+        del ins, u, s0, got, again, want
+        torch.cuda.empty_cache()
+    return record
+
+
+def _plain_dirty_counts(torch, ref, live, shadow, block: int):
+    """Per-leaf dirty-block counts of B3's plain version (an exact != for
+    integer leaves) on the pair of trees a scan compares."""
+    from repro_torch import tree
+    counts = []
+    for n, o in zip(tree.leaves(live), tree.leaves(shadow)):
+        n, o = n.reshape(-1), o.reshape(-1)
+        if n.is_floating_point():
+            d = ref.max_abs_delta_ref(n, o, block)[:, 0] > 0
+        else:
+            d = ref.block_reduce(n != o, block, torch.any)
+        counts.append(int(d.sum()))
+    return counts
+
+
+def _conv_dirty_blocks(conv_shape, seq_tokens, pos: int, block: int):
+    """(least, most) blocks of the stacked bf16 conv state (L, B, W-1, C)
+    that the decode step at position ``pos`` dirties. Layers past the
+    first take the mixed residual stream, so every block there changes. A
+    row of the first layer holds the projection of one token's embedding:
+    a shift leaves it bit-equal where the token it now holds is the token
+    it held (a repeat, common in Zipfian text) and both rows came from the
+    same matmul (prefill's, or decode's); where one came from each, the two
+    products may or may not round alike, so such a block counts in the
+    most and not in the least. ``seq_tokens``: (B, pos + 1) token ids."""
+    L, B, R, C = conv_shape
+    total = -(-L * B * R * C // block)
+
+    def row(b, p):                     # what decides a first-layer row
+        return seq_tokens[b][p], p >= SERVE_PROMPT
+
+    status = []                         # per row: dirty, clean or unknown
+    for b in range(B):
+        for r in range(R):
+            new, old = row(b, pos - R + 1 + r), row(b, pos - R + r)
+            status.append("dirty" if new[0] != old[0] else
+                          "clean" if new == old else "unknown")
+    first = B * R * C                   # elements of the first layer
+    clean = unknown = 0
+    for i in range(-(-first // block)):
+        lo, hi = i * block, (i + 1) * block
+        rows = set(status[lo // C: (min(hi, first) - 1) // C + 1])
+        if hi > first or "dirty" in rows:
+            continue
+        if rows == {"clean"}:
+            clean += 1
+        else:
+            unknown += 1
+    return total - clean - unknown, total - clean
+
+
+def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str):
+    """Prefill once more with CUDA events around every layer, every B4
+    launch and every application of B5's function (causal attention over
+    the prompt, plain torch in this port); print and return ms per part
+    and its share of the whole. Launch counts are not read here."""
+    from repro_torch.models import blocks, lm
+    pending = []
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            pending.append((key, a, b))
+            return out
+        return run
+
+    apply_block, scan = lm.apply_block, ops_mod.ssm_scan
+    attention = blocks._chunked_causal_attention
+    lm.apply_block = lambda kind, *a, **kw: timed(
+        f"{kind}_layers", apply_block)(kind, *a, **kw)
+    ops_mod.ssm_scan = timed("b4_ssm_scan", scan)
+    blocks._chunked_causal_attention = timed("b5_function_plain", attention)
+    try:
+        out = timed("prefill", prefill)(params, batch)
+        torch.cuda.synchronize()
+    finally:
+        lm.apply_block, ops_mod.ssm_scan = apply_block, scan
+        blocks._chunked_causal_attention = attention
+    del out
+    ms, counts = {}, {}
+    for key, a, b in pending:
+        ms[key] = ms.get(key, 0.0) + a.elapsed_time(b)
+        counts[key] = counts.get(key, 0) + 1
+    whole = ms.pop("prefill")
+    counts.pop("prefill")
+    parts = ", ".join(f"{k} x{counts[k]} {v:.4f} ms ({v / whole:.4f})"
+                      for k, v in ms.items())
+    print(f"[{tag}] event-timed second prefill {whole:.4f} ms: {parts}")
+    return {"prefill_event_ms": whole,
+            **{f"{k}_ms": v for k, v in ms.items()}}
+
+
+def phase_ssm_serve(torch, ops_mod, ref):
+    """A full-width, full-depth zamba2-2.7b replica: prefill (45 B4
+    launches), then pre-copy with one decode step per round. Each round's
+    pair of trees is also scanned by B3's plain version; its per-leaf
+    counts must be every SSD-state block, the conv-state blocks the step
+    changed (``_conv_dirty_blocks``), the ring blocks of the slot decode
+    wrote and ``pos``, and its total the kernel's. Returns (prefill
+    launches, migration launches, numbers to keep)."""
+    from repro_torch import tree
+    from repro_torch.core import precopy
+    from repro_torch.launch.serve import build_replica
+    from repro_torch.models import lm
+
+    block = PCFG["block_elems"]
+    t0 = time.perf_counter()
+    r = build_replica(SSM_ARCH, SERVE_BATCH, SERVE_PROMPT, SSM_TOKENS,
+                      smoke=False, seed=SEED, device="cuda")
+    cfg, params, decode = r.cfg, r.params, r.decode
+    n_groups, per = lm._group_shape(cfg)
+    W = SERVE_PROMPT + SSM_TOKENS
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = r.prefill(params, r.batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = ops_mod.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if prefill_launches["ssm_scan"] != n_groups * per:
+        raise AssertionError(f"zamba2 prefill launched {prefill_launches}, "
+                             f"want {n_groups * per} ssm_scan")
+    if logits.shape != (SERVE_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("zamba2 prefill logits are not finite or "
+                             "misshapen")
+    split = _timed_prefill(torch, ops_mod, r.prefill, params, r.batch, "ssm")
+    box = {"cache": cache, "produced": 0, "decode_s": [], "check_s": 0.0,
+           "tok": logits.argmax(-1)[:, None].to(torch.int32),
+           "fed": [r.batch["tokens"].cpu()]}
+
+    def state():
+        return {"params": params, "cache": box["cache"]}
+
+    def decode_once():
+        box["tok"], _, box["cache"] = decode(params, box["tok"], box["cache"])
+        box["produced"] += 1
+
+    def step_and_check():
+        box["fed"].append(box["tok"].cpu())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decode_once()
+        torch.cuda.synchronize()
+        box["decode_s"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        box["plain"].append(_plain_dirty_counts(torch, ref, state(),
+                                                box["shadow"], block))
+        box["check_s"] += time.perf_counter() - t
+
+    def keep_shadow(t):                  # the scan's record, as it merges
+        box["shadow"], box["plain"] = t, []
+        return t
+
+    v_params = precopy.total_bytes(params)
+    print(f"[ssm] {SSM_ARCH} full width and depth ({n_groups} groups of "
+          f"{per} Mamba2 layers + shared attention), "
+          f"{sum(t.numel() for t in tree.leaves(params))} params "
+          f"({v_params / 1e9:.4f} GB), init {t_init:.4f} s; prefill "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} in {t_prefill:.4f} s, peak "
+          f"{peak:.4f} GB, launches {prefill_launches}")
+
+    ops_mod.reset_launch_counts()
+    dest, rep = precopy.migrate(state, step_and_check,
+                                precopy.PrecopyConfig(**PCFG),
+                                placement=keep_shadow)
+    launches = ops_mod.launch_counts()
+    out = rep.outcome
+    live = state()
+    if not all(_same_bytes(torch, a, b) for a, b in
+               zip(tree.leaves(dest), tree.leaves(live))):
+        raise AssertionError("zamba2 destination differs from the live "
+                             "replica")
+    # what each round must find, leaf by leaf
+    conv, ssd = live["cache"]["mamba"]
+    kinds = {id(conv): "conv", id(ssd): "ssd", id(live["cache"]["pos"]): "pos",
+             **{id(t): "ring" for t in live["cache"]["shared_attn"].values()}}
+    leaves = tree.leaves(live)
+    seq_tokens = torch.cat(box["fed"], dim=1).tolist()
+    slots = [SERVE_PROMPT + k for k in range(box["produced"])]
+    plain_bytes, conv_clean = [], []
+    for slot, counts in zip(slots, box["plain"]):
+        ring = (_ring_dirty_bytes(cfg, SERVE_BATCH, W, slot, block,
+                                  layers=n_groups) - 4 * block) // (4 * block)
+        want = {"conv": _conv_dirty_blocks(tuple(conv.shape), seq_tokens,
+                                           slot, block),
+                "ssd": -(-ssd.numel() // block), "pos": 1, "ring": ring}
+        for t, c in zip(leaves, counts):
+            kind = kinds.get(id(t), "param")
+            need = want.get(kind, 0)
+            least, most = need if isinstance(need, tuple) else (need, need)
+            if kind == "conv":
+                conv_clean.append(-(-t.numel() // block) - c)
+            if not least <= c <= most:
+                raise AssertionError(f"round at slot {slot}: a {kind} leaf "
+                                     f"{tuple(t.shape)} has {c} dirty blocks"
+                                     f", want {need}")
+        plain_bytes.append(sum(c * block * t.element_size()
+                               for t, c in zip(leaves, counts)))
+    if rep.per_round_dirty_bytes[1:] != plain_bytes or \
+            box["produced"] != out.rounds or out.stop_reason != "max_rounds":
+        raise AssertionError(f"zamba2 migration: per-round bytes "
+                             f"{rep.per_round_dirty_bytes} against B3's plain"
+                             f" version {plain_bytes}, {out.rounds} rounds, "
+                             f"stop {out.stop_reason}")
+    n_float = sum(t.is_floating_point() for t in leaves)
+    if launches["dirty_blocks"] != n_float * len(rep.scan_seconds):
+        raise AssertionError(f"zamba2 migration launched {launches}")
+    blocks = sum(-(-t.numel() // block) for t in leaves)
+    scan_bound, _ = _bound_ms(0.0, 2.0 * rep.v_mem + 4.0 * blocks)
+    scan_ms = [1e3 * s for s in rep.scan_seconds]
+    wall = rep.wall_time - box["check_s"]
+    print(f"[ssm] state {rep.v_mem / 1e9:.4f} GB (cache "
+          f"{(rep.v_mem - v_params) / 1e9:.4f} GB: SSD {ssd.numel() * 4 / 1e9:.4f}"
+          f" GB, conv {conv.numel() * conv.element_size() / 1e9:.4f} GB); "
+          f"migrate {out.rounds} rounds, stop {out.stop_reason}, bytes sent "
+          f"/ v_mem {out.bytes_sent / rep.v_mem:.6f} (round 1 re-sent "
+          f"{plain_bytes[0] / 1e9:.4f} GB), wall "
+          f"{wall:.4f} s without the plain checks ({box['check_s']:.4f} s); "
+          f"per-round bytes {rep.per_round_dirty_bytes[1:]} equal B3's plain"
+          f" version on each round's pair: every SSD block dirty, every conv "
+          f"block but those of the first layer whose rows' tokens repeat "
+          f"(clean per round {conv_clean}), ring blocks those of the slots "
+          f"written; destination bit-equal; launches {launches}")
+    print(f"[ssm] scan ms per round {[round(t, 4) for t in scan_ms]} "
+          f"against a bound of {scan_bound:.4f} ms (bytes); decode ms per "
+          f"step during the migration "
+          f"{[round(1e3 * t, 4) for t in box['decode_s']]}")
+    if max(scan_ms) > SCAN_LIMIT * scan_bound:
+        raise AssertionError(f"a zamba2 scan took {max(scan_ms):.4f} ms, "
+                             f"over {SCAN_LIMIT} x its bound")
+
+    wall_us, busy_us, idle = _traced_round(torch, decode_once, state, dest,
+                                           "ssm")
+    t_tok = _resume_on_destination(torch, decode, params, box, dest, "ssm")
+    del r, params, dest, live, box, cache, logits, conv, ssd, leaves
+    torch.cuda.empty_cache()
+    return prefill_launches, launches, {
+        "state_gb": rep.v_mem / 1e9, "prefill_s": t_prefill,
+        "prefill_peak_gb": peak, "decode_ms_per_step": 1e3 * t_tok,
+        "scan_ms": scan_ms, "scan_bound_ms": scan_bound,
+        "rounds": out.rounds, "stop_reason": out.stop_reason,
+        "bytes_sent_over_v_mem": out.bytes_sent / rep.v_mem,
+        "round_resend_gb": plain_bytes[0] / 1e9, "migrate_wall_s": wall,
+        "round_traced_ms": wall_us / 1e3,
+        "round_device_busy_ms": busy_us / 1e3, "round_idle_share": idle,
+        "prefill_split": split}
+
+
+def phase_rwkv_serve(torch, ops_mod):
+    """A full-width, full-depth rwkv6-1.6b replica served: prefill (24 B4
+    launches) and RWKV_STEPS greedy decode steps."""
+    from repro_torch import tree
+    from repro_torch.launch.serve import build_replica
+
+    r = build_replica(RWKV_ARCH, SERVE_BATCH, SERVE_PROMPT, RWKV_STEPS,
+                      smoke=False, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = r.prefill(r.params, r.batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    t0 = time.perf_counter()
+    for _ in range(RWKV_STEPS):
+        tok, logits, cache = r.decode(r.params, tok, cache)
+    torch.cuda.synchronize()
+    t_tok = (time.perf_counter() - t0) / RWKV_STEPS
+    launches = ops_mod.launch_counts()
+    if launches["ssm_scan"] != r.cfg.num_layers:
+        raise AssertionError(f"rwkv6 serving launched {launches}, want "
+                             f"{r.cfg.num_layers} ssm_scan")
+    if not bool(torch.isfinite(logits.float()).all()) or \
+            int(cache["pos"]) != SERVE_PROMPT + RWKV_STEPS:
+        raise AssertionError("rwkv6 decode logits are not finite")
+    split = _timed_prefill(torch, ops_mod, r.prefill, r.params, r.batch,
+                           "ssm")
+    n = sum(t.numel() for t in tree.leaves(r.params))
+    v_cache = sum(t.numel() * t.element_size() for t in tree.leaves(cache))
+    print(f"[ssm] {RWKV_ARCH} full width and depth, {n} params; prefill "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} in {t_prefill:.4f} s, peak "
+          f"{peak:.4f} GB; state cache {v_cache / 1e9:.4f} GB; decode "
+          f"{1e3 * t_tok:.4f} ms per step of {SERVE_BATCH} tokens (mean of "
+          f"{RWKV_STEPS}); launches {launches}")
+    del r, cache, logits
+    torch.cuda.empty_cache()
+    return launches, {"prefill_s": t_prefill, "prefill_peak_gb": peak,
+                      "decode_ms_per_step": 1e3 * t_tok,
+                      "prefill_split": split}
+
+
+def phase_ssm_cpu_check(torch):
+    """Both models at full width and shallow depth in f32 on the card
+    against the CPU: zamba2 one group deep (5 Mamba2 layers and the shared
+    block), rwkv6 2 layers. Logits within CPU_CHECK_RTOL of their peak,
+    greedy tokens equal."""
+    from repro_torch.configs import get_config
+
+    errs = {}
+    for arch, layers in ((SSM_ARCH, 6), (RWKV_ARCH, 2)):
+        cfg = get_config(arch).replace(num_layers=layers,
+                                       param_dtype="float32")
+        (lg, tg), (lc, tc) = _card_and_cpu(torch, cfg)
+        err, size = float((lg - lc).abs().max()), float(lc.abs().max())
+        if not torch.equal(tg, tc) or err > CPU_CHECK_RTOL * size:
+            raise AssertionError(f"{arch}: card and CPU differ: tokens equal "
+                                 f"{torch.equal(tg, tc)}, max abs err {err} "
+                                 f"on logits of size {size}")
+        print(f"[ssm] {arch} full width, {layers} layers, f32: card and CPU "
+              f"logits max abs err {err:.6g} (size {size:.4f}), 9 x 2 greedy "
+              f"tokens equal")
+        errs[arch] = err
+    return errs
 
 
 def main() -> int:
@@ -742,6 +1274,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.kernels import autocorr, build, dft, dirty_delta, ops, ref
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.models import gla
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -750,12 +1284,16 @@ def main() -> int:
     secs = build.build_all(verbose=True)
     print(f"[build] {secs:.4f} s")
     records = phase_kernels(torch, ops, ref, dft, autocorr)
+    records["ssm_scan"] = phase_ssm_kernel(torch, ref, gla, ssm_scan)
     tick_launches, tick_times = phase_tick(torch, np, ops)
     fleet_launches = phase_fleet(torch, ops)
     records["dirty_delta"] = phase_dirty_delta(torch, ref, dirty_delta)
     phase_placement(torch)
     serve_launches, serve_times = phase_serve(torch, ops, ref, dirty_delta)
     serve_times["card_vs_cpu_max_abs_err"] = phase_serve_cpu_check(torch)
+    ssm_prefill, ssm_migrate, ssm_times = phase_ssm_serve(torch, ops, ref)
+    rwkv_launches, ssm_times["rwkv6"] = phase_rwkv_serve(torch, ops)
+    ssm_times["card_vs_cpu_max_abs_err"] = phase_ssm_cpu_check(torch)
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -765,11 +1303,14 @@ def main() -> int:
                             "autocorr_score"),
                "dirty_delta": ("src/repro_torch/kernels/csrc/dirty_delta.cu",
                                "src/repro/kernels/dirty_delta.py:56",
-                               "dirty_blocks")}
+                               "dirty_blocks"),
+               "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                            "src/repro/kernels/ssm_scan.py:90", "ssm_scan")}
+    paths = (tick_launches, fleet_launches, serve_launches, ssm_prefill,
+             ssm_migrate, rwkv_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
-        launches = sum(path[op] for path in (tick_launches, fleet_launches,
-                                             serve_launches))
+        launches = sum(path[op] for path in paths)
         if launches < 1:
             raise AssertionError(f"{name} never launched on its path")
         kernels.append(dict(
@@ -777,6 +1318,7 @@ def main() -> int:
             launches=launches, **records[name]))
     print("[tick] " + json.dumps(tick_times))
     print("[serve] " + json.dumps(serve_times))
+    print("[ssm] " + json.dumps(ssm_times))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

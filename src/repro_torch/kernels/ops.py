@@ -1,5 +1,6 @@
 """The port's accelerated ops, dispatched by the tensor's device: the cycle
-fit's spectrum and lag scores, and pre-copy's dirty-block scan.
+fit's spectrum and lag scores, pre-copy's dirty-block scan and the SSM
+layers' chunked scan.
 
   ==============  ===============================  ===========================
   op              CUDA tensor                      CPU tensor
@@ -10,6 +11,7 @@ fit's spectrum and lag scores, and pre-copy's dirty-block scan.
   dirty_blocks    dirty_delta.max_abs_delta        ref.max_abs_delta_ref
                   (dirty_delta.cu), float dtypes   (integer and bool dtypes:
                                                    exact != on any device)
+  ssm_scan        ssm_scan.ssm_scan (ssm_scan.cu)  models/gla.gla_chunked
   ==============  ===============================  ===========================
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
@@ -19,7 +21,7 @@ run. ``launch_counts`` reads the kernels' launch counters.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,6 +29,8 @@ from repro_torch.kernels import autocorr as _ac
 from repro_torch.kernels import dft as _dft
 from repro_torch.kernels import dirty_delta as _dd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ss
+from repro_torch.models import gla
 
 
 def _device_type(x: torch.Tensor) -> str:
@@ -76,9 +80,24 @@ def dirty_blocks(new: torch.Tensor, old: torch.Tensor,
     return d[:, 0] > threshold
 
 
+def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_decay: torch.Tensor, *, bonus: Optional[torch.Tensor] = None,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked gated-linear-attention scan: q, k, log_decay (B, H, S, Dk),
+    v (B, H, S, Dv), any strides -> (y (B, H, S, Dv) f32, final state
+    (B, H, Dk, Dv) f32). ``bonus`` (H, Dk) selects RWKV semantics, else
+    SSD; ``initial_state`` (B, H, Dk, Dv) defaults to zeros."""
+    if _device_type(q) == "cuda":
+        return _ss.ssm_scan(q, k, v, log_decay, bonus, initial_state)
+    return gla.gla_chunked(q, k, v, log_decay, bonus=bonus,
+                           initial_state=initial_state)
+
+
 KERNELS = {"power_spectrum": _dft.power_spectrum,
            "autocorr_score": _ac.autocorr_score,
-           "dirty_blocks": _dd.max_abs_delta}
+           "dirty_blocks": _dd.max_abs_delta,
+           "ssm_scan": _ss.ssm_scan}
 
 
 def launch_counts() -> Dict[str, int]:

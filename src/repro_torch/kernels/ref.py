@@ -9,6 +9,11 @@ and return float32, which makes them the yardstick the f32 kernels are held
 to on the card; the third must equal its kernel bit for bit.
 ``kernels/ops.py`` sends every CPU tensor here, so they are also the CPU
 path of the port.
+
+The SSM scan (``csrc/ssm_scan.cu``) has two: its chunked plain version,
+``models/gla.gla_chunked`` (the op's CPU path), and ``ssm_scan_ref`` here,
+the token-by-token recurrence of decode, which shares nothing with the
+chunked decomposition and is the strongest oracle for both.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from repro_torch.models import gla
 
 _TABLE_CACHE_MAX = 2
 _TABLE_CACHE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = \
@@ -89,3 +96,24 @@ def max_abs_delta_ref(new: torch.Tensor, old: torch.Tensor,
         block = new.shape[1]
     d = (new.reshape(-1).float() - old.reshape(-1).float()).abs()
     return block_reduce(d, block, torch.amax)[:, None]
+
+
+def ssm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_decay: torch.Tensor, *,
+                 bonus: Optional[torch.Tensor] = None,
+                 initial_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSM scan token by token (``gla.gla_decode_step`` S times):
+    q/k/log_decay (B, H, S, Dk), v (B, H, S, Dv) -> (y (B, H, S, Dv) f32,
+    final state (B, H, Dk, Dv) f32). ``bonus`` (H, Dk) selects RWKV
+    semantics, else SSD; ``initial_state`` defaults to zeros."""
+    B, H, S, Dk = q.shape
+    state = (torch.zeros((B, H, Dk, v.shape[-1]), dtype=torch.float32,
+                         device=q.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(S):
+        y, state = gla.gla_decode_step(q[:, :, t], k[:, :, t], v[:, :, t],
+                                       log_decay[:, :, t], state, bonus=bonus)
+        ys.append(y)
+    return torch.stack(ys, dim=2), state

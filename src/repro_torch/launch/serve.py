@@ -4,7 +4,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b \
       --tokens 32 [--no-smoke] [--device cpu]
 
-``--device`` defaults to the card and raises without one.
+Any config of the dense, SSM and hybrid families runs (``zamba2_2p7b``,
+``rwkv6_1p6b`` too); the MoE ones raise. ``--device`` defaults to the
+card and raises without one.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def build_replica(arch: str, batch: int, prompt_len: int, tokens: int, *,
                   device: DeviceLike = None) -> Replica:
     """Config (``.smoke()`` unless ``smoke=False``), seeded random weights
     and a synthetic prompt batch on ``device`` (``None`` is the card), with
-    a KV cache sized for ``prompt_len + tokens``."""
+    a decode cache sized for ``prompt_len + tokens``."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if smoke:

@@ -33,8 +33,9 @@ def params_from_numpy(cfg: ArchConfig, params: Dict[str, Any], *,
     """The port's params for ``cfg`` from the JAX package's, as numpy.
 
     Keys and shapes must be those of ``lm.init_params(cfg)``; each leaf
-    takes that leaf's dtype (``cfg.dtype``) and lands on ``device``
-    (``None`` is the card)."""
+    takes that leaf's dtype (``cfg.dtype``, or f32 for the SSM leaves the
+    reference keeps in f32: ``A_log``, ``D``, ``dt_bias``, ``decay_base``,
+    ``faaaa``) and lands on ``device`` (``None`` is the card)."""
     dev = resolve_device(device)
     want = lm.init_params(cfg, device="meta")
 

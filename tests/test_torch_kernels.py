@@ -97,8 +97,10 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     ops.power_spectrum(x, center=True)
     ops.autocorr_score(x, torch.arange(5, dtype=torch.int32))
     ops.dirty_blocks(x, x + 1.0, block=100)
+    q = x.reshape(1, 4, 64, 4)
+    ops.ssm_scan(q, q, q, -q.abs())
     assert ops.launch_counts() == {"power_spectrum": 0, "autocorr_score": 0,
-                                   "dirty_blocks": 0}
+                                   "dirty_blocks": 0, "ssm_scan": 0}
 
 
 def test_dft_table_cache_capped():
