@@ -2,12 +2,13 @@
 
 Drives the port's paths, the paper's ALMA decide loop at the fleet size
 its users run, live pre-copy of a full-width serving replica (attention
-and SSM-hybrid) and serving of an RWKV model, and holds every hand-written
-kernel against its plain PyTorch version:
+and SSM-hybrid), serving of an RWKV model and of a full-width qwen3-8b,
+and holds every hand-written kernel against its plain PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
-               ``csrc/dirty_delta.cu`` and ``csrc/ssm_scan.cu`` with nvcc
-               (one process each, in parallel);
+               ``csrc/dirty_delta.cu``, ``csrc/ssm_scan.cu`` and
+               ``csrc/flash_attention.cu`` with nvcc (one process each, in
+               parallel);
   2. kernels — each kernel against its plain version at the tick's shape,
                at FleetSim's Table 3 windows (1,440 and 2,880 samples,
                with the lag grids its refinement scores there) and at
@@ -28,12 +29,14 @@ kernel against its plain PyTorch version:
                bit (the 1.89 GB bf16 ``w_gate`` stack, f32, f16 and f64
                leaves, a ragged tail, an unaligned view, a NaN block); then
                ``h2o_danube3_4b`` at full width in bf16 (13.96 GB of
-               params and KV cache) prefills 16 x 4,096 tokens and
-               pre-copies while one decode step runs per round, the
-               destination checked bit for bit and each round's dirty
-               blocks against the ring slots the decode wrote; then the
-               same model, 2 layers deep in f32, on the card against the
-               CPU;
+               params and KV cache) prefills 16 x 4,096 tokens (24 B5
+               launches, sliding window 4,096), prefills again with CUDA
+               events around its parts, and pre-copies while one decode
+               step runs per round, each scan timed on the host clock and
+               with CUDA events, the destination checked bit for bit and
+               each round's dirty blocks against the ring slots the decode
+               wrote; then the same model, 2 layers deep in f32, on the
+               card against the CPU;
   6. ssm     — first (before any replica is built) the chunked SSM-scan
                kernel against its plain version at zamba2's and rwkv6's
                prefill shapes and on the edges (S of 1, 33 and 4,095, a
@@ -41,21 +44,41 @@ kernel against its plain PyTorch version:
                smoke widths), the edges against the step recurrence too,
                each bit-equal on a second launch; after phase 5, a
                full-width, full-depth ``zamba2_2p7b`` replica (bf16)
-               prefills 16 x 4,096 tokens and pre-copies with one decode
-               step per round, each round's pair of trees also scanned by
-               the dirty-block kernel's plain version (every SSD- and
-               conv-state block dirty, the ring slots written, totals
-               equal); ``rwkv6_1p6b`` at full width and depth prefills and
-               decodes; each model prefills once more with CUDA events
-               around its layers, the scan kernel and the causal attention
-               (where its time goes); both models shallow in f32 on the
-               card against the CPU.
+               prefills 16 x 4,096 tokens (45 B4 and 9 B5 launches) and
+               pre-copies with one decode step per round, each round's
+               pair of trees also scanned by the dirty-block kernel's plain
+               version (every SSD- and conv-state block dirty, the ring
+               slots written, totals equal); ``rwkv6_1p6b`` at full width
+               and depth prefills and decodes; each model prefills once
+               more with CUDA events around its layers, B4 and B5 (where
+               its time goes); both models shallow in f32 on the card
+               against the CPU;
+  7. attn    — first (right after phase 6's kernel checks) the
+               flash-attention kernel B5 against the naive oracle at the
+               three prefills' head shapes and on the edges (S of 1, 33,
+               127 and 4,095, windows 64, 128 and 500, G = 9, the smoke
+               widths), each bit-equal on a second launch and on inputs of
+               the other layout; bf16 outputs within the rounding the
+               kernel's contract allows (``_attn_check``); the window at
+               S = 16,384 against the chunked plain version, its time
+               against the causal one; times of B5, the plain version and
+               ``scaled_dot_product_attention`` at zamba2's and qwen3's
+               prefill shapes, B5 there held against the oracle too.
+               After phase 6, ``qwen3_8b`` at full width and depth (bf16,
+               8.19e9 params) prefills 16 x 4,096 tokens (36 B5
+               launches), decodes 8 steps and prefills again with CUDA
+               events; then 2 layers deep in f32, prompt 1,024, on the
+               card against the CPU. In every replica's event-timed
+               second prefill, B5's first application is held against the
+               oracle on the same q, k, v (the counted prefill's peak
+               memory stays the model's own).
 
 Every phase raises on failure. The kernels' launch counters are set to 0
-before each path (phases 3, 4, 5's migration, 6's two prefills and its
-migration) and read after it: each kernel of the path must have run in
-it. The last lines are the card (``nvidia-smi``), one JSON object per
-kernel, and ``{"ok": true, "device": ...}``.
+before each path (phases 3, 4, 5's prefill and migration, 6's two
+prefills and its migration, 7's prefill) and read after it: each kernel
+of the path must have run in it. The last lines are the card
+(``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
+"device": ...}``.
 
 Run from the repository root with one CUDA device: ``python3 chip_smoke.py``.
 """
@@ -75,6 +98,9 @@ STEADY_TICKS = 8          # one sample per job, then a tick, this many times
 CYCLE_OPS = ("power_spectrum", "autocorr_score")   # the decide loop's kernels
 # H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# bf16 on the tensor cores (a bf16 product with f32 accumulation is the
+# same work there): the least time of bf16 attention
+PEAK_BF16_TENSOR_FLOPS = 989e12
 
 
 def _card_line() -> str:
@@ -101,8 +127,8 @@ def _median_ms(fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def _bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -470,9 +496,9 @@ def _delta_pair(torch, g, n, dtype, block, nan=False):
 
 def phase_dirty_delta(torch, ref, dirty_delta):
     """B3 against its plain version, bit for bit, at the replica's two
-    largest leaf shapes (a KV ring and the stacked ``w_gate``) and the
-    edges; a second launch must equal the first. Returns the record at the
-    ``w_gate`` shape."""
+    largest leaf shapes (a KV ring and the stacked ``w_gate``), the edges
+    and many pairs in one launch; a second launch must equal the first.
+    Returns the record at the ``w_gate`` shape."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     n_ring = 24 * SERVE_BATCH * 4096 * 8 * 120   # K or V ring of ARCH
     n_main = 24 * 3840 * 10240                   # stacked w_gate of ARCH
@@ -519,7 +545,73 @@ def phase_dirty_delta(torch, ref, dirty_delta):
                           bound_ms=bound, bound_by=by, library_ms=None)
         del new, old, got, want
         torch.cuda.empty_cache()
+    _dirty_delta_many(torch, ref, dirty_delta, g)
     return record
+
+
+def _dirty_delta_many(torch, ref, dirty_delta, g):
+    """B3's launch for many pairs against its plain version, bit for bit:
+    MAX_LEAVES + 5 pairs (two launches) of every dtype, each of its own
+    length, some read from unaligned views and some holding a NaN, at a
+    block of whole 16-byte vectors and at one of none."""
+    dtypes = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+    for block in (4096, 1001):
+        news, olds = [], []
+        for i in range(dirty_delta.MAX_LEAVES + 5):
+            skip = int(i % 5 == 0)
+            new, old = _delta_pair(torch, g, 50_000 + 7_919 * i + skip,
+                                   dtypes[i % 4], block, nan=i % 9 == 0)
+            news.append(new[skip:])
+            olds.append(old[skip:])
+        before = dirty_delta.max_abs_delta.launches
+        got = dirty_delta.max_abs_delta_many(news, olds, block)
+        launched = dirty_delta.max_abs_delta.launches - before
+        want = torch.cat([ref.max_abs_delta_ref(n, o, block)[:, 0]
+                          for n, o in zip(news, olds)])
+        if launched != 2 or not _bit_equal(torch, got, want):
+            raise AssertionError(f"dirty_delta on {len(news)} pairs, block "
+                                 f"{block}: {launched} launches, max abs err "
+                                 f"{float((got - want).abs().nan_to_num().max())}")
+        if not _bit_equal(torch, got, dirty_delta.max_abs_delta_many(
+                news, olds, block)):
+            raise AssertionError(f"dirty_delta on many pairs, block {block}:"
+                                 f" not deterministic")
+        print(f"[serve] dirty_delta on {len(news)} pairs of 4 dtypes in "
+              f"{launched} launches, block {block}: {got.numel()} blocks "
+              f"({int((got > 0).sum())} dirty, {int(torch.isnan(got).sum())}"
+              f" NaN), bit-equal to the plain version, bit-equal on a second"
+              f" launch")
+
+
+def _scan_launches(n_float: int) -> int:
+    """B3 launches of one scan of a tree with ``n_float`` float leaves."""
+    from repro_torch.kernels import dirty_delta
+    return -(-n_float // dirty_delta.MAX_LEAVES)
+
+
+def _scan_forms(torch, live, dest, tag: str):
+    """The scan as the migration runs it (B3 once for all float leaves)
+    against one B3 launch per leaf, on the same pair of trees: CUDA-event
+    medians of 5, each to its counts on the host."""
+    from repro_torch import tree
+    from repro_torch.core import precopy
+    from repro_torch.kernels import ops
+
+    block = PCFG["block_elems"]
+    pairs = list(zip(tree.leaves(live), tree.leaves(dest)))
+
+    def per_leaf():
+        masks = [ops.dirty_blocks(n.reshape(-1), o.reshape(-1), block=block)
+                 for n, o in pairs]
+        return torch.stack([m.sum() for m in masks]).tolist()
+
+    one = _median_ms(lambda: precopy.dirty_scan(live, dest, block), 5)
+    each = _median_ms(per_leaf, 5)
+    n_float = sum(n.is_floating_point() for n, _ in pairs)
+    print(f"[{tag}] scan of the whole state, CUDA events, median of 5: "
+          f"{_scan_launches(n_float)} B3 launch(es) for its {n_float} float "
+          f"leaves {one:.4f} ms, one launch per leaf {each:.4f} ms")
+    return {"scan_one_launch_ms": one, "scan_launch_per_leaf_ms": each}
 
 
 def _ring_dirty_bytes(cfg, batch: int, W: int, slot: int, block: int,
@@ -618,8 +710,10 @@ def _resume_on_destination(torch, decode, params, box, dest, tag: str,
 
 
 def phase_serve(torch, ops_mod, ref, dirty_delta):
-    """The full-width replica: prefill, then pre-copy while decode runs;
-    returns the launch counts of the migration and the numbers to keep."""
+    """The full-width replica: prefill (24 B5 launches; the first B5
+    application of the event-timed second prefill held against the
+    oracle), then pre-copy while decode runs; returns the launch counts of
+    the prefill and of the migration and the numbers to keep."""
     from repro_torch import tree
     from repro_torch.core import precopy
     from repro_torch.launch.serve import build_replica
@@ -632,14 +726,14 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
     W = min(SERVE_PROMPT + SERVE_TOKENS, cfg.sliding_window)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, batch)
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
+    logits, cache, t_prefill, peak, prefill_launches = _counted_prefill(
+        torch, ops_mod, prefill, params, batch)
     if logits.shape != (SERVE_BATCH, cfg.vocab_size) or \
             not bool(torch.isfinite(logits.float()).all()):
         raise AssertionError("prefill logits are not finite or misshapen")
+    if prefill_launches["flash_attention"] != ATTN_LAUNCHES[ARCH]:
+        raise AssertionError(f"{ARCH} prefill launched {prefill_launches}, "
+                             f"want {ATTN_LAUNCHES[ARCH]} flash_attention")
     box = {"cache": cache, "produced": 0,
            "tok": logits.argmax(-1)[:, None].to(torch.int32)}
 
@@ -655,11 +749,12 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
     print(f"[serve] {ARCH} full width, {n_params} params ({v_params / 1e9:.4f}"
           f" GB bf16), init {t_init:.4f} s; prefill {SERVE_BATCH} x "
           f"{SERVE_PROMPT} tokens in {t_prefill:.4f} s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.4f} GB")
+          f"{peak:.4f} GB, launches {prefill_launches}")
+    split = _timed_prefill(torch, ops_mod, prefill, params, batch, "serve")
 
     ops_mod.reset_launch_counts()
-    dest, rep = precopy.migrate(state, decode_once,
-                                precopy.PrecopyConfig(**PCFG))
+    dest, rep, scan_dev_ms = _migrate_scan_events(
+        torch, precopy, state, decode_once, precopy.PrecopyConfig(**PCFG))
     launches = ops_mod.launch_counts()
     out = rep.outcome
     live = state()
@@ -674,7 +769,8 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
         raise AssertionError(f"per-round dirty bytes {rep.per_round_dirty_bytes}"
                              f" != the ring slots' {want}")
     n_float = sum(t.is_floating_point() for t in tree.leaves(live))
-    if launches["dirty_blocks"] != n_float * len(rep.scan_seconds):
+    if launches["dirty_blocks"] != _scan_launches(n_float) * len(
+            rep.scan_seconds):
         raise AssertionError(f"migration launched {launches}")
     blocks = sum(-(-t.numel() // PCFG["block_elems"])
                  for t in tree.leaves(live))
@@ -686,11 +782,14 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
           f"{out.bytes_sent / rep.v_mem:.6f}, wall {rep.wall_time:.4f} s; "
           f"per-round dirty bytes {rep.per_round_dirty_bytes[1:]} equal the "
           f"ring slots written; destination bit-equal; launches {launches}")
-    print(f"[serve] scan ms per round {[round(t, 4) for t in scan_ms]} "
-          f"against a bound of {scan_bound:.4f} ms (bytes)")
+    print(f"[serve] scan ms per round, host clock "
+          f"{[round(t, 4) for t in scan_ms]}, CUDA events "
+          f"{[round(t, 4) for t in scan_dev_ms]}, against a bound of "
+          f"{scan_bound:.4f} ms (bytes)")
     if max(scan_ms) > SCAN_LIMIT * scan_bound:
         raise AssertionError(f"a scan took {max(scan_ms):.4f} ms, over "
                              f"{SCAN_LIMIT} x its bound")
+    scan_forms = _scan_forms(torch, state(), dest, "serve")
 
     # B3 against its plain version on both rings, one decode step on
     block = PCFG["block_elems"]
@@ -717,10 +816,12 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
     t_tok = _resume_on_destination(torch, decode, params, box, dest, "serve")
     del r, params, batch, dest, live, box, cache, logits
     torch.cuda.empty_cache()
-    return launches, {
+    return prefill_launches, launches, {
         "state_gb": rep.v_mem / 1e9, "prefill_s": t_prefill,
+        "prefill_peak_gb": peak, "prefill_split": split,
         "decode_ms_per_step": 1e3 * t_tok, "scan_ms": scan_ms,
-        "scan_bound_ms": scan_bound, "rounds": out.rounds,
+        "scan_event_ms": scan_dev_ms,
+        "scan_bound_ms": scan_bound, **scan_forms, "rounds": out.rounds,
         "stop_reason": out.stop_reason,
         "bytes_sent_over_v_mem": out.bytes_sent / rep.v_mem,
         "migrate_wall_s": rep.wall_time, "round_traced_ms": wall_us / 1e3,
@@ -990,11 +1091,15 @@ def _conv_dirty_blocks(conv_shape, seq_tokens, pos: int, block: int):
 
 def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str):
     """Prefill once more with CUDA events around every layer, every B4
-    launch and every application of B5's function (causal attention over
-    the prompt, plain torch in this port); print and return ms per part
-    and its share of the whole. Launch counts are not read here."""
-    from repro_torch.models import blocks, lm
-    pending = []
+    launch and every B5 launch (``ops.flash_attention``: causal attention
+    over the prompt); print and return ms per part and its share of the
+    whole. The first B5 application's q, k, v and output are kept, and
+    after the prefill B5 is held against ``ref.attention_ref`` on them
+    (``_attn_check``): the real activations at batch 16. Launch counts and
+    peak memory are not read here."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+    pending, seen = [], []
 
     def timed(key, fn):
         def run(*args, **kwargs):
@@ -1008,17 +1113,24 @@ def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str):
         return run
 
     apply_block, scan = lm.apply_block, ops_mod.ssm_scan
-    attention = blocks._chunked_causal_attention
+    attention = ops_mod.flash_attention
+
+    def keep_first(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        if not seen:
+            seen.append((q, k, v, kw.get("window", 0), out))
+        return out
+
     lm.apply_block = lambda kind, *a, **kw: timed(
         f"{kind}_layers", apply_block)(kind, *a, **kw)
     ops_mod.ssm_scan = timed("b4_ssm_scan", scan)
-    blocks._chunked_causal_attention = timed("b5_function_plain", attention)
+    ops_mod.flash_attention = timed("b5_flash_attention", keep_first)
     try:
         out = timed("prefill", prefill)(params, batch)
         torch.cuda.synchronize()
     finally:
         lm.apply_block, ops_mod.ssm_scan = apply_block, scan
-        blocks._chunked_causal_attention = attention
+        ops_mod.flash_attention = attention
     del out
     ms, counts = {}, {}
     for key, a, b in pending:
@@ -1029,13 +1141,66 @@ def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str):
     parts = ", ".join(f"{k} x{counts[k]} {v:.4f} ms ({v / whole:.4f})"
                       for k, v in ms.items())
     print(f"[{tag}] event-timed second prefill {whole:.4f} ms: {parts}")
-    return {"prefill_event_ms": whole,
-            **{f"{k}_ms": v for k, v in ms.items()}}
+    split = {"prefill_event_ms": whole,
+             **{f"{k}_ms": v for k, v in ms.items()}}
+    if seen:
+        q, k, v, window, got = seen.pop()
+        err, use = _attn_check(torch, ref, got, q, k, v, window,
+                               f"{tag}'s first attention application")
+        print(f"[{tag}] first attention application {tuple(q.shape)} "
+              f"{str(q.dtype)[6:]} window {window}: B5 against attention_ref, "
+              f"max_abs_err {err:.6g}, {use:.4f} of the limit")
+        split["b5_on_path_max_abs_err"] = err
+    return split
+
+
+def _counted_prefill(torch, ops_mod, prefill, params, batch):
+    """The counted prefill: launch counts set to 0, one prefill timed on the
+    host clock, its peak memory and the counts read. Returns (logits,
+    cache, s, peak GB, launches)."""
+    ops_mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (logits, cache, secs, torch.cuda.max_memory_allocated() / 1e9,
+            ops_mod.launch_counts())
+
+
+def _migrate_scan_events(torch, precopy, *args, **kwargs):
+    """``precopy.migrate`` with CUDA events around each scan as well
+    (C-w6): returns (dest, report, device-clock ms per scan) beside the
+    report's host-clock seconds."""
+    scan, events = precopy.dirty_scan, []
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = scan(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    precopy.dirty_scan = timed
+    try:
+        dest, rep = precopy.migrate(*args, **kwargs)
+    finally:
+        precopy.dirty_scan = scan
+    torch.cuda.synchronize()
+    if len(events) != len(rep.scan_seconds):
+        raise AssertionError(f"{len(events)} scans timed on the device, "
+                             f"{len(rep.scan_seconds)} on the host")
+    return dest, rep, [e0.elapsed_time(e1) for e0, e1 in events]
 
 
 def phase_ssm_serve(torch, ops_mod, ref):
-    """A full-width, full-depth zamba2-2.7b replica: prefill (45 B4
-    launches), then pre-copy with one decode step per round. Each round's
+    """A full-width, full-depth zamba2-2.7b replica: prefill (45 B4 and 9
+    B5 launches; the event-timed second prefill's first B5 application
+    held against the oracle), then
+    pre-copy with one decode step per round. Each round's
     pair of trees is also scanned by B3's plain version; its per-leaf
     counts must be every SSD-state block, the conv-state blocks the step
     changed (``_conv_dirty_blocks``), the ring blocks of the slot decode
@@ -1055,17 +1220,13 @@ def phase_ssm_serve(torch, ops_mod, ref):
     W = SERVE_PROMPT + SSM_TOKENS
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    ops_mod.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits, cache = r.prefill(params, r.batch)
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    prefill_launches = ops_mod.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    if prefill_launches["ssm_scan"] != n_groups * per:
+    logits, cache, t_prefill, peak, prefill_launches = _counted_prefill(
+        torch, ops_mod, r.prefill, params, r.batch)
+    if prefill_launches["ssm_scan"] != n_groups * per or \
+            prefill_launches["flash_attention"] != ATTN_LAUNCHES[SSM_ARCH]:
         raise AssertionError(f"zamba2 prefill launched {prefill_launches}, "
-                             f"want {n_groups * per} ssm_scan")
+                             f"want {n_groups * per} ssm_scan and "
+                             f"{ATTN_LAUNCHES[SSM_ARCH]} flash_attention")
     if logits.shape != (SERVE_BATCH, cfg.vocab_size) or \
             not bool(torch.isfinite(logits.float()).all()):
         raise AssertionError("zamba2 prefill logits are not finite or "
@@ -1107,9 +1268,9 @@ def phase_ssm_serve(torch, ops_mod, ref):
           f"{peak:.4f} GB, launches {prefill_launches}")
 
     ops_mod.reset_launch_counts()
-    dest, rep = precopy.migrate(state, step_and_check,
-                                precopy.PrecopyConfig(**PCFG),
-                                placement=keep_shadow)
+    dest, rep, scan_dev_ms = _migrate_scan_events(
+        torch, precopy, state, step_and_check, precopy.PrecopyConfig(**PCFG),
+        placement=keep_shadow)
     launches = ops_mod.launch_counts()
     out = rep.outcome
     live = state()
@@ -1150,7 +1311,8 @@ def phase_ssm_serve(torch, ops_mod, ref):
                              f" version {plain_bytes}, {out.rounds} rounds, "
                              f"stop {out.stop_reason}")
     n_float = sum(t.is_floating_point() for t in leaves)
-    if launches["dirty_blocks"] != n_float * len(rep.scan_seconds):
+    if launches["dirty_blocks"] != _scan_launches(n_float) * len(
+            rep.scan_seconds):
         raise AssertionError(f"zamba2 migration launched {launches}")
     blocks = sum(-(-t.numel() // block) for t in leaves)
     scan_bound, _ = _bound_ms(0.0, 2.0 * rep.v_mem + 4.0 * blocks)
@@ -1168,13 +1330,16 @@ def phase_ssm_serve(torch, ops_mod, ref):
           f"block but those of the first layer whose rows' tokens repeat "
           f"(clean per round {conv_clean}), ring blocks those of the slots "
           f"written; destination bit-equal; launches {launches}")
-    print(f"[ssm] scan ms per round {[round(t, 4) for t in scan_ms]} "
-          f"against a bound of {scan_bound:.4f} ms (bytes); decode ms per "
+    print(f"[ssm] scan ms per round, host clock "
+          f"{[round(t, 4) for t in scan_ms]}, CUDA events "
+          f"{[round(t, 4) for t in scan_dev_ms]}, against a bound of "
+          f"{scan_bound:.4f} ms (bytes); decode ms per "
           f"step during the migration "
           f"{[round(1e3 * t, 4) for t in box['decode_s']]}")
     if max(scan_ms) > SCAN_LIMIT * scan_bound:
         raise AssertionError(f"a zamba2 scan took {max(scan_ms):.4f} ms, "
                              f"over {SCAN_LIMIT} x its bound")
+    scan_forms = _scan_forms(torch, state(), dest, "ssm")
 
     wall_us, busy_us, idle = _traced_round(torch, decode_once, state, dest,
                                            "ssm")
@@ -1184,7 +1349,8 @@ def phase_ssm_serve(torch, ops_mod, ref):
     return prefill_launches, launches, {
         "state_gb": rep.v_mem / 1e9, "prefill_s": t_prefill,
         "prefill_peak_gb": peak, "decode_ms_per_step": 1e3 * t_tok,
-        "scan_ms": scan_ms, "scan_bound_ms": scan_bound,
+        "scan_ms": scan_ms, "scan_event_ms": scan_dev_ms,
+        "scan_bound_ms": scan_bound, **scan_forms,
         "rounds": out.rounds, "stop_reason": out.stop_reason,
         "bytes_sent_over_v_mem": out.bytes_sent / rep.v_mem,
         "round_resend_gb": plain_bytes[0] / 1e9, "migrate_wall_s": wall,
@@ -1262,6 +1428,268 @@ def phase_ssm_cpu_check(torch):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 7: attention prefill through kernel B5, and a full-width qwen3-8b
+# ---------------------------------------------------------------------------
+DENSE_ARCH = "qwen3_8b"
+DENSE_STEPS = 8
+ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}  # test_kernels.py
+# bf16 outputs are held, tighter, to the rounding B5's contract allows
+# against the oracle's f32 softmax: both outputs rounded to bf16 (u of
+# each) and p rounded to bf16 before P.V (u of sum_k p_k |v_k|). The
+# limit takes 2u on each, which leaves room for the f32 sums.
+BF16_U = 2.0 ** -8
+WINDOW_RATIO_LIMIT = 0.6  # windowed over causal time at S = 16,384
+# B5's launches in one prefill of each replica: one per attention layer
+ATTN_LAUNCHES = {ARCH: 24, SSM_ARCH: 9, DENSE_ARCH: 36}
+
+
+def _attention_pairs(S: int, window: int) -> int:
+    """Causal (query, key) pairs, trimmed to the window when one is set."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _attention_bound(q, k, window: int):
+    """(ms, by) of the least work of attention on these inputs: 4 D flops
+    per causal, window-trimmed pair and head (exponentials not counted), at
+    the bf16 tensor-core peak for bf16 inputs; q, k, v read and the output
+    written once."""
+    B, H, S, D = q.shape
+    flops = 4.0 * B * H * _attention_pairs(S, window) * D
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    peak = PEAK_BF16_TENSOR_FLOPS if q.element_size() == 2 else \
+        PEAK_F32_FLOPS
+    return _bound_ms(flops, nbytes, peak)
+
+
+def _attn_inputs(torch, g, B, H, Hkv, S, D, dtype, contiguous=False):
+    """q (B, H, S, D), k and v (B, Hkv, S, D) on the card: head views of
+    (B, S, heads, D) tensors as the model's prefill hands them to B5, or
+    contiguous (B, heads, S, D) tensors."""
+    def rn(heads):
+        if contiguous:
+            return torch.randn(B, heads, S, D, device="cuda",
+                               generator=g).to(dtype)
+        return torch.randn(B, S, heads, D, device="cuda",
+                           generator=g).to(dtype).transpose(1, 2)
+    return rn(H), rn(Hkv), rn(Hkv)
+
+
+def _attn_check(torch, ref, got, q, k, v, window: int, name: str):
+    """B5's output ``got`` held against ``ref.attention_ref`` on its inputs,
+    one batch element at a time (one element's f32 scores at 32 heads and
+    S = 4,096 take 2.1 GB). Each element must lie within ATTN_TOL of its
+    dtype (rtol = atol) and, in bf16, within
+    ``2u (|want| + sum_k p_k |v_k|)`` as well, the second sum being
+    ``attention_ref`` of |v| in f32. Returns (max abs error, largest share
+    of the limit used); raises past the limit."""
+    tol0 = ATTN_TOL[str(q.dtype)]
+    err_max = use = 0.0
+    for b in range(q.shape[0]):
+        one = slice(b, b + 1)
+        want = ref.attention_ref(q[one], k[one], v[one],
+                                 window=window).float()
+        tol = tol0 + tol0 * want.abs()
+        if q.dtype == torch.bfloat16:
+            mass = ref.attention_ref(q[one].float(), k[one].float(),
+                                     v[one].float().abs(), window=window)
+            tol = torch.minimum(tol, 2 * BF16_U * (want.abs() + mass))
+        err = (got[one].float() - want).abs()
+        err_max = max(err_max, float(err.max()))
+        use = max(use, float((err / tol.clamp_min(1e-30)).max()))
+        if bool((err > tol).any()):
+            raise AssertionError(f"flash_attention disagrees with "
+                                 f"attention_ref on {name}: max abs err "
+                                 f"{err_max}, {use:.4f} of the limit")
+    return err_max, use
+
+
+def phase_attention_kernel(torch, ref, fa):
+    """B5 against the naive oracle (``ref.attention_ref``) at the three
+    prefills' head shapes (batch 2, bf16) and on the edges, each bit-equal
+    on a second launch; the window at full width (S = 16,384) against the
+    chunked plain version, with its time against the causal one; times of
+    B5, the plain version and the library call at zamba2's and qwen3's
+    prefill shapes. Returns the record at zamba2's shape."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, (B, H, Hkv, S, D), dtype, window, contiguous
+        ("zamba2 heads", (2, 32, 32, 4096, 80), bf16, 0, False),
+        ("danube3 heads, SWA", (2, 32, 8, 4096, 120), bf16, 4096, False),
+        ("qwen3 heads", (2, 32, 8, 4096, 128), bf16, 0, False),
+        ("S=1", (2, 32, 8, 1, 128), f32, 0, False),
+        ("S=33", (2, 8, 2, 33, 120), f32, 0, False),
+        ("S=127", (2, 8, 8, 127, 80), f32, 0, False),
+        ("S=4095", (2, 8, 2, 4095, 128), f32, 0, False),
+        ("window 64", (1, 4, 2, 256, 64), f32, 64, False),
+        ("window 128", (1, 4, 2, 256, 64), f32, 128, False),
+        ("window 500", (1, 4, 2, 256, 64), f32, 500, False),
+        ("G=9 (starcoder2 heads)", (2, 36, 4, 300, 128), f32, 0, False),
+        ("smoke widths f32", (2, 4, 2, 48, 32), f32, 0, False),
+        ("smoke widths bf16, SWA 16", (2, 4, 2, 48, 32), bf16, 16, False),
+        ("contiguous bf16", (2, 8, 2, 1000, 120), bf16, 0, True),
+    ]
+    for name, (B, H, Hkv, S, D), dtype, window, contiguous in cases:
+        q, k, v = _attn_inputs(torch, g, B, H, Hkv, S, D, dtype, contiguous)
+        got = fa.flash_attention(q, k, v, window)
+        again = fa.flash_attention(q, k, v, window)
+        err, use = _attn_check(torch, ref, got, q, k, v, window, name)
+        # the same values in the other layout: contiguous copies of head
+        # views, or head views of (B, S, heads, D) copies
+        relaid = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  if contiguous else t.contiguous() for t in (q, k, v))
+        other = fa.flash_attention(*relaid, window)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or got.dtype != dtype:
+            raise AssertionError(f"flash_attention on {name}: {got.shape} "
+                                 f"{got.dtype}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention not deterministic on "
+                                 f"{name}")
+        if not torch.equal(got, other):
+            raise AssertionError(f"flash_attention: strided and contiguous "
+                                 f"inputs differ on {name}")
+        print(f"[attn] flash_attention {name} {(B, H, Hkv, S, D)} "
+              f"{str(dtype)[6:]} window {window}: max_abs_err {err:.6g} "
+              f"against attention_ref, {use:.4f} of the limit, bit-equal on "
+              f"a second launch and on "
+              f"{'strided' if contiguous else 'contiguous'} copies")
+        del q, k, v, got, again, other
+        torch.cuda.empty_cache()
+
+    # the window at full width: danube's heads, f32, S = 16,384
+    S, window = 4 * SERVE_PROMPT, get_config(ARCH).sliding_window
+    q, k, v = _attn_inputs(torch, g, 1, 32, 8, S, 120, f32)
+    got = fa.flash_attention(q, k, v, window)
+    want = ref.attention_chunked(q, k, v, window=window)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= 2e-5 + 2e-5 * want.abs()).all()):
+        raise AssertionError(f"flash_attention at S={S}, window {window}: max "
+                             f"abs err {float(err.max())} against the chunked "
+                             f"plain version")
+    ms_win = _median_ms(lambda: fa.flash_attention(q, k, v, window), 5)
+    ms_causal = _median_ms(lambda: fa.flash_attention(q, k, v, 0), 5)
+    ratio = ms_win / ms_causal
+    print(f"[attn] flash_attention (1, 32, 8, {S}, 120) f32 window {window}: "
+          f"max_abs_err {float(err.max()):.6g} against the chunked plain "
+          f"version; {ms_win:.4f} ms against {ms_causal:.4f} ms causal, ratio "
+          f"{ratio:.4f} (pairs predict "
+          f"{_attention_pairs(S, window) / _attention_pairs(S, 0):.4f})")
+    if ratio > WINDOW_RATIO_LIMIT:
+        raise AssertionError(f"windowed over causal time {ratio:.4f} > "
+                             f"{WINDOW_RATIO_LIMIT}: B5 does not skip the "
+                             f"tiles before the window")
+    del q, k, v, got, want, err
+    torch.cuda.empty_cache()
+
+    # times at the prefills' shapes (batch 16, bf16)
+    record = None
+    for name, (H, Hkv, D) in (("zamba2", (32, 32, 80)),
+                              ("qwen3", (32, 8, 128))):
+        q, k, v = _attn_inputs(torch, g, SERVE_BATCH, H, Hkv, SERVE_PROMPT,
+                               D, bf16)
+        got = fa.flash_attention(q, k, v, 0)
+        err, use = _attn_check(torch, ref, got, q, k, v, 0,
+                               f"{name}'s prefill shape")
+        ms = _median_ms(lambda: fa.flash_attention(q, k, v, 0))
+        plain = _median_ms(lambda: ref.attention_chunked(q, k, v), 5)
+        lib = _median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        bound, by = _attention_bound(q, k, 0)
+        print(f"[attn] flash_attention {name} prefill "
+              f"{(SERVE_BATCH, H, Hkv, SERVE_PROMPT, D)} bf16: max_abs_err "
+              f"{err:.6g} against attention_ref ({use:.4f} of the limit); "
+              f"kernel {ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms "
+              f"bound {bound:.6g} ms ({by})")
+        if record is None:
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bound, bound_by=by, library_ms=lib)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return record
+
+
+def phase_dense_serve(torch, ops_mod):
+    """A full-width, full-depth qwen3-8b replica (bf16, seeded random
+    weights) served: prefill SERVE_BATCH x SERVE_PROMPT (36 B5 launches,
+    full causal, qk-norm, D 128, G 4), DENSE_STEPS greedy decode steps,
+    then a second, event-timed prefill whose first B5 application is held
+    against the oracle. No migration: phase 5 covers pre-copy of an
+    attention replica."""
+    from repro_torch import tree
+    from repro_torch.launch.serve import build_replica
+
+    t0 = time.perf_counter()
+    r = build_replica(DENSE_ARCH, SERVE_BATCH, SERVE_PROMPT, DENSE_STEPS,
+                      smoke=False, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    logits, cache, t_prefill, peak, launches = _counted_prefill(
+        torch, ops_mod, r.prefill, r.params, r.batch)
+    if launches["flash_attention"] != ATTN_LAUNCHES[DENSE_ARCH]:
+        raise AssertionError(f"{DENSE_ARCH} prefill launched {launches}, "
+                             f"want {ATTN_LAUNCHES[DENSE_ARCH]} "
+                             f"flash_attention")
+    if logits.shape != (SERVE_BATCH, r.cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{DENSE_ARCH} prefill logits are not finite or "
+                             f"misshapen")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DENSE_STEPS):
+        tok, logits, cache = r.decode(r.params, tok, cache)
+    torch.cuda.synchronize()
+    t_tok = (time.perf_counter() - t0) / DENSE_STEPS
+    if not bool(torch.isfinite(logits.float()).all()) or \
+            int(cache["pos"]) != SERVE_PROMPT + DENSE_STEPS:
+        raise AssertionError(f"{DENSE_ARCH} decode logits are not finite")
+    n = sum(t.numel() for t in tree.leaves(r.params))
+    v_cache = sum(t.numel() * t.element_size() for t in tree.leaves(cache))
+    del cache, logits
+    torch.cuda.empty_cache()
+    split = _timed_prefill(torch, ops_mod, r.prefill, r.params, r.batch,
+                           "dense")
+    print(f"[dense] {DENSE_ARCH} full width and depth, {n} params "
+          f"({n * 2 / 1e9:.4f} GB bf16), init {t_init:.4f} s; prefill "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} in {t_prefill:.4f} s, peak "
+          f"{peak:.4f} GB; KV cache {v_cache / 1e9:.4f} GB; decode "
+          f"{1e3 * t_tok:.4f} ms per step of {SERVE_BATCH} tokens (mean of "
+          f"{DENSE_STEPS}); launches {launches}")
+    del r
+    torch.cuda.empty_cache()
+    return launches, {"params": n, "init_s": t_init, "prefill_s": t_prefill,
+                      "prefill_peak_gb": peak, "kv_cache_gb": v_cache / 1e9,
+                      "decode_ms_per_step": 1e3 * t_tok,
+                      "prefill_split": split}
+
+
+def phase_dense_cpu_check(torch):
+    """qwen3-8b at full width, 2 layers deep, in f32: batch 1, a prompt of
+    1,024 (on the CPU the chunked online softmax over two chunks of 512)
+    and DENSE_STEPS greedy tokens on the card against the CPU. Logits
+    within CPU_CHECK_RTOL of their peak, tokens equal."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DENSE_ARCH).replace(num_layers=2, param_dtype="float32")
+    (lg, tg), (lc, tc) = _card_and_cpu(torch, cfg, batch=1, prompt=1024,
+                                       steps=DENSE_STEPS)
+    err, size = float((lg - lc).abs().max()), float(lc.abs().max())
+    if not torch.equal(tg, tc) or err > CPU_CHECK_RTOL * size:
+        raise AssertionError(f"{DENSE_ARCH}: card and CPU differ: tokens "
+                             f"equal {torch.equal(tg, tc)}, max abs err {err} "
+                             f"on logits of size {size}")
+    print(f"[dense] {DENSE_ARCH} full width, 2 layers, f32, prompt 1,024: "
+          f"card and CPU logits max abs err {err:.6g} (size {size:.4f}), "
+          f"{DENSE_STEPS + 1} greedy tokens equal")
+    return err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1274,7 +1702,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.kernels import autocorr, build, dft, dirty_delta, ops, ref
-    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels import flash_attention, ssm_scan
     from repro_torch.models import gla
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1285,15 +1713,20 @@ def main() -> int:
     print(f"[build] {secs:.4f} s")
     records = phase_kernels(torch, ops, ref, dft, autocorr)
     records["ssm_scan"] = phase_ssm_kernel(torch, ref, gla, ssm_scan)
+    records["flash_attention"] = phase_attention_kernel(torch, ref,
+                                                        flash_attention)
     tick_launches, tick_times = phase_tick(torch, np, ops)
     fleet_launches = phase_fleet(torch, ops)
     records["dirty_delta"] = phase_dirty_delta(torch, ref, dirty_delta)
     phase_placement(torch)
-    serve_launches, serve_times = phase_serve(torch, ops, ref, dirty_delta)
+    serve_prefill, serve_launches, serve_times = phase_serve(
+        torch, ops, ref, dirty_delta)
     serve_times["card_vs_cpu_max_abs_err"] = phase_serve_cpu_check(torch)
     ssm_prefill, ssm_migrate, ssm_times = phase_ssm_serve(torch, ops, ref)
     rwkv_launches, ssm_times["rwkv6"] = phase_rwkv_serve(torch, ops)
     ssm_times["card_vs_cpu_max_abs_err"] = phase_ssm_cpu_check(torch)
+    dense_launches, dense_times = phase_dense_serve(torch, ops)
+    dense_times["card_vs_cpu_max_abs_err"] = phase_dense_cpu_check(torch)
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -1305,9 +1738,13 @@ def main() -> int:
                                "src/repro/kernels/dirty_delta.py:56",
                                "dirty_blocks"),
                "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
-                            "src/repro/kernels/ssm_scan.py:90", "ssm_scan")}
-    paths = (tick_launches, fleet_launches, serve_launches, ssm_prefill,
-             ssm_migrate, rwkv_launches)
+                            "src/repro/kernels/ssm_scan.py:90", "ssm_scan"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:82",
+                   "flash_attention")}
+    paths = (tick_launches, fleet_launches, serve_prefill, serve_launches,
+             ssm_prefill, ssm_migrate, rwkv_launches, dense_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
         launches = sum(path[op] for path in paths)
@@ -1319,6 +1756,7 @@ def main() -> int:
     print("[tick] " + json.dumps(tick_times))
     print("[serve] " + json.dumps(serve_times))
     print("[ssm] " + json.dumps(ssm_times))
+    print("[dense] " + json.dumps(dense_times))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

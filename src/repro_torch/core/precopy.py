@@ -8,10 +8,11 @@ and a final stop-and-copy (the only pause the job sees) sends the last
 dirty set. The destination then equals the source bit for bit at the
 moment of the final copy.
 
-The block scan goes through ``kernels.ops.dirty_blocks``: on the card the
-hand-written ``dirty_delta.cu`` kernel for float leaves, an exact ``!=``
-for integer ones. Leaves are walked in ``jax.tree.leaves`` order (dict keys
-sorted), so per-leaf masks line up with the reference's.
+The block scan goes through ``kernels.ops.dirty_blocks_many``: on the card
+one launch of the hand-written ``dirty_delta.cu`` kernel for all float
+leaves, an exact ``!=`` for integer ones. Leaves are walked in
+``jax.tree.leaves`` order (dict keys sorted), so per-leaf masks line up
+with the reference's.
 
 Two choices differ from the reference, which is functional. Round 0 clones
 the state into a contiguous shadow, so that no destination tensor aliases
@@ -54,12 +55,6 @@ class PrecopyConfig:
 # ---------------------------------------------------------------------------
 # block view of a tree
 # ---------------------------------------------------------------------------
-def _leaf_dirty(new: torch.Tensor, old: torch.Tensor,
-                block: int) -> torch.Tensor:
-    """Leaf pair -> (ceil(n / block),) bool dirty mask, read flat."""
-    return kops.dirty_blocks(new.reshape(-1), old.reshape(-1), block=block)
-
-
 def _leaf_merge(new: torch.Tensor, old: torch.Tensor, dirty: torch.Tensor,
                 block: int) -> None:
     """Copy the dirty blocks of ``new`` over ``old`` in place (the 'network
@@ -81,18 +76,15 @@ def dirty_scan(live, shadow, block: int
     block counts ``block * itemsize`` bytes, the ragged last one too. Each
     shadow leaf must lie on its live leaf's device: the scan compares in
     place and moves no leaf across."""
-    pairs = list(zip(tree.leaves(live), tree.leaves(shadow)))
-    for n, o in pairs:
+    news, olds = tree.leaves(live), tree.leaves(shadow)
+    for n, o in zip(news, olds):
         if o.device != n.device:
             raise ValueError(f"dirty_scan compares on one device: live leaf "
                              f"on {n.device}, shadow leaf on {o.device}")
-    masks = [_leaf_dirty(n, o.to(n.dtype), block) for n, o in pairs]
-    if not masks:
-        return masks, 0, 0
-    counts = torch.stack([m.sum().to(masks[0].device)
-                          for m in masks]).tolist()       # one sync
-    n_bytes = sum(d * block * n.element_size()
-                  for d, (n, _) in zip(counts, pairs))
+    olds = [o if o.dtype == n.dtype else o.to(n.dtype)
+            for n, o in zip(news, olds)]
+    masks, counts = kops.dirty_blocks_many(news, olds, block=block)
+    n_bytes = sum(c * block * n.element_size() for c, n in zip(counts, news))
     return masks, int(sum(counts)), int(n_bytes)
 
 

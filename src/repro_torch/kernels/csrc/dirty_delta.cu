@@ -1,4 +1,4 @@
-// Per-block max |new - old| of two flat tensors, f32 out, for sm_90a.
+// Per-block max |new - old| of pairs of flat tensors, f32 out, for sm_90a.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/dirty_delta.py
 // (max_abs_delta / _kernel), the inner loop of pre-copy live migration: the
@@ -14,15 +14,26 @@
 // The function reads 2 * n * itemsize bytes and writes 4 per block, with one
 // subtraction and one compare per element: it is bound by its bytes.
 //
-// Design: one warp per block, eight warps per thread block. Lanes stream
-// 16-byte vectors of both inputs (UNROLL of them in flight per input) when
-// the block starts 16-byte aligned, else single elements; the block's last
-// vector-less elements and the ragged tail block (n not a multiple of blk)
-// are read element by element, so nothing is padded or copied. Each lane
-// keeps a running max; the warp reduces it with a fixed xor butterfly of
-// shuffles. No atomics, so the result is the same on every run, and since
-// a max of exact f32 differences does not depend on order, it equals the
-// plain version bit for bit. CUDA's fmaxf drops NaN; nan_max keeps it.
+// One launch scans up to MAX_LEAVES pairs ("leaves" of a state tree), each
+// of its own length and dtype: a scan of a whole replica is one grid, with
+// no gap between leaves and no partly filled last wave per leaf. The
+// leaves' addresses, lengths and dtypes travel in the launch's parameters
+// (__grid_constant__, read in place); their blocks are numbered in leaf
+// order and out[] holds them in that order.
+//
+// Design: one warp per block, eight warps per thread block. A warp finds
+// its leaf by a binary search over the leaves' first block numbers (the
+// same for every lane). Lanes stream 16-byte vectors of both inputs
+// (UNROLL of them in flight per input) when the leaf starts 16-byte aligned
+// and a block is a whole number of vectors, else single elements; the
+// block's last vector-less elements and the ragged tail block (n not a
+// multiple of blk) are read element by element, so nothing is padded or
+// copied. |d| >= 0, so its f32 order is the unsigned order of its bits,
+// with every NaN above +inf: each lane keeps the running max as bits (one
+// integer max per element, NaN kept, as jnp.maximum keeps it), and the warp
+// reduces them with __reduce_max_sync. No atomics, so the result is the
+// same on every run, and since a max of f32 differences does not depend on
+// order, it equals the plain version bit for bit (NaN payloads aside).
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,10 +43,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int UNROLL = 4;
+constexpr int MAX_LEAVES = 64;   // keeps the parameters under 4 KB
 
-// NaN if either argument is NaN, else the larger (jnp.maximum's rule)
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
+// the bits of |a - b|, in f32
+__device__ __forceinline__ unsigned abs_diff_bits(float a, float b) {
+  return __float_as_uint(a - b) & 0x7fffffffu;
 }
 
 // Each element type: its f32 value, and the VEC values of a 16-byte vector.
@@ -90,30 +102,24 @@ template <> struct Elem<double> {
 };
 
 template <typename T>
-__device__ __forceinline__ float vec_max(const uint4& ra, const uint4& rb,
-                                         float m) {
+__device__ __forceinline__ unsigned vec_max(const uint4& ra, const uint4& rb,
+                                            unsigned m) {
   constexpr int V = Elem<T>::VEC;
   float fa[V], fb[V];
   Elem<T>::unpack(ra, fa);
   Elem<T>::unpack(rb, fb);
 #pragma unroll
-  for (int k = 0; k < V; ++k) m = nan_max(m, fabsf(fa[k] - fb[k]));
+  for (int k = 0; k < V; ++k) m = max(m, abs_diff_bits(fa[k], fb[k]));
   return m;
 }
 
+// the bits of max |new - old| over the elements of one block that a lane
+// reads, before the warp's reduction
 template <typename T, bool VECTOR>
-__global__ void __launch_bounds__(THREADS)
-dirty_delta_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                   float* __restrict__ out, long long n, long long blk,
-                   long long nb) {
-  const long long page = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (page >= nb) return;
-  const long long start = page * blk;
-  const long long len = (n - start < blk) ? n - start : blk;
-  const T* pa = a + start;
-  const T* pb = b + start;
-  float m = 0.f;
+__device__ __forceinline__ unsigned block_max(const T* __restrict__ pa,
+                                           const T* __restrict__ pb,
+                                           long long len, int lane) {
+  unsigned m = 0u;                       // +0.0f
   long long done = 0;
   if (VECTOR) {
     constexpr int V = Elem<T>::VEC;
@@ -135,44 +141,85 @@ dirty_delta_kernel(const T* __restrict__ a, const T* __restrict__ b,
     done = nvec * V;
   }
   for (long long i = done + lane; i < len; i += 32)
-    m = nan_max(m, fabsf(Elem<T>::f32(pa[i]) - Elem<T>::f32(pb[i])));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (lane == 0) out[page] = m;
+    m = max(m, abs_diff_bits(Elem<T>::f32(pa[i]), Elem<T>::f32(pb[i])));
+  return m;
 }
 
 template <typename T>
-int launch(const void* a, const void* b, float* out, long long n,
-           long long blk, cudaStream_t stream) {
-  const long long nb = (n + blk - 1) / blk;
-  const dim3 grid((unsigned)((nb + WARPS - 1) / WARPS));
-  const bool aligned = (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
-                       (blk * (long long)sizeof(T)) % 16 == 0;
-  const T* ta = static_cast<const T*>(a);
-  const T* tb = static_cast<const T*>(b);
-  if (aligned)
-    dirty_delta_kernel<T, true><<<grid, THREADS, 0, stream>>>(ta, tb, out, n, blk, nb);
-  else
-    dirty_delta_kernel<T, false><<<grid, THREADS, 0, stream>>>(ta, tb, out, n, blk, nb);
-  return (int)cudaGetLastError();
+__device__ __forceinline__ unsigned leaf_block_max(const void* a, const void* b,
+                                                long long start, long long len,
+                                                bool vector, int lane) {
+  const T* pa = static_cast<const T*>(a) + start;
+  const T* pb = static_cast<const T*>(b) + start;
+  return vector ? block_max<T, true>(pa, pb, len, lane)
+                : block_max<T, false>(pa, pb, len, lane);
+}
+
+// the leaves of one launch; first[i] is leaf i's first block, first[n_leaves]
+// the launch's block count
+struct Leaves {
+  long long first[MAX_LEAVES + 1];
+  long long n[MAX_LEAVES];
+  const void* a[MAX_LEAVES];
+  const void* b[MAX_LEAVES];
+  int dtype[MAX_LEAVES];       // 0 f32, 1 bf16, 2 f16, 3 f64
+  int vector[MAX_LEAVES];      // 16-byte vectors on both inputs
+  int n_leaves;
+};
+
+__global__ void __launch_bounds__(THREADS)
+dirty_delta_kernel(const __grid_constant__ Leaves t, float* __restrict__ out,
+                   long long blk) {
+  const long long page = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (page >= t.first[t.n_leaves]) return;
+  int lo = 0, hi = t.n_leaves - 1;     // the last leaf with first <= page
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.first[mid] <= page) lo = mid; else hi = mid - 1;
+  }
+  const long long start = (page - t.first[lo]) * blk;
+  const long long len = (t.n[lo] - start < blk) ? t.n[lo] - start : blk;
+  const bool vec = t.vector[lo] != 0;
+  unsigned m;
+  switch (t.dtype[lo]) {
+    case 0: m = leaf_block_max<float>(t.a[lo], t.b[lo], start, len, vec, lane); break;
+    case 1: m = leaf_block_max<uint16_t>(t.a[lo], t.b[lo], start, len, vec, lane); break;
+    case 2: m = leaf_block_max<__half>(t.a[lo], t.b[lo], start, len, vec, lane); break;
+    default: m = leaf_block_max<double>(t.a[lo], t.b[lo], start, len, vec, lane); break;
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  if (lane == 0) out[page] = __uint_as_float(m);
 }
 
 }  // namespace
 
-// new, old: n contiguous elements of one dtype (0 f32, 1 bf16, 2 f16,
-// 3 f64); out: ceil(n / blk) f32, one per block. n >= 1, blk >= 1.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int dirty_delta_launch(const void* new_, const void* old,
-                                  float* out, long long n, long long blk,
-                                  int dtype, void* stream) {
-  if (n < 1 || blk < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: return launch<float>(new_, old, out, n, blk, s);
-    case 1: return launch<uint16_t>(new_, old, out, n, blk, s);
-    case 2: return launch<__half>(new_, old, out, n, blk, s);
-    case 3: return launch<double>(new_, old, out, n, blk, s);
-    default: return (int)cudaErrorInvalidValue;
+// table: n_leaves rows of 4 int64 on the host, {new, old, n, dtype}: two
+// addresses of n >= 1 contiguous elements of one dtype on the card (0 f32,
+// 1 bf16, 2 f16, 3 f64); 1 <= n_leaves <= MAX_LEAVES. out: the leaves'
+// ceil(n / blk) f32 each, one per block, in leaf order. blk >= 1.
+// One launch; returns its cudaError_t (0 on success).
+extern "C" int dirty_delta_launch(const long long* table, int n_leaves,
+                                  float* out, long long blk, void* stream) {
+  static const int SIZE[4] = {4, 2, 2, 8};
+  if (n_leaves < 1 || n_leaves > MAX_LEAVES || blk < 1)
+    return (int)cudaErrorInvalidValue;
+  Leaves t;
+  t.n_leaves = n_leaves;
+  t.first[0] = 0;
+  for (int i = 0; i < n_leaves; ++i) {
+    const long long* row = table + 4 * i;
+    const int dtype = (int)row[3];
+    if (row[2] < 1 || dtype < 0 || dtype > 3) return (int)cudaErrorInvalidValue;
+    t.a[i] = (const void*)row[0];
+    t.b[i] = (const void*)row[1];
+    t.n[i] = row[2];
+    t.dtype[i] = dtype;
+    t.vector[i] = (row[0] | row[1]) % 16 == 0 && (blk * SIZE[dtype]) % 16 == 0;
+    t.first[i + 1] = t.first[i] + (row[2] + blk - 1) / blk;
   }
+  const long long nb = t.first[n_leaves];
+  const dim3 grid((unsigned)((nb + WARPS - 1) / WARPS));
+  dirty_delta_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(t, out, blk);
+  return (int)cudaGetLastError();
 }

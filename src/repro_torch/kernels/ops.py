@@ -1,6 +1,6 @@
 """The port's accelerated ops, dispatched by the tensor's device: the cycle
-fit's spectrum and lag scores, pre-copy's dirty-block scan and the SSM
-layers' chunked scan.
+fit's spectrum and lag scores, pre-copy's dirty-block scan, the SSM
+layers' chunked scan and attention prefill.
 
   ==============  ===============================  ===========================
   op              CUDA tensor                      CPU tensor
@@ -9,9 +9,11 @@ layers' chunked scan.
   autocorr_score  autocorr.autocorr_score          ref.autocorr_score_ref
                   (autocorr.cu)
   dirty_blocks    dirty_delta.max_abs_delta        ref.max_abs_delta_ref
-                  (dirty_delta.cu), float dtypes   (integer and bool dtypes:
-                                                   exact != on any device)
+  (and _many)     (dirty_delta.cu), float dtypes;  (integer and bool dtypes:
+                  _many: one launch for many pairs exact != on any device)
   ssm_scan        ssm_scan.ssm_scan (ssm_scan.cu)  models/gla.gla_chunked
+  flash_attention flash_attention.flash_attention  ref.attention_chunked
+                  (flash_attention.cu)
   ==============  ===============================  ===========================
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
@@ -21,13 +23,14 @@ run. ``launch_counts`` reads the kernels' launch counters.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import autocorr as _ac
 from repro_torch.kernels import dft as _dft
 from repro_torch.kernels import dirty_delta as _dd
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.models import gla
@@ -37,6 +40,10 @@ def _device_type(x: torch.Tensor) -> str:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {x.device}")
     return x.device.type
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
 
 
 def power_spectrum(x: torch.Tensor, *, center: bool = False) -> torch.Tensor:
@@ -80,6 +87,50 @@ def dirty_blocks(new: torch.Tensor, old: torch.Tensor,
     return d[:, 0] > threshold
 
 
+def dirty_blocks_many(news: Sequence[torch.Tensor],
+                      olds: Sequence[torch.Tensor], threshold: float = 0.0,
+                      *, block: int) -> Tuple[List[torch.Tensor], List[int]]:
+    """``dirty_blocks`` of each pair, read flat -> (one (ceil(n_i / block),)
+    bool mask per pair, each pair's number of dirty blocks). The float
+    pairs on each card go to B3 together, in one launch per
+    ``dirty_delta.MAX_LEAVES`` pairs, before the rest; the counts come
+    back in one transfer per device."""
+    masks: List[Optional[torch.Tensor]] = [None] * len(news)
+    parts = []                       # (pairs, their counts on a device)
+    cards: Dict[torch.device, List[int]] = {}
+    for i, new in enumerate(news):
+        if new.dtype.is_floating_point and _on_card(new):
+            cards.setdefault(new.device, []).append(i)
+    for idx in cards.values():
+        d = _dd.max_abs_delta_many([news[i] for i in idx],
+                                   [olds[i] for i in idx], block)
+        dirty = d > threshold
+        sizes = [-(-news[i].numel() // block) for i in idx]
+        run = torch.zeros(d.numel() + 1, dtype=torch.int64, device=d.device)
+        torch.cumsum(dirty, 0, out=run[1:])
+        ends, e = [run[0]], 0
+        for size in sizes:
+            e += size
+            ends.append(run[e])
+        parts.append((idx, torch.diff(torch.stack(ends))))
+        for i, m in zip(idx, dirty.split(sizes)):
+            masks[i] = m
+    for i, m in enumerate(masks):
+        if m is None:
+            masks[i] = dirty_blocks(news[i].reshape(-1), olds[i].reshape(-1),
+                                    threshold, block=block)
+            parts.append(([i], masks[i].sum().reshape(1)))
+    counts = [0] * len(news)
+    devices: Dict[torch.device, list] = {}
+    for idx, c in parts:
+        devices.setdefault(c.device, []).append((idx, c))
+    for group in devices.values():
+        values = torch.cat([c for _, c in group]).tolist()
+        for i, v in zip([i for idx, _ in group for i in idx], values):
+            counts[i] = int(v)
+    return masks, counts
+
+
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              log_decay: torch.Tensor, *, bonus: Optional[torch.Tensor] = None,
              initial_state: Optional[torch.Tensor] = None
@@ -94,10 +145,26 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            initial_state=initial_state)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, chunk: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Causal GQA attention: q (B, H, S, D), k and v (B, Hkv, S, D), any
+    strides, query head h reading kv head h // (H // Hkv); ``window > 0``
+    adds the sliding window. Returns (B, H, S, D) in q's dtype. The CPU
+    path runs the model's chunked online softmax over kv chunks of
+    ``chunk`` (default ``ref.ATTN_CHUNK``; one pass when S <= chunk)."""
+    if _device_type(q) == "cuda":
+        return _fa.flash_attention(q, k, v, window)
+    return ref.attention_chunked(q, k, v, window=window,
+                                 chunk=ref.ATTN_CHUNK if chunk is None
+                                 else chunk)
+
+
 KERNELS = {"power_spectrum": _dft.power_spectrum,
            "autocorr_score": _ac.autocorr_score,
            "dirty_blocks": _dd.max_abs_delta,
-           "ssm_scan": _ss.ssm_scan}
+           "ssm_scan": _ss.ssm_scan,
+           "flash_attention": _fa.flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -14,6 +14,12 @@ The SSM scan (``csrc/ssm_scan.cu``) has two: its chunked plain version,
 ``models/gla.gla_chunked`` (the op's CPU path), and ``ssm_scan_ref`` here,
 the token-by-token recurrence of decode, which shares nothing with the
 chunked decomposition and is the strongest oracle for both.
+
+So has flash attention (``csrc/flash_attention.cu``): its chunked plain
+version, ``chunked_causal_attention`` (the model's layout) and
+``attention_chunked`` (the kernel's (B, H, S, D) layout around it, the op's
+CPU path), and ``attention_ref``, the naive softmax over the whole masked
+score matrix, for tests and ``chip_smoke.py`` only.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import torch
 
 from repro_torch.models import gla
 
+MASK_FILL = -1e30         # attention's fill for masked scores
+ATTN_CHUNK = 512          # the plain attention's kv chunk
 _TABLE_CACHE_MAX = 2
 _TABLE_CACHE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = \
     OrderedDict()
@@ -117,3 +125,100 @@ def ssm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        log_decay[:, :, t], state, bonus=bonus)
         ys.append(y)
     return torch.stack(ys, dim=2), state
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0) -> torch.Tensor:
+    """Naive causal GQA attention: q (B, H, S, D), k and v (B, Hkv, S, D)
+    -> (B, H, S, D) in q's dtype. The kv heads are repeated G = H / Hkv
+    times, the scores taken in f32 times ``D**-0.5``, masked entries
+    (the future, and with ``window > 0`` keys ``window`` or more behind)
+    filled with -1e30, and the softmax taken in f32."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    kx = k.repeat_interleave(G, dim=1).float()
+    vx = v.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * D ** -0.5
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def _attn_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                      window: int) -> torch.Tensor:
+    """Causal (+ optional sliding window) mask. q_pos/k_pos: (Sq,), (Sk,)."""
+    causal = q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        causal &= q_pos[:, None] - k_pos[None, :] < window
+    return causal
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, window: int,
+                             chunk: int = ATTN_CHUNK) -> torch.Tensor:
+    """Memory-O(S·chunk) causal attention (online softmax over KV chunks).
+
+    Outer loop over query chunks (the triangular structure is static, so
+    no masked-out chunk is computed), inner loop over the causal KV range
+    with a running (m, l, acc); SWA trims the range to the window.
+
+    q: (B, S, Hkv, G, hd); k, v: (B, S, Hkv, hd) -> (B, S, Hkv, G, hd)
+    """
+    B, S, Hkv, G, hd = q.shape
+    scale = hd ** -0.5
+    if S <= chunk:
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+        pos = torch.arange(S, device=q.device)
+        mask = _attn_scores_mask(pos, pos, window)
+        logits = torch.where(mask, logits, MASK_FILL)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+
+    assert S % chunk == 0, (S, chunk)
+    nq = S // chunk
+    pos = torch.arange(chunk, device=q.device)
+    blocks = []
+    for qi in range(nq):
+        # causal range: kv chunks [lo, qi]; SWA trims lo to the window
+        lo = 0 if window <= 0 else max(0, qi - (window + chunk - 1) // chunk)
+        q_blk = q[:, qi * chunk:(qi + 1) * chunk]
+        q_pos = qi * chunk + pos
+        m = torch.full((B, Hkv, G, chunk), -torch.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, G, chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, Hkv, G, chunk, hd), dtype=q.dtype,
+                          device=q.device)
+        for kj in range(lo, qi + 1):
+            k_blk = k[:, kj * chunk:(kj + 1) * chunk]
+            v_blk = v[:, kj * chunk:(kj + 1) * chunk]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk).float() * scale
+            mask = _attn_scores_mask(q_pos, kj * chunk + pos, window)
+            s = torch.where(mask, s, MASK_FILL)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_blk.dtype), v_blk)
+            acc = acc * corr[..., None].to(acc.dtype) + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
+        blocks.append(out.permute(0, 3, 1, 2, 4))        # (B, chunk, Hkv, G, hd)
+    return torch.cat(blocks, dim=1)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: int = 0, chunk: int = ATTN_CHUNK
+                      ) -> torch.Tensor:
+    """``chunked_causal_attention`` on the kernel's layout: q (B, H, S, D),
+    k and v (B, Hkv, S, D), any strides -> (B, H, S, D) in q's dtype."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    out = chunked_causal_attention(
+        q.transpose(1, 2).reshape(B, S, Hkv, H // Hkv, D),
+        k.transpose(1, 2), v.transpose(1, 2), window, chunk=chunk)
+    return out.reshape(B, S, H, D).transpose(1, 2)

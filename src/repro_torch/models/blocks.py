@@ -7,8 +7,11 @@ keys. Matmuls run in the config dtype; norm statistics and softmax run in
 f32, and every cast sits where the reference puts it (``cos``/``sin`` to
 the activation dtype before the multiply, probabilities to the value dtype
 before P.V, the online-softmax accumulator in the activation dtype, -1e30
-as the mask fill). The JAX package computes attention and the projections
-outside any Pallas kernel, so here they are plain torch.
+as the mask fill). Attention prefill goes through ``ops.flash_attention``:
+on the card kernel B5 (``kernels/csrc/flash_attention.cu``), on the CPU
+``kernels/ref.chunked_causal_attention``, the JAX package's XLA-path
+equivalent of its Pallas kernel. Decode attention and the projections are plain
+torch, as the JAX package computes them outside any Pallas kernel.
 
 Initializers take an explicit ``torch.Generator`` and a ``lead`` shape of
 stacked layers: ``dense_init(g, (d, f), lead=(L,))`` draws an (L, d, f)
@@ -25,9 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import MASK_FILL
 
 Params = Dict[str, Any]
-MASK_FILL = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -119,72 +123,6 @@ def attention_init(gen: Optional[torch.Generator], cfg: ArchConfig, *,
     return p
 
 
-def _attn_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
-                      window: int) -> torch.Tensor:
-    """Causal (+ optional sliding window) mask. q_pos/k_pos: (Sq,), (Sk,)."""
-    causal = q_pos[:, None] >= k_pos[None, :]
-    if window > 0:
-        causal &= q_pos[:, None] - k_pos[None, :] < window
-    return causal
-
-
-ATTN_CHUNK = 512
-
-
-def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, window: int,
-                              chunk: int = ATTN_CHUNK) -> torch.Tensor:
-    """Memory-O(S·chunk) causal attention (online softmax over KV chunks).
-
-    Outer loop over query chunks (the triangular structure is static, so
-    no masked-out chunk is computed), inner loop over the causal KV range
-    with a running (m, l, acc); SWA trims the range to the window.
-
-    q: (B, S, Hkv, G, hd); k, v: (B, S, Hkv, hd) -> (B, S, Hkv, G, hd)
-    """
-    B, S, Hkv, G, hd = q.shape
-    scale = hd ** -0.5
-    if S <= chunk:
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
-        pos = torch.arange(S, device=q.device)
-        mask = _attn_scores_mask(pos, pos, window)
-        logits = torch.where(mask, logits, MASK_FILL)
-        probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-
-    assert S % chunk == 0, (S, chunk)
-    nq = S // chunk
-    pos = torch.arange(chunk, device=q.device)
-    blocks = []
-    for qi in range(nq):
-        # causal range: kv chunks [lo, qi]; SWA trims lo to the window
-        lo = 0 if window <= 0 else max(0, qi - (window + chunk - 1) // chunk)
-        q_blk = q[:, qi * chunk:(qi + 1) * chunk]
-        q_pos = qi * chunk + pos
-        m = torch.full((B, Hkv, G, chunk), -torch.inf, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, Hkv, G, chunk), dtype=torch.float32,
-                        device=q.device)
-        acc = torch.zeros((B, Hkv, G, chunk, hd), dtype=q.dtype,
-                          device=q.device)
-        for kj in range(lo, qi + 1):
-            k_blk = k[:, kj * chunk:(kj + 1) * chunk]
-            v_blk = v[:, kj * chunk:(kj + 1) * chunk]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk).float() * scale
-            mask = _attn_scores_mask(q_pos, kj * chunk + pos, window)
-            s = torch.where(mask, s, MASK_FILL)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_blk.dtype), v_blk)
-            acc = acc * corr[..., None].to(acc.dtype) + pv
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
-        blocks.append(out.permute(0, 3, 1, 2, 4))        # (B, chunk, Hkv, G, hd)
-    return torch.cat(blocks, dim=1)
-
-
 def multihead_attention(
     params: Params,
     cfg: ArchConfig,
@@ -215,11 +153,13 @@ def multihead_attention(
     g = H // Hkv
 
     if kv_cache is None:
-        # ---- prefill: chunked causal (+SWA) attention -----------------------
-        out = _chunked_causal_attention(q.reshape(B, S, Hkv, g, hd), k, v,
-                                        cfg.sliding_window,
-                                        chunk=min(cfg.attn_chunk, S))
-        return out.reshape(B, S, H * hd) @ params["wo"], (k, v)
+        # ---- prefill: causal (+SWA) attention, B5 on the card ---------------
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2),
+                                  window=cfg.sliding_window,
+                                  chunk=min(cfg.attn_chunk, S))
+        return (out.transpose(1, 2).reshape(B, S, H * hd) @ params["wo"],
+                (k, v))
 
     # ---- decode: write one token into the (ring) cache, in place -----------
     ck, cv = kv_cache

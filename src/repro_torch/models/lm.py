@@ -21,6 +21,10 @@ cache from ``init_cache`` and ``decode_step`` writes the new token's K/V
 and every layer's new state into that cache in place, returning a dict
 that holds the same tensors and a new ``pos``.
 
+Prefill's attention layers (``attn``, ``shared_attn``) go through
+``ops.flash_attention``: kernel B5 on the card, the chunked plain version
+on the CPU; decode attention is plain torch.
+
 Not ported yet: the ``prefix_dense`` (kimi-k2) wiring and the ``moe`` kind
 (slice 4 of the port, with the MoE layer), and ``lm_loss`` with training
 (slice 3); each raises ``NotImplementedError``.

@@ -100,7 +100,8 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     q = x.reshape(1, 4, 64, 4)
     ops.ssm_scan(q, q, q, -q.abs())
     assert ops.launch_counts() == {"power_spectrum": 0, "autocorr_score": 0,
-                                   "dirty_blocks": 0, "ssm_scan": 0}
+                                   "dirty_blocks": 0, "ssm_scan": 0,
+                                   "flash_attention": 0}
 
 
 def test_dft_table_cache_capped():
@@ -232,3 +233,86 @@ def test_dirty_blocks_threshold():
         np.testing.assert_array_equal(
             ops.dirty_blocks(tn, to, thr, block=64).numpy(),
             (d > thr).numpy())
+
+
+@pytest.mark.parametrize("block", [64, 129])
+def test_dirty_blocks_many_equals_jax_on_each_pair(block):
+    """The scan's form for a whole tree: float pairs of every dtype, each
+    of its own length and with a NaN block in one, beside int32 and bool
+    pairs, each mask that of the reference's ``dirty_blocks`` and each
+    count its number of dirty blocks."""
+    news, olds, want = [], [], []
+    for i, dtype in enumerate(["float32", "bfloat16", "float16", "float64",
+                               "float32"]):
+        n = 5 * block + 13 * i + 1
+        new, old = _leaf_pair(40 + i, n, block, dtype,
+                              nan_block=2 if i == 1 else None)
+        news.append(_as_torch(new, dtype))
+        olds.append(_as_torch(old, dtype))
+        want.append(jax_ops.dirty_blocks(
+            _jax_padded(_as_jax(new, dtype), n, block),
+            _jax_padded(_as_jax(old, dtype), n, block)))
+    rng = np.random.default_rng(block)
+    for dtype in (np.int32, np.bool_):
+        old = rng.integers(0, 2, 3 * block + 5).astype(dtype)
+        new = old.copy()
+        new[block + 2] = not new[block + 2] if dtype is np.bool_ else 7
+        news.append(torch.from_numpy(new))
+        olds.append(torch.from_numpy(old))
+        want.append(jax_ops.dirty_blocks(
+            _jax_padded(jnp.asarray(new), new.size, block),
+            _jax_padded(jnp.asarray(old), old.size, block)))
+    ops.reset_launch_counts()
+    got, counts = ops.dirty_blocks_many(news, olds, block=block)
+    assert ops.launch_counts()["dirty_blocks"] == 0
+    assert len(got) == len(want) == len(counts)
+    for g, w, c in zip(got, want, counts):
+        assert g.dtype == torch.bool
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert c == int(np.asarray(w).sum())
+    assert not bool(got[1][2]) and all(int(g.sum()) >= 1 for g in got)
+
+
+def test_many_pair_wrapper_refuses_cpu_and_mismatched_pairs():
+    x = torch.zeros(256)
+    with pytest.raises(ValueError):
+        dirty_delta.max_abs_delta_many([x], [x], 64)
+    with pytest.raises(ValueError):
+        dirty_delta.max_abs_delta_many([x, x], [x], 64)
+    with pytest.raises(ValueError):
+        dirty_delta.max_abs_delta_many([x], [x], 0)
+
+
+def test_dirty_blocks_many_card_branch_counts(monkeypatch):
+    """The card branch's masks and counts (one cumsum over B3's blocks,
+    read at each pair's end), with B3 replaced by its plain version so it
+    runs here: pairs of several lengths, an empty one, a NaN block and an
+    int32 pair, against ``dirty_blocks`` pair by pair."""
+    block = 64
+    news, olds = [], []
+    for i, n in enumerate([5 * block + 3, 0, block, 7 * block, 2]):
+        new, old = _leaf_pair(60 + i, max(n, 1), block, "float32",
+                              nan_block=1 if i == 3 else None)
+        news.append(torch.from_numpy(new[:n]))
+        olds.append(torch.from_numpy(old[:n]))
+    news.append(torch.arange(3 * block, dtype=torch.int32))
+    olds.append(news[-1].clone())
+    olds[-1][block + 5] += 1
+    calls = []
+
+    def plain_many(ns, os_, blk):
+        calls.append(len(ns))
+        return torch.cat([ref.max_abs_delta_ref(a.reshape(-1), b.reshape(-1),
+                                                blk)[:, 0]
+                          for a, b in zip(ns, os_)])
+
+    monkeypatch.setattr(ops, "_on_card", lambda x: True)
+    monkeypatch.setattr(ops._dd, "max_abs_delta_many", plain_many)
+    got, counts = ops.dirty_blocks_many(news, olds, 0.1, block=block)
+    monkeypatch.undo()
+    assert calls == [5]
+    for g, c, n, o in zip(got, counts, news, olds):
+        want = ops.dirty_blocks(n, o, 0.1, block=block)
+        np.testing.assert_array_equal(g.numpy(), want.numpy())
+        assert c == int(want.sum())
+    assert counts[1] == 0 and counts[-1] == 1 and sum(counts) > 3
