@@ -1464,37 +1464,47 @@ def _attention_bound(q, k, window: int):
     return _bound_ms(flops, nbytes, peak)
 
 
-def _attn_inputs(torch, g, B, H, Hkv, S, D, dtype, contiguous=False):
-    """q (B, H, S, D), k and v (B, Hkv, S, D) on the card: head views of
-    (B, S, heads, D) tensors as the model's prefill hands them to B5, or
-    contiguous (B, heads, S, D) tensors."""
+def _attn_inputs(torch, g, B, H, Hkv, S, D, dtype, layout="heads"):
+    """q (B, H, S, D), k and v (B, Hkv, S, D) on the card, as ``layout``:
+    "heads", head views of (B, S, heads, D) tensors as the model's prefill
+    hands them to B5; "contiguous", (B, heads, S, D) tensors; "offset",
+    head views whose base lies one element past a 16-byte boundary (rows of
+    D + 1); "d-strided", views with a d stride of S. The last two are what
+    B5's 16-byte loads cannot take."""
     def rn(heads):
-        if contiguous:
+        if layout == "contiguous":
             return torch.randn(B, heads, S, D, device="cuda",
                                generator=g).to(dtype)
+        if layout == "offset":
+            return torch.randn(B, S, heads, D + 1, device="cuda",
+                               generator=g).to(dtype)[..., 1:].transpose(1, 2)
+        if layout == "d-strided":
+            return torch.randn(B, heads, D, S, device="cuda",
+                               generator=g).to(dtype).transpose(2, 3)
         return torch.randn(B, S, heads, D, device="cuda",
                            generator=g).to(dtype).transpose(1, 2)
     return rn(H), rn(Hkv), rn(Hkv)
 
 
-def _attn_check(torch, ref, got, q, k, v, window: int, name: str):
-    """B5's output ``got`` held against ``ref.attention_ref`` on its inputs,
-    one batch element at a time (one element's f32 scores at 32 heads and
-    S = 4,096 take 2.1 GB). Each element must lie within ATTN_TOL of its
-    dtype (rtol = atol) and, in bf16, within
-    ``2u (|want| + sum_k p_k |v_k|)`` as well, the second sum being
-    ``attention_ref`` of |v| in f32. Returns (max abs error, largest share
-    of the limit used); raises past the limit."""
+def _attn_check(torch, ref, got, q, k, v, window: int, name: str,
+                oracle=None):
+    """B5's output ``got`` held against ``ref.attention_ref`` (or
+    ``oracle``, a function of the same signature) on its inputs, one batch
+    element at a time (one element's f32 scores at 32 heads and S = 4,096
+    take 2.1 GB). Each element must lie within ATTN_TOL of its dtype
+    (rtol = atol) and, in bf16, within ``2u (|want| + sum_k p_k |v_k|)``
+    as well, the second sum being the oracle on |v| in f32. Returns (max
+    abs error, largest share of the limit used); raises past the limit."""
+    oracle = oracle or ref.attention_ref
     tol0 = ATTN_TOL[str(q.dtype)]
     err_max = use = 0.0
     for b in range(q.shape[0]):
         one = slice(b, b + 1)
-        want = ref.attention_ref(q[one], k[one], v[one],
-                                 window=window).float()
+        want = oracle(q[one], k[one], v[one], window=window).float()
         tol = tol0 + tol0 * want.abs()
         if q.dtype == torch.bfloat16:
-            mass = ref.attention_ref(q[one].float(), k[one].float(),
-                                     v[one].float().abs(), window=window)
+            mass = oracle(q[one].float(), k[one].float(),
+                          v[one].float().abs(), window=window)
             tol = torch.minimum(tol, 2 * BF16_U * (want.abs() + mass))
         err = (got[one].float() - want).abs()
         err_max = max(err_max, float(err.max()))
@@ -1506,42 +1516,64 @@ def _attn_check(torch, ref, got, q, k, v, window: int, name: str):
     return err_max, use
 
 
+def _chunked_f32_oracle(ref):
+    """``ref.attention_chunked`` in f32 (its bf16 form keeps acc in bf16),
+    rounded to the inputs' dtype: the oracle where ``attention_ref``'s
+    S x S scores do not fit."""
+    def oracle(q, k, v, *, window):
+        return ref.attention_chunked(q.float(), k.float(), v.float(),
+                                     window=window).to(q.dtype)
+    return oracle
+
+
 def phase_attention_kernel(torch, ref, fa):
     """B5 against the naive oracle (``ref.attention_ref``) at the three
-    prefills' head shapes (batch 2, bf16) and on the edges, each bit-equal
-    on a second launch; the window at full width (S = 16,384) against the
-    chunked plain version, with its time against the causal one; times of
-    B5, the plain version and the library call at zamba2's and qwen3's
+    prefills' head shapes (batch 2, bf16) and on the edges in both dtypes
+    (the bf16 ones also in layouts the 16-byte loads cannot take), each
+    bit-equal on a second launch and on inputs of another layout; the
+    window at full width (S = 16,384) in f32 and bf16 against the chunked
+    plain version, with its time against the causal one; times of B5, the
+    plain version and the library call at zamba2's, qwen3's and danube's
     prefill shapes. Returns the record at zamba2's shape."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     g = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # name, (B, H, Hkv, S, D), dtype, window, contiguous
-        ("zamba2 heads", (2, 32, 32, 4096, 80), bf16, 0, False),
-        ("danube3 heads, SWA", (2, 32, 8, 4096, 120), bf16, 4096, False),
-        ("qwen3 heads", (2, 32, 8, 4096, 128), bf16, 0, False),
-        ("S=1", (2, 32, 8, 1, 128), f32, 0, False),
-        ("S=33", (2, 8, 2, 33, 120), f32, 0, False),
-        ("S=127", (2, 8, 8, 127, 80), f32, 0, False),
-        ("S=4095", (2, 8, 2, 4095, 128), f32, 0, False),
-        ("window 64", (1, 4, 2, 256, 64), f32, 64, False),
-        ("window 128", (1, 4, 2, 256, 64), f32, 128, False),
-        ("window 500", (1, 4, 2, 256, 64), f32, 500, False),
-        ("G=9 (starcoder2 heads)", (2, 36, 4, 300, 128), f32, 0, False),
-        ("smoke widths f32", (2, 4, 2, 48, 32), f32, 0, False),
-        ("smoke widths bf16, SWA 16", (2, 4, 2, 48, 32), bf16, 16, False),
-        ("contiguous bf16", (2, 8, 2, 1000, 120), bf16, 0, True),
+    edges = [  # name, (B, H, Hkv, S, D), window
+        ("S=1", (2, 32, 8, 1, 128), 0),
+        ("S=33", (2, 8, 2, 33, 120), 0),
+        ("S=127", (2, 8, 8, 127, 80), 0),
+        ("S=4095", (2, 8, 2, 4095, 128), 0),
+        ("window 64", (1, 4, 2, 256, 64), 64),
+        ("window 128", (1, 4, 2, 256, 64), 128),
+        ("window 500", (1, 4, 2, 256, 64), 500),
+        ("G=9 (starcoder2 heads)", (2, 36, 4, 300, 128), 0),
     ]
-    for name, (B, H, Hkv, S, D), dtype, window, contiguous in cases:
-        q, k, v = _attn_inputs(torch, g, B, H, Hkv, S, D, dtype, contiguous)
+    cases = [  # name, (B, H, Hkv, S, D), dtype, window, layout
+        ("zamba2 heads", (2, 32, 32, 4096, 80), bf16, 0, "heads"),
+        ("danube3 heads, SWA", (2, 32, 8, 4096, 120), bf16, 4096, "heads"),
+        ("qwen3 heads", (2, 32, 8, 4096, 128), bf16, 0, "heads"),
+        *((name, shape, dtype, window, "heads")
+          for dtype in (f32, bf16) for name, shape, window in edges),
+        ("smoke widths f32", (2, 4, 2, 48, 32), f32, 0, "heads"),
+        ("smoke widths bf16, SWA 16", (2, 4, 2, 48, 32), bf16, 16, "heads"),
+        ("contiguous bf16", (2, 8, 2, 1000, 120), bf16, 0, "contiguous"),
+        ("base off by one bf16, SWA 300", (2, 8, 2, 1000, 120), bf16, 300,
+         "offset"),
+        ("d stride S bf16", (2, 8, 2, 333, 80), bf16, 0, "d-strided"),
+        ("S=33 d stride S bf16", (1, 4, 4, 33, 24), bf16, 0, "d-strided"),
+    ]
+    for name, (B, H, Hkv, S, D), dtype, window, layout in cases:
+        q, k, v = _attn_inputs(torch, g, B, H, Hkv, S, D, dtype, layout)
         got = fa.flash_attention(q, k, v, window)
         again = fa.flash_attention(q, k, v, window)
         err, use = _attn_check(torch, ref, got, q, k, v, window, name)
-        # the same values in the other layout: contiguous copies of head
-        # views, or head views of (B, S, heads, D) copies
+        # the same values in another layout: contiguous copies of head
+        # views or of the unaligned views, head views of (B, S, heads, D)
+        # copies of contiguous inputs
         relaid = (t.transpose(1, 2).contiguous().transpose(1, 2)
-                  if contiguous else t.contiguous() for t in (q, k, v))
+                  if layout == "contiguous" else t.contiguous()
+                  for t in (q, k, v))
         other = fa.flash_attention(*relaid, window)
         torch.cuda.synchronize()
         if got.shape != q.shape or got.dtype != dtype:
@@ -1551,61 +1583,82 @@ def phase_attention_kernel(torch, ref, fa):
             raise AssertionError(f"flash_attention not deterministic on "
                                  f"{name}")
         if not torch.equal(got, other):
-            raise AssertionError(f"flash_attention: strided and contiguous "
+            raise AssertionError(f"flash_attention: {layout} and relaid "
                                  f"inputs differ on {name}")
         print(f"[attn] flash_attention {name} {(B, H, Hkv, S, D)} "
               f"{str(dtype)[6:]} window {window}: max_abs_err {err:.6g} "
               f"against attention_ref, {use:.4f} of the limit, bit-equal on "
               f"a second launch and on "
-              f"{'strided' if contiguous else 'contiguous'} copies")
+              f"{'strided' if layout == 'contiguous' else 'contiguous'} "
+              f"copies")
         del q, k, v, got, again, other
         torch.cuda.empty_cache()
 
-    # the window at full width: danube's heads, f32, S = 16,384
+    # the window at full width: danube's heads, S = 16,384, in f32 (held to
+    # 2e-5 against the chunked plain version) and bf16 (held by
+    # _attn_check against it in f32)
     S, window = 4 * SERVE_PROMPT, get_config(ARCH).sliding_window
-    q, k, v = _attn_inputs(torch, g, 1, 32, 8, S, 120, f32)
-    got = fa.flash_attention(q, k, v, window)
-    want = ref.attention_chunked(q, k, v, window=window)
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    if not bool((err <= 2e-5 + 2e-5 * want.abs()).all()):
-        raise AssertionError(f"flash_attention at S={S}, window {window}: max "
-                             f"abs err {float(err.max())} against the chunked "
-                             f"plain version")
-    ms_win = _median_ms(lambda: fa.flash_attention(q, k, v, window), 5)
-    ms_causal = _median_ms(lambda: fa.flash_attention(q, k, v, 0), 5)
-    ratio = ms_win / ms_causal
-    print(f"[attn] flash_attention (1, 32, 8, {S}, 120) f32 window {window}: "
-          f"max_abs_err {float(err.max()):.6g} against the chunked plain "
-          f"version; {ms_win:.4f} ms against {ms_causal:.4f} ms causal, ratio "
-          f"{ratio:.4f} (pairs predict "
-          f"{_attention_pairs(S, window) / _attention_pairs(S, 0):.4f})")
-    if ratio > WINDOW_RATIO_LIMIT:
-        raise AssertionError(f"windowed over causal time {ratio:.4f} > "
-                             f"{WINDOW_RATIO_LIMIT}: B5 does not skip the "
-                             f"tiles before the window")
-    del q, k, v, got, want, err
-    torch.cuda.empty_cache()
+    for dtype in (f32, bf16):
+        q, k, v = _attn_inputs(torch, g, 1, 32, 8, S, 120, dtype)
+        got = fa.flash_attention(q, k, v, window)
+        if dtype == f32:
+            want = ref.attention_chunked(q, k, v, window=window)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not bool(((got - want).abs()
+                         <= 2e-5 + 2e-5 * want.abs()).all()):
+                raise AssertionError(f"flash_attention at S={S}, window "
+                                     f"{window}: max abs err {err} against "
+                                     f"the chunked plain version")
+            what = "against the chunked plain version"
+            del want
+        else:
+            err, use = _attn_check(torch, ref, got, q, k, v, window,
+                                   f"S={S} window {window}",
+                                   oracle=_chunked_f32_oracle(ref))
+            what = (f"against the chunked plain version in f32, {use:.4f} "
+                    f"of the limit")
+        ms_win = _median_ms(lambda: fa.flash_attention(q, k, v, window), 5)
+        ms_causal = _median_ms(lambda: fa.flash_attention(q, k, v, 0), 5)
+        ratio = ms_win / ms_causal
+        print(f"[attn] flash_attention (1, 32, 8, {S}, 120) "
+              f"{str(dtype)[6:]} window {window}: max_abs_err {err:.6g} "
+              f"{what}; {ms_win:.4f} ms against {ms_causal:.4f} ms causal, "
+              f"ratio {ratio:.4f} (pairs predict "
+              f"{_attention_pairs(S, window) / _attention_pairs(S, 0):.4f})")
+        if ratio > WINDOW_RATIO_LIMIT:
+            raise AssertionError(f"windowed over causal time {ratio:.4f} > "
+                                 f"{WINDOW_RATIO_LIMIT} in {dtype}: B5 does "
+                                 f"not skip the tiles before the window")
+        del q, k, v, got
+        torch.cuda.empty_cache()
 
-    # times at the prefills' shapes (batch 16, bf16)
+    # times at the prefills' shapes (batch 16, bf16); danube's window of
+    # 4,096 covers its whole prompt, so SDPA runs it as plain causal
     record = None
-    for name, (H, Hkv, D) in (("zamba2", (32, 32, 80)),
-                              ("qwen3", (32, 8, 128))):
+    for name, (H, Hkv, D), window in (("zamba2", (32, 32, 80), 0),
+                                      ("qwen3", (32, 8, 128), 0),
+                                      ("danube3", (32, 8, 120), 4096)):
         q, k, v = _attn_inputs(torch, g, SERVE_BATCH, H, Hkv, SERVE_PROMPT,
                                D, bf16)
-        got = fa.flash_attention(q, k, v, 0)
-        err, use = _attn_check(torch, ref, got, q, k, v, 0,
+        got = fa.flash_attention(q, k, v, window)
+        err, use = _attn_check(torch, ref, got, q, k, v, window,
                                f"{name}'s prefill shape")
-        ms = _median_ms(lambda: fa.flash_attention(q, k, v, 0))
-        plain = _median_ms(lambda: ref.attention_chunked(q, k, v), 5)
+        ms = _median_ms(lambda: fa.flash_attention(q, k, v, window))
+        plain = _median_ms(lambda: ref.attention_chunked(q, k, v,
+                                                         window=window), 5)
         lib = _median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
-        bound, by = _attention_bound(q, k, 0)
+        bound, by = _attention_bound(q, k, window)
+        flops = 4.0 * SERVE_BATCH * H * \
+            _attention_pairs(SERVE_PROMPT, window) * D
         print(f"[attn] flash_attention {name} prefill "
-              f"{(SERVE_BATCH, H, Hkv, SERVE_PROMPT, D)} bf16: max_abs_err "
-              f"{err:.6g} against attention_ref ({use:.4f} of the limit); "
-              f"kernel {ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms "
-              f"bound {bound:.6g} ms ({by})")
+              f"{(SERVE_BATCH, H, Hkv, SERVE_PROMPT, D)} bf16 window "
+              f"{window}: max_abs_err {err:.6g} against attention_ref "
+              f"({use:.4f} of the limit); kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.4f} of the "
+              f"bound) plain {plain:.4f} ms sdpa {lib:.4f} ms (kernel / sdpa "
+              f"{ms / lib:.4f}) bound {bound:.6g} ms ({by})")
         if record is None:
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                           bound_ms=bound, bound_by=by, library_ms=lib)

@@ -1,5 +1,5 @@
 // Causal GQA flash attention, forward, with an optional sliding window, for
-// sm_90a.
+// sm_90a: bf16 on the tensor cores, f32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention / _kernel) and, on the path, the function the JAX
@@ -14,44 +14,67 @@
 // by an online softmax over kv tiles with a running (m, l, acc) in f32, as
 // the TPU kernel keeps it: m starts at -1e30, p = exp(s - m_new) is rounded
 // to v's dtype before P.V (p.astype(v_ref.dtype)), l sums the unrounded p,
-// and the output is acc / max(l, 1e-30) in q's dtype.
+// and the output is acc / max(l, 1e-30) in q's dtype. The scale D^-0.5 is
+// rounded once to f32.
 //
 // What differs from the TPU kernel: its grid walked the kv tiles as the
 // innermost, sequential axis with (m, l, acc) in VMEM scratch; here one
-// thread block per (b, h, 64-query tile) walks its kv tiles of 64 in a loop
+// thread block per (b, h, query tile) walks its kv tiles of 64 in a loop
 // with (m, l, acc) in registers. It skips every kv tile wholly after its
 // last query row, as the TPU kernel does, and also every tile wholly before
 // its first row's window, as _chunked_causal_attention trims its kv range.
 // It takes what the model's prefill sends and the TPU kernel did not: any
-// S >= 1 (the ragged last tile is masked in the loads, never padded), any
-// D <= 128, any G = H / Hkv, inputs of any strides in f32 or bf16, and it
-// writes the output in (B, S, H, D) memory order, so the caller's
-// (B, S, H * D) view before the output projection copies nothing.
+// S >= 1 (the ragged last tile is masked, never padded in memory), any
+// D <= 128, any G = H / Hkv, inputs of any strides, and it writes the
+// output in (B, S, H, D) memory order, so the caller's (B, S, H * D) view
+// before the output projection copies nothing. Each sum has a fixed order
+// and there are no atomics and no split of a row across blocks, so a
+// second launch is bit-equal to the first.
 //
 // Bound: 4 D flops per causal (query, key) pair against 4 D input and
-// output elements per query row, so at S = 4,096 it is bound by its
-// operations. Every product is an f32 FMA on the CUDA cores, for both
-// dtypes: TF32 tensor cores keep ~1e-3 and would miss the 2e-5 f32
-// tolerance (a bf16 p times a bf16 v is exact in f32, so bf16 inputs lose
-// nothing here). For bf16 inputs, bf16 mma.sync or wgmma with f32
-// accumulation would compute the same exact products with f32 sums; this
-// version does not use them, and is slower than the plain version it
-// replaced at D = 120 and 128. Each sum has a fixed order and there are no
-// atomics, so a second launch is bit-equal to the first.
+// output elements per query row, so at S = 4,096 both paths are bound by
+// their operations.
 //
-// Design (first version, simple): 256 threads as 16 x 16; a thread owns
-// 4 query rows (ty + 16 i) and, per kv tile, 4 score columns (tx + 16 j)
-// and NJ = ceil(D / 16) output columns (tx + 16 j), so each score and each
-// output element is summed by one thread. The 16 threads of a row are one
-// half-warp and reduce the row's max and sum with shuffles. Q, K and V
-// tiles sit in dynamic shared memory widened to f32 (rows of Q and K padded
-// to an odd stride, so column reads hit distinct banks); P reuses K's tile
-// once the scores are in registers: 98,816 bytes at D = 128, two blocks per
-// SM. The heaviest query tiles (the last ones) are scheduled first. Left
-// for a later PR, first: bf16 tensor-core products for bf16 inputs (the
-// f32 path stays on the CUDA cores, or takes a split that keeps 2e-5);
-// then TMA loads and a warp-specialised pipeline that overlaps the next
-// tile's loads with this tile's math.
+// bf16 inputs (attn_bf16): the products run on the tensor cores,
+// mma.sync.m16n8k16 bf16 x bf16 -> f32. A bf16 product is exact in f32 and
+// the sums are f32, the TPU kernel's arithmetic; p is rounded to bf16 for
+// P.V as the contract says. 128 query rows a block, 16 a warp (8 warps);
+// the Q tile's A fragments stay in registers for the whole kv loop. K and V
+// stay bf16 in shared memory, in a 2-stage ring that 16-byte cp.async
+// fills: the next tile's copies are issued before this tile's math. Rows
+// are padded by 8 bf16 (272 bytes at D = 128), so ldmatrix reads hit every
+// bank once. D is padded to DP = 16 ceil(D / 16) with zero columns (120 ->
+// 128): they add nothing to q . k, and the P.V columns past D are not
+// stored. Keys past S are zero-filled (cp.async's src-size 0) and masked.
+// Scores stay in the accumulator fragments: the row max and sum go through
+// the 4 threads of a quad, and P is repacked from C to bf16 A fragments in
+// registers (no shared-memory round trip); V's B fragments come from
+// ldmatrix.trans. exp is exp2f((s - m) log2 e), s and m each multiplied by
+// log2 e with its own rounding, so a fully masked row (s = m = -1e30) keeps
+// p = 1 as expf(0) does and is wiped by the next tile's corr = 0, as
+// before. A warp skips the tiles its own 16 rows cannot see, and masks only
+// the tiles on its diagonal, its window's edge or S's ragged end; a skipped
+// tile would have added p = 0, so the result is the same bits. Inputs that
+// 16-byte copies cannot take (a base or a b, h, s stride that is not a
+// multiple of 8 elements, or a d stride != 1) take the same kernel with
+// element-wise loads into the same tiles (VEC = false): the same mma order,
+// so both layouts give the same bits. Bound: the mma.sync rate (Hopper's
+// full bf16 rate needs wgmma). Left for a later PR: wgmma with TMA loads
+// and a producer warp (ROADMAP K1b).
+//
+// f32 inputs (attn_f32): every product is an f32 FMA on the CUDA cores;
+// TF32 tensor cores keep ~1e-3 and would miss the 2e-5 f32 tolerance. 256
+// threads as 16 x 16; a thread owns 4 query rows (ty + 16 i) and, per kv
+// tile, 4 score columns (tx + 16 j) and NJ = ceil(D / 16) output columns
+// (tx + 16 j), so each score and each output element is summed by one
+// thread. The 16 threads of a row are one half-warp and reduce the row's
+// max and sum with shuffles. Q, K and V tiles sit in dynamic shared memory
+// (rows of Q and K padded to an odd stride, so column reads hit distinct
+// banks); P reuses K's tile once the scores are in registers: 98,816 bytes
+// at D = 128, two blocks per SM. The heaviest query tiles (the last ones)
+// are scheduled first on both paths. Bound: shared-memory loads per FMA
+// (0.5 in the scores, 0.375 in P.V) cap it near half the f32 rate; it runs
+// in the shallow card-against-CPU checks only.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,15 +82,8 @@
 
 namespace {
 
-constexpr int BQ = 64;                // query rows per block
-constexpr int BK = 64;                // keys per kv tile
-constexpr int THREADS = 256;
 constexpr int DMAX = 128;             // largest head dim
-constexpr int PP = BK + 1;            // padded row stride of P
 constexpr float NEG = -1e30f;         // the TPU kernel's NEG_INF
-
-static_assert(THREADS == 16 * 16, "16 x 16 thread tile");
-static_assert(BQ == 4 * 16 && BK == 4 * 16, "4 rows and 4 columns a thread");
 
 struct Args {
   const void* q;
@@ -80,18 +96,18 @@ struct Args {
   int B, H, G, D, window, nq;
 };
 
-template <bool BF16>
-__device__ __forceinline__ float load(const void* p, long long off) {
-  if (BF16)
-    return __uint_as_float(
-        (uint32_t)static_cast<const uint16_t*>(p)[off] << 16);
-  return static_cast<const float*>(p)[off];
-}
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+namespace f32 {
 
-template <bool BF16>
-__device__ __forceinline__ float to_dtype(float x) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
+constexpr int BQ = 64;                // query rows per block
+constexpr int BK = 64;                // keys per kv tile
+constexpr int THREADS = 256;
+constexpr int PP = BK + 1;            // padded row stride of P
+
+static_assert(THREADS == 16 * 16, "16 x 16 thread tile");
+static_assert(BQ == 4 * 16 && BK == 4 * 16, "4 rows and 4 columns a thread");
 
 // Floats of dynamic shared memory: Q, then K (or P), then V.
 __host__ __device__ inline int q_stride(int D) { return D | 1; }
@@ -102,10 +118,13 @@ __host__ __device__ inline int smem_floats(int D, int nj) {
   return BQ * q_stride(D) + kp_floats(D) + BK * 16 * nj;
 }
 
-template <int NJ, bool BF16>
+template <int NJ>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const Args a) {
+attn_f32(const Args a) {
   extern __shared__ float sm[];
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
   const int D = a.D, DP = q_stride(D), DV = 16 * NJ;
   float* Qs = sm;                     // BQ x DP
   float* Ks = Qs + BQ * DP;           // BK x DP; then P, BQ x PP
@@ -125,8 +144,7 @@ flash_attention_kernel(const Args a) {
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
     const long long s = q0 + r;
-    Qs[r * DP + d] = s < a.S ? load<BF16>(a.q, oq + s * a.sq[2] + d * a.sq[3])
-                             : 0.f;
+    Qs[r * DP + d] = s < a.S ? q[oq + s * a.sq[2] + d * a.sq[3]] : 0.f;
   }
 
   float m[4], l[4], acc[4][NJ];
@@ -150,14 +168,12 @@ flash_attention_kernel(const Args a) {
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const long long s = k0 + r;
-      Ks[r * DP + d] = s < a.S
-          ? load<BF16>(a.k, ok + s * a.sk[2] + d * a.sk[3]) : 0.f;
+      Ks[r * DP + d] = s < a.S ? k[ok + s * a.sk[2] + d * a.sk[3]] : 0.f;
     }
     for (int i = tid; i < BK * DV; i += THREADS) {
       const int r = i / DV, d = i % DV;
       const long long s = k0 + r;
-      Vs[i] = (s < a.S && d < D)
-          ? load<BF16>(a.v, ov + s * a.sv[2] + d * a.sv[3]) : 0.f;
+      Vs[i] = (s < a.S && d < D) ? v[ov + s * a.sv[2] + d * a.sv[3]] : 0.f;
     }
     __syncthreads();
 
@@ -217,7 +233,7 @@ flash_attention_kernel(const Args a) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = to_dtype<BF16>(s[i][j]);
+        Ps[(ty + 16 * i) * PP + tx + 16 * j] = s[i][j];
     __syncthreads();
 
     // acc += P . V, summed over the tile's keys in order
@@ -244,39 +260,363 @@ flash_attention_kernel(const Args a) {
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
       if (d >= D) continue;
-      const float y = acc[i][j] / denom;
-      if (BF16)
-        static_cast<__nv_bfloat16*>(a.o)[base + d] = __float2bfloat16_rn(y);
-      else
-        static_cast<float*>(a.o)[base + d] = y;
+      static_cast<float*>(a.o)[base + d] = acc[i][j] / denom;
     }
   }
 }
 
-template <int NJ, bool BF16>
-int launch(const Args& a, unsigned blocks, cudaStream_t stream) {
+template <int NJ>
+int launch(const Args& a, cudaStream_t stream) {
   const size_t bytes = smem_floats(a.D, NJ) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<NJ, BF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      attn_f32<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  flash_attention_kernel<NJ, BF16><<<blocks, THREADS, bytes, stream>>>(a);
+  const unsigned blocks = (unsigned)((long long)a.nq * a.B * a.H);
+  attn_f32<NJ><<<blocks, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
-int launch_nj(const Args& a, unsigned blocks, cudaStream_t stream) {
+int launch_any(const Args& a, cudaStream_t stream) {
   switch ((a.D + 15) / 16) {
-    case 1: return launch<1, BF16>(a, blocks, stream);
-    case 2: return launch<2, BF16>(a, blocks, stream);
-    case 3: return launch<3, BF16>(a, blocks, stream);
-    case 4: return launch<4, BF16>(a, blocks, stream);
-    case 5: return launch<5, BF16>(a, blocks, stream);
-    case 6: return launch<6, BF16>(a, blocks, stream);
-    case 7: return launch<7, BF16>(a, blocks, stream);
-    default: return launch<8, BF16>(a, blocks, stream);
+    case 1: return launch<1>(a, stream);
+    case 2: return launch<2>(a, stream);
+    case 3: return launch<3>(a, stream);
+    case 4: return launch<4>(a, stream);
+    case 5: return launch<5>(a, stream);
+    case 6: return launch<6>(a, stream);
+    case 7: return launch<7>(a, stream);
+    default: return launch<8>(a, stream);
   }
 }
+
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, cp.async ring)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BQ = 128;               // query rows per block
+constexpr int BK = 64;                // keys per kv tile
+constexpr int WARPS = BQ / 16;        // 16 query rows a warp
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 2;             // K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
+
+// bf16 elements of a shared-memory row: DP plus 8, so the 8 rows one
+// ldmatrix reads start 4 banks apart modulo 32 (DP is a multiple of 16)
+__host__ __device__ constexpr int row_len(int DP) { return DP + 8; }
+__host__ __device__ constexpr int smem_bytes(int DP) {
+  return (BQ + 2 * STAGES * BK) * row_len(DP) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; the bytes past `src_bytes` (all
+// 16 when it is 0) are written as zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a . b for one 16 x 8 tile, depth 16: bf16 products, f32 sums
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// rows [r0, r0 + ROWS) of a (S, D) slice, row stride ss and d stride sd
+// (elements), into a ROWS x DP tile of row_len(DP): zeros past S and past
+// D. VEC: 16-byte cp.async (sd == 1, 16-byte aligned rows); else
+// element-wise loads and stores.
+template <int ROWS, int DP, bool VEC>
+__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
+                                          long long ss, long long sd,
+                                          long long r0, long long S, int D) {
+  constexpr int LD = row_len(DP);
+  if (VEC) {
+    constexpr int CH = DP / 8;                 // 16-byte chunks a row
+    for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
+      const int r = c / CH, d0 = c % CH * 8;
+      const long long s = r0 + r;
+      const int n = s < S ? min(max(D - d0, 0), 8) : 0;
+      cp_async16(smem_u32(dst + r * LD + d0), n ? src + s * ss + d0 : src,
+                 2 * n);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+      const int r = i / DP, d = i % DP;
+      const long long s = r0 + r;
+      dst[r * LD + d] = (s < S && d < D) ? src[s * ss + d * sd] : 0;
+    }
+  }
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bf16(const Args a) {
+  constexpr int LD = row_len(DP);
+  constexpr int NKD = DP / 16;                 // k-steps of q . k
+  constexpr int NS = BK / 8;                   // 8-key tiles of S
+  constexpr int NO = DP / 8;                   // 8-column tiles of O
+  extern __shared__ __align__(16) uint16_t smem[];
+  uint16_t* Qs = smem;                         // BQ x LD
+  uint16_t* Ks = Qs + BQ * LD;                 // STAGES x BK x LD
+  uint16_t* Vs = Ks + STAGES * BK * LD;        // STAGES x BK x LD
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long BH = (long long)a.B * a.H;
+  const long long qt = a.nq - 1 - (long long)blockIdx.x / BH;
+  const long long bh = (long long)blockIdx.x % BH;
+  const long long b = bh / a.H, h = bh % a.H, hk = h / a.G;
+  const long long q0 = qt * BQ;
+  const long long q_last = (q0 + BQ - 1 < a.S ? q0 + BQ - 1 : a.S - 1);
+  const uint16_t* q = static_cast<const uint16_t*>(a.q) + b * a.sq[0] +
+                      h * a.sq[1];
+  const uint16_t* k = static_cast<const uint16_t*>(a.k) + b * a.sk[0] +
+                      hk * a.sk[1];
+  const uint16_t* v = static_cast<const uint16_t*>(a.v) + b * a.sv[0] +
+                      hk * a.sv[1];
+
+  // kv tiles [lo, hi]: none wholly after the last row, none wholly before
+  // the first row's window
+  const long long hi = q_last / BK;
+  long long lo = 0;
+  if (a.window > 0 && q0 - a.window + 1 > 0) lo = (q0 - a.window + 1) / BK;
+
+  load_tile<BQ, DP, VEC>(Qs, q, a.sq[2], a.sq[3], q0, a.S, a.D);
+  cp_commit();
+  load_tile<BK, DP, VEC>(Ks, k, a.sk[2], a.sk[3], lo * BK, a.S, a.D);
+  load_tile<BK, DP, VEC>(Vs, v, a.sv[2], a.sv[3], lo * BK, a.S, a.D);
+  cp_commit();
+  cp_wait<1>();                                // Q has landed
+  __syncthreads();
+
+  // the warp's 16 rows as A fragments, for the whole kv loop
+  uint32_t qf[NKD][4];
+#pragma unroll
+  for (int kk = 0; kk < NKD; ++kk)
+    ldsm_x4(smem_u32(Qs + (16 * warp + (lane & 15)) * LD + 16 * kk +
+                     ((lane >> 4) << 3)), qf[kk]);
+
+  // this thread's rows: r_first + lane / 4 and 8 below it; its columns in
+  // every 8-wide tile: 2 (lane % 4) and the next
+  const long long r_first = q0 + 16 * warp, r_last = r_first + 15;
+  const long long row0 = r_first + (lane >> 2), row1 = row0 + 8;
+  const int c0 = 2 * (lane & 3);
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's part
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (long long kt = lo; kt <= hi; ++kt) {
+    const int st = (int)((kt - lo) & 1);
+    if (kt < hi) {                             // the next tile, in flight
+      load_tile<BK, DP, VEC>(Ks + (st ^ 1) * BK * LD, k, a.sk[2], a.sk[3],
+                             (kt + 1) * BK, a.S, a.D);
+      load_tile<BK, DP, VEC>(Vs + (st ^ 1) * BK * LD, v, a.sv[2], a.sv[3],
+                             (kt + 1) * BK, a.S, a.D);
+    }
+    cp_commit();
+    cp_wait<1>();                              // this tile has landed
+    __syncthreads();
+
+    const long long k0 = kt * BK;
+    // a warp whose rows see none of this tile skips it (it would add p = 0)
+    const bool active = r_first < a.S && k0 <= r_last &&
+                        (a.window <= 0 || k0 + BK - 1 > r_first - a.window);
+    if (active) {
+      const uint16_t* Kt = Ks + st * BK * LD;
+      const uint16_t* Vt = Vs + st * BK * LD;
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      // S = Q K^T: K stored [key][d] is the col-major B operand
+#pragma unroll
+      for (int kk = 0; kk < NKD; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < NS / 2; ++jp) {
+          uint32_t kb[4];
+          ldsm_x4(smem_u32(Kt + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) *
+                                    LD + 16 * kk + (((lane >> 3) & 1) << 3)),
+                  kb);
+          mma(s[2 * jp], qf[kk], kb[0], kb[1]);
+          mma(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+
+      // scale, mask (only tiles on the warp's diagonal, its window's edge
+      // or S's end), row max over the quad
+      const bool full = k0 + BK - 1 <= r_first && k0 + BK - 1 < a.S &&
+                        (a.window <= 0 || r_last - k0 < a.window);
+      float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * a.scale;
+          if (!full) {
+            const long long col = k0 + 8 * j + c0 + (e & 1);
+            const long long row = e < 2 ? row0 : row1;
+            const bool keep = col <= row && col < a.S &&
+                              (a.window <= 0 || row - col < a.window);
+            x = keep ? x : NEG;
+          }
+          s[j][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float ml0 = __fmul_rn(mn0, LOG2E), ml1 = __fmul_rn(mn1, LOG2E);
+      const float corr0 = exp2f(__fmul_rn(m0, LOG2E) - ml0);
+      const float corr1 = exp2f(__fmul_rn(m1, LOG2E) - ml1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][0] = exp2f(__fmul_rn(s[j][0], LOG2E) - ml0);
+        s[j][1] = exp2f(__fmul_rn(s[j][1], LOG2E) - ml0);
+        s[j][2] = exp2f(__fmul_rn(s[j][2], LOG2E) - ml1);
+        s[j][3] = exp2f(__fmul_rn(s[j][3], LOG2E) - ml1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][0] *= corr0;
+        o[j][1] *= corr0;
+        o[j][2] *= corr1;
+        o[j][3] *= corr1;
+      }
+
+      // O += P V: P's C fragments repacked as bf16 A fragments; V stored
+      // [key][d] is row-major B, read transposed
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int jd = 0; jd < NO / 2; ++jd) {
+          uint32_t vb[4];
+          ldsm_x4_t(smem_u32(Vt + (16 * kk + (lane & 7) +
+                                   (((lane >> 3) & 1) << 3)) * LD +
+                             16 * jd + ((lane >> 4) << 3)), vb);
+          mma(o[2 * jd], pa, vb[0], vb[1]);
+          mma(o[2 * jd + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();                           // stage st is free again
+  }
+
+  // l over the quad; out = acc / max(l, 1e-30), columns < D, rows < S
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+  const int D = a.D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long row = half ? row1 : row0;
+    if (row >= a.S) continue;
+    const float den = half ? den1 : den0;
+    __nv_bfloat16* orow = out + ((b * a.S + row) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int col = 8 * j + c0;
+      const float y0 = o[j][2 * half] / den, y1 = o[j][2 * half + 1] / den;
+      if (col + 1 < D && !(D & 1)) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < D) orow[col] = __float2bfloat16_rn(y0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(y1);
+      }
+    }
+  }
+}
+
+template <int DP, bool VEC>
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bf16<DP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((long long)a.nq * a.B * a.H);
+  attn_bf16<DP, VEC><<<blocks, THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_dp(const Args& a, cudaStream_t stream) {
+  switch ((a.D + 15) / 16) {
+    case 1: return launch<16, VEC>(a, stream);
+    case 2: return launch<32, VEC>(a, stream);
+    case 3: return launch<48, VEC>(a, stream);
+    case 4: return launch<64, VEC>(a, stream);
+    case 5: return launch<80, VEC>(a, stream);
+    case 6: return launch<96, VEC>(a, stream);
+    case 7: return launch<112, VEC>(a, stream);
+    default: return launch<128, VEC>(a, stream);
+  }
+}
+
+// 16-byte copies need a 16-byte aligned base, d stride 1 and the other
+// strides in multiples of 8 elements (a stride of a size-1 dim is unused)
+bool vec_ok(const void* p, const long long* st, long long n_b, long long n_h,
+            long long S, long long D) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (st[3] == 1 || D == 1) && (st[2] % 8 == 0 || S == 1) &&
+         (st[1] % 8 == 0 || n_h == 1) && (st[0] % 8 == 0 || n_b == 1);
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -296,7 +636,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       D > DMAX || window < 0 || (dtype != 0 && dtype != 1) ||
       B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const long long nq = (S + BQ - 1) / BQ;
+  const int bq = dtype == 1 ? tc::BQ : f32::BQ;
+  const long long nq = (S + bq - 1) / bq;
   if (nq * B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -316,8 +657,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.D = (int)D;
   a.window = window;
   a.nq = (int)nq;
-  const unsigned blocks = (unsigned)(nq * B * H);
   cudaStream_t st = (cudaStream_t)stream;
-  return dtype == 1 ? launch_nj<true>(a, blocks, st)
-                    : launch_nj<false>(a, blocks, st);
+  if (dtype == 0) return f32::launch_any(a, st);
+  const bool vec = tc::vec_ok(q, a.sq, B, H, S, D) &&
+                   tc::vec_ok(k, a.sk, B, Hkv, S, D) &&
+                   tc::vec_ok(v, a.sv, B, Hkv, S, D);
+  return vec ? tc::launch_dp<true>(a, st) : tc::launch_dp<false>(a, st);
 }

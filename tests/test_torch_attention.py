@@ -247,3 +247,83 @@ def test_chip_bf16_limit_holds_b5_arithmetic_not_a_lost_tile(s, hkv, g, d,
     with pytest.raises(AssertionError, match="disagrees"):
         chip_smoke._attn_check(torch, ref, lost, q, k, v, window,
                                "a lost kv tile")
+
+
+def _b5_tc_arithmetic(q, k, v, window, fault=None):
+    """The bf16 kernel's tiling in plain torch: query tiles of 128 rows,
+    each walking the kv tiles of 64 its rows can see, D zero-padded to
+    DP = 16 ceil(D / 16), scores in f32 sums per tile times D^-0.5,
+    exp2 of s log2(e) - m log2(e) (each product rounded), p rounded to
+    bf16 before P.V and l summing the unrounded p, the output's first D
+    columns rounded to bf16. ``fault`` is "lost tile" (the kv tile at
+    S / 2 dropped) or "stale pad" (the pad columns of q and k hold stale
+    values, not zeros)."""
+    BQ, BK, L2E = 128, 64, 1.4426950408889634
+    B, H, S, D = q.shape
+    G, DP = H // k.shape[1], -(-D // 16) * 16
+    qp, kp, vp = (torch.nn.functional.pad(t.float(), (0, DP - D))
+                  for t in (q, k, v))
+    if fault == "stale pad":
+        qp[..., D:] = q[..., :DP - D].float()
+        kp[..., D:] = k[..., :DP - D].float()
+    kx, vx = (t.repeat_interleave(G, 1) for t in (kp, vp))
+    scale = torch.tensor(D ** -0.5, dtype=torch.float32)
+    lost = S // 2 // BK * BK if fault == "lost tile" else None
+    out = torch.empty(B, H, S, DP)
+    pos = torch.arange(S)
+    for q0 in range(0, S, BQ):
+        rows = pos[q0:q0 + BQ]
+        hi = min(q0 + BQ - 1, S - 1) // BK
+        lo = (q0 - window + 1) // BK if window > 0 and q0 - window + 1 > 0 \
+            else 0
+        m = torch.full((B, H, len(rows)), -1e30)
+        l, acc = torch.zeros(B, H, len(rows)), torch.zeros(B, H, len(rows),
+                                                          DP)
+        for k0 in range(lo * BK, (hi + 1) * BK, BK):
+            cols = pos[k0:k0 + BK]
+            s = torch.einsum("bhqd,bhkd->bhqk", qp[:, :, q0:q0 + BQ],
+                             kx[:, :, k0:k0 + BK]) * scale
+            mask = rows[:, None] >= cols[None, :]
+            if window > 0:
+                mask &= rows[:, None] - cols[None, :] < window
+            if k0 == lost:
+                mask &= False
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            ml = m_new * L2E
+            p = torch.exp2(s * L2E - ml[..., None])
+            corr = torch.exp2(m * L2E - ml)
+            l = l * corr + p.sum(-1)
+            pv = p.bfloat16().float() @ vx[:, :, k0:k0 + BK]
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out[:, :, q0:q0 + BQ] = acc / l.clamp_min(1e-30)[..., None]
+    return out[..., :D].bfloat16()
+
+
+# (S, Hkv, G, D, window): the pad (D = 120), zamba2's D, G = 4, a window,
+# ragged S; each fault only where it can occur (no pad at D = 80)
+TC_CASES = [(1000, 1, 4, 120, 300), (1000, 1, 4, 80, 300),
+            (777, 2, 2, 120, 0)]
+
+
+@pytest.mark.parametrize("s,hkv,g,d,window,fault", [
+    case + (fault,) for case in TC_CASES
+    for fault in (None, "lost tile", "stale pad")
+    if fault != "stale pad" or case[3] % 16])
+def test_chip_bf16_limit_holds_tensor_core_tiling(s, hkv, g, d, window,
+                                                  fault):
+    """``chip_smoke._attn_check``'s bf16 limit passes the tensor-core
+    kernel's arithmetic and fails it with one kv tile lost or with pad
+    columns that are not zero."""
+    q, k, v = (_torch(a, "bfloat16")
+               for a in _qkv(8, 1, hkv, g, s, d, "bfloat16"))
+    got = _b5_tc_arithmetic(q, k, v, window, fault)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    if fault is None:
+        err, use = chip_smoke._attn_check(torch, ref, got, q, k, v, window,
+                                          "the tensor-core tiling")
+        assert 0 < err and use <= 1
+    else:
+        with pytest.raises(AssertionError, match="disagrees"):
+            chip_smoke._attn_check(torch, ref, got, q, k, v, window, fault)
