@@ -35,32 +35,35 @@
 // output elements per query row, so at S = 4,096 both paths are bound by
 // their operations.
 //
-// bf16 inputs (attn_bf16): the products run on the tensor cores,
-// mma.sync.m16n8k16 bf16 x bf16 -> f32. A bf16 product is exact in f32 and
-// the sums are f32, the TPU kernel's arithmetic; p is rounded to bf16 for
-// P.V as the contract says. 128 query rows a block, 16 a warp (8 warps);
-// the Q tile's A fragments stay in registers for the whole kv loop. K and V
-// stay bf16 in shared memory, in a 2-stage ring that 16-byte cp.async
-// fills: the next tile's copies are issued before this tile's math. Rows
-// are padded by 8 bf16 (272 bytes at D = 128), so ldmatrix reads hit every
-// bank once. D is padded to DP = 16 ceil(D / 16) with zero columns (120 ->
-// 128): they add nothing to q . k, and the P.V columns past D are not
-// stored. Keys past S are zero-filled (cp.async's src-size 0) and masked.
-// Scores stay in the accumulator fragments: the row max and sum go through
-// the 4 threads of a quad, and P is repacked from C to bf16 A fragments in
-// registers (no shared-memory round trip); V's B fragments come from
-// ldmatrix.trans. exp is exp2f((s - m) log2 e), s and m each multiplied by
-// log2 e with its own rounding, so a fully masked row (s = m = -1e30) keeps
-// p = 1 as expf(0) does and is wiped by the next tile's corr = 0, as
-// before. A warp skips the tiles its own 16 rows cannot see, and masks only
-// the tiles on its diagonal, its window's edge or S's ragged end; a skipped
-// tile would have added p = 0, so the result is the same bits. Inputs that
-// 16-byte copies cannot take (a base or a b, h, s stride that is not a
-// multiple of 8 elements, or a d stride != 1) take the same kernel with
-// element-wise loads into the same tiles (VEC = false): the same mma order,
-// so both layouts give the same bits. Bound: the mma.sync rate (Hopper's
-// full bf16 rate needs wgmma). Left for a later PR: wgmma with TMA loads
-// and a producer warp (ROADMAP K1b).
+// bf16 inputs (attn_wg): the products run on the tensor cores, wgmma
+// bf16 x bf16 -> f32. A bf16 product is exact in f32 and the sums are
+// f32, the TPU kernel's arithmetic; p is rounded to bf16 for P.V as the
+// contract says. A block of 288 threads takes 128 query rows: two consumer
+// warpgroups of 64 rows and one producer warp. The producer loads the Q
+// tile once and the K and V tiles into a 3-stage ring, by TMA boxes of
+// 64 columns with the 128-byte swizzle, each stage handed over by a pair
+// of mbarriers (full: the bytes have landed; empty: both warpgroups are
+// done with it). One rank-4 (d, s, head, batch) tensor map per input,
+// built on the host with the caller's strides, fills the ragged S tail
+// and the columns past D with zeros, so D is padded to DP = 16 ceil(D/16)
+// for free (120 -> 128): the zero columns add nothing to q . k, and the
+// P.V columns past D are not stored. A consumer warpgroup computes S = Q K^T
+// with m64n64k16 (Q and K K-major in shared memory), masks and takes the
+// online softmax on the accumulator fragments (row max and sum over the 4
+// threads of a quad), repacks P to bf16 A fragments in registers and adds
+// P.V with m64nDPk16 (V MN-major in shared memory). exp is
+// exp2f((s - m) log2 e), s and m each multiplied by log2 e with its own
+// rounding, so a fully masked row (s = m = -1e30) keeps p = 1 as expf(0)
+// does and is wiped by the next tile's corr = 0, as before. A warpgroup
+// skips the tiles its 64 rows cannot see, and a warp masks only the tiles
+// on its diagonal, its window's edge or S's ragged end; a skipped tile
+// would have added p = 0, so the result is the same bits. Inputs TMA cannot
+// take (a base or a b, h, s stride that is not a multiple of 16 bytes, or
+// a d stride != 1) take the same kernel with VEC = false: the producer
+// warp writes the same swizzled tiles element by element, so both layouts
+// give the same bits. Bound: the tensor cores' bf16 rate; the softmax
+// between the two products is not overlapped with them within a
+// warpgroup, only across the two warpgroups.
 //
 // f32 inputs (attn_f32): every product is an f32 FMA on the CUDA cores;
 // TF32 tensor cores keep ~1e-3 and would miss the 2e-5 f32 tolerance. 256
@@ -75,6 +78,7 @@
 // are scheduled first on both paths. Bound: shared-memory loads per FMA
 // (0.5 in the scores, 0.375 in P.V) cap it near half the f32 rate; it runs
 // in the shallow card-against-CPU checks only.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -292,64 +296,20 @@ int launch_any(const Args& a, cudaStream_t stream) {
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, cp.async ring)
+// bf16: wgmma with TMA loads (Hopper)
 // ---------------------------------------------------------------------------
-namespace tc {
+namespace wg {
 
 constexpr int BQ = 128;               // query rows per block
 constexpr int BK = 64;                // keys per kv tile
-constexpr int WARPS = BQ / 16;        // 16 query rows a warp
-constexpr int THREADS = 32 * WARPS;
-constexpr int STAGES = 2;             // K/V ring
+constexpr int CONSUMER_WARPS = 8;     // two warpgroups of 64 rows
+constexpr int THREADS = 32 * CONSUMER_WARPS + 32;  // + the producer warp
+constexpr int STAGES = 3;             // K/V ring
+constexpr int ROW = 128;              // bytes of a swizzled row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
-
-// bf16 elements of a shared-memory row: DP plus 8, so the 8 rows one
-// ldmatrix reads start 4 banks apart modulo 32 (DP is a multiple of 16)
-__host__ __device__ constexpr int row_len(int DP) { return DP + 8; }
-__host__ __device__ constexpr int smem_bytes(int DP) {
-  return (BQ + 2 * STAGES * BK) * row_len(DP) * 2;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; the bytes past `src_bytes` (all
-// 16 when it is 0) are written as zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a . b for one 16 x 8 tile, depth 16: bf16 products, f32 sums
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // two f32 rounded to bf16, the first in the low half
@@ -358,44 +318,319 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// rows [r0, r0 + ROWS) of a (S, D) slice, row stride ss and d stride sd
-// (elements), into a ROWS x DP tile of row_len(DP): zeros past S and past
-// D. VEC: 16-byte cp.async (sd == 1, 16-byte aligned rows); else
-// element-wise loads and stores.
-template <int ROWS, int DP, bool VEC>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          long long ss, long long sd,
-                                          long long r0, long long S, int D) {
-  constexpr int LD = row_len(DP);
-  if (VEC) {
-    constexpr int CH = DP / 8;                 // 16-byte chunks a row
-    for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
-      const int r = c / CH, d0 = c % CH * 8;
-      const long long s = r0 + r;
-      const int n = s < S ? min(max(D - d0, 0), 8) : 0;
-      cp_async16(smem_u32(dst + r * LD + d0), n ? src + s * ss + d0 : src,
-                 2 * n);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
-      const int r = i / DP, d = i % DP;
-      const long long s = r0 + r;
-      dst[r * LD + d] = (s < S && d < D) ? src[s * ss + d * sd] : 0;
-    }
+// Dynamic shared memory from a 1024-byte aligned base: Q as NC column
+// blocks of BQ rows, then K[STAGES] and V[STAGES] as NC blocks of BK rows
+// each; a block holds 64 columns (zeros past D) in rows of 128 bytes with
+// the 128-byte swizzle that TMA writes and wgmma reads (16-byte chunk c of
+// row r at chunk c ^ (r % 8)). Then the mbarriers.
+template <int NC>
+struct Smem {
+  static constexpr int QB = BQ * ROW, KB = BK * ROW;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NC * QB;
+  static constexpr int V = K + STAGES * NC * KB;
+  static constexpr int BAR = V + STAGES * NC * KB;  // full, empty, q
+  static constexpr int BYTES = 1024 + BAR + 8 * (2 * STAGES + 1);
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc);
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins registers in program order around the asynchronous wgmma: their
+// writes before it, their reads after its wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    asm volatile("" : "+r"(r[i / 4][i % 4]) :: "memory");
+}
+
+// a shared-memory matrix descriptor with the 128-byte swizzle; byte
+// offsets: lbo between 64-column blocks (MN-major only), sbo between
+// 8-row groups
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// waits for the phase of this parity to complete; traps after ~2^33
+// cycles (seconds), so a fault ends the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = -1;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 < 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 33)) __trap();
   }
+}
+
+// one box of a rank-4 (d, s, head, batch) tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int d, int s, int h, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(s),
+         "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// rows [r0, r0 + ROWS) of a (S, D) slice, row stride ss and d stride sd,
+// element by element into NC swizzled column blocks, zeros past S and D:
+// the tiles TMA would write. The producer warp's 32 lanes share the work.
+template <int ROWS, int NC>
+__device__ __forceinline__ void fill(uint32_t dst, const uint16_t* src,
+                                     long long ss, long long sd, long long r0,
+                                     long long S, int D, int lane) {
+  for (int i = lane; i < ROWS * NC * 64; i += 32) {
+    const int r = i / (NC * 64), c = i % (NC * 64);
+    const long long s = r0 + r;
+    const uint16_t x = (s < S && c < D) ? src[s * ss + c * sd] : 0;
+    const uint32_t at = dst + (c >> 6) * ROWS * ROW + r * ROW +
+                        ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+    asm volatile("st.shared.u16 [%0], %1;\n" :: "r"(at), "h"(x) : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
 }
 
 template <int DP, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
-attn_bf16(const Args a) {
-  constexpr int LD = row_len(DP);
-  constexpr int NKD = DP / 16;                 // k-steps of q . k
-  constexpr int NS = BK / 8;                   // 8-key tiles of S
-  constexpr int NO = DP / 8;                   // 8-column tiles of O
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* Qs = smem;                         // BQ x LD
-  uint16_t* Ks = Qs + BQ * LD;                 // STAGES x BK x LD
-  uint16_t* Vs = Ks + STAGES * BK * LD;        // STAGES x BK x LD
+attn_wg(const __grid_constant__ Args a,
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv) {
+  constexpr int NC = (DP + 63) / 64;          // 64-column blocks
+  constexpr int NKD = DP / 16;                // k-steps of q . k
+  using L = Smem<NC>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + L::BAR, empty = full + 8 * STAGES,
+                 qbar = empty + 8 * STAGES;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long BH = (long long)a.B * a.H;
@@ -404,98 +639,123 @@ attn_bf16(const Args a) {
   const long long b = bh / a.H, h = bh % a.H, hk = h / a.G;
   const long long q0 = qt * BQ;
   const long long q_last = (q0 + BQ - 1 < a.S ? q0 + BQ - 1 : a.S - 1);
-  const uint16_t* q = static_cast<const uint16_t*>(a.q) + b * a.sq[0] +
-                      h * a.sq[1];
-  const uint16_t* k = static_cast<const uint16_t*>(a.k) + b * a.sk[0] +
-                      hk * a.sk[1];
-  const uint16_t* v = static_cast<const uint16_t*>(a.v) + b * a.sv[0] +
-                      hk * a.sv[1];
-
   // kv tiles [lo, hi]: none wholly after the last row, none wholly before
   // the first row's window
   const long long hi = q_last / BK;
   long long lo = 0;
   if (a.window > 0 && q0 - a.window + 1 > 0) lo = (q0 - a.window + 1) / BK;
+  const int nt = (int)(hi - lo + 1);
 
-  load_tile<BQ, DP, VEC>(Qs, q, a.sq[2], a.sq[3], q0, a.S, a.D);
-  cp_commit();
-  load_tile<BK, DP, VEC>(Ks, k, a.sk[2], a.sk[3], lo * BK, a.S, a.D);
-  load_tile<BK, DP, VEC>(Vs, v, a.sv[2], a.sv[3], lo * BK, a.S, a.D);
-  cp_commit();
-  cp_wait<1>();                                // Q has landed
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // the warp's 16 rows as A fragments, for the whole kv loop
-  uint32_t qf[NKD][4];
-#pragma unroll
-  for (int kk = 0; kk < NKD; ++kk)
-    ldsm_x4(smem_u32(Qs + (16 * warp + (lane & 15)) * LD + 16 * kk +
-                     ((lane >> 4) << 3)), qf[kk]);
+  if (warp == CONSUMER_WARPS) {
+    // producer: Q once, then the kv tiles through the ring
+    const uint16_t* q = static_cast<const uint16_t*>(a.q) + b * a.sq[0] +
+                        h * a.sq[1];
+    const uint16_t* k = static_cast<const uint16_t*>(a.k) + b * a.sk[0] +
+                        hk * a.sk[1];
+    const uint16_t* v = static_cast<const uint16_t*>(a.v) + b * a.sv[0] +
+                        hk * a.sv[1];
+    if (VEC) {
+      if (lane == 0) {
+        mbar_expect(qbar, NC * L::QB);
+        for (int c = 0; c < NC; ++c)
+          tma_load(base + L::Q + c * L::QB, &tq, 64 * c, (int)q0, (int)h,
+                   (int)b, qbar);
+      }
+    } else {
+      fill<BQ, NC>(base + L::Q, q, a.sq[2], a.sq[3], q0, a.S, a.D, lane);
+      if (lane == 0) mbar_arrive(qbar);
+    }
+    for (int t = 0; t < nt; ++t) {
+      const int st = t % STAGES;
+      const int k0 = (int)((lo + t) * BK);
+      if (t >= STAGES) mbar_wait(empty + 8 * st, ((t / STAGES) + 1) & 1);
+      const uint32_t kd = base + L::K + st * NC * L::KB;
+      const uint32_t vd = base + L::V + st * NC * L::KB;
+      if (VEC) {
+        if (lane == 0) {
+          mbar_expect(full + 8 * st, 2 * NC * L::KB);
+          for (int c = 0; c < NC; ++c) {
+            tma_load(kd + c * L::KB, &tk, 64 * c, k0, (int)hk, (int)b,
+                     full + 8 * st);
+            tma_load(vd + c * L::KB, &tv, 64 * c, k0, (int)hk, (int)b,
+                     full + 8 * st);
+          }
+        }
+      } else {
+        fill<BK, NC>(kd, k, a.sk[2], a.sk[3], k0, a.S, a.D, lane);
+        fill<BK, NC>(vd, v, a.sv[2], a.sv[3], k0, a.S, a.D, lane);
+        if (lane == 0) mbar_arrive(full + 8 * st);
+      }
+    }
+    return;
+  }
 
-  // this thread's rows: r_first + lane / 4 and 8 below it; its columns in
-  // every 8-wide tile: 2 (lane % 4) and the next
-  const long long r_first = q0 + 16 * warp, r_last = r_first + 15;
+  // consumers: warpgroup g owns rows q0 + 64 g .. + 63, warp w of it 16 of
+  // them; this thread rows row0 = .. + lane / 4 and row0 + 8, columns
+  // 2 (lane % 4) and the next in every 8-wide tile (the m64nNk16 layout)
+  const int g = warp >> 2, w = warp & 3;
+  const long long g_first = q0 + 64 * g, g_last = g_first + 63;
+  const long long r_first = g_first + 16 * w, r_last = r_first + 15;
   const long long row0 = r_first + (lane >> 2), row1 = row0 + 8;
   const int c0 = 2 * (lane & 3);
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's part
-  float o[NO][4];
+  float o[DP / 2];
 #pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
+  const uint32_t qa = base + L::Q + g * 64 * ROW;
 
-  for (long long kt = lo; kt <= hi; ++kt) {
-    const int st = (int)((kt - lo) & 1);
-    if (kt < hi) {                             // the next tile, in flight
-      load_tile<BK, DP, VEC>(Ks + (st ^ 1) * BK * LD, k, a.sk[2], a.sk[3],
-                             (kt + 1) * BK, a.S, a.D);
-      load_tile<BK, DP, VEC>(Vs + (st ^ 1) * BK * LD, v, a.sv[2], a.sv[3],
-                             (kt + 1) * BK, a.S, a.D);
-    }
-    cp_commit();
-    cp_wait<1>();                              // this tile has landed
-    __syncthreads();
-
-    const long long k0 = kt * BK;
-    // a warp whose rows see none of this tile skips it (it would add p = 0)
-    const bool active = r_first < a.S && k0 <= r_last &&
-                        (a.window <= 0 || k0 + BK - 1 > r_first - a.window);
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < nt; ++t) {
+    const int st = t % STAGES;
+    const long long k0 = (lo + t) * BK;
+    mbar_wait(full + 8 * st, (t / STAGES) & 1);
+    // a warpgroup whose rows see none of this tile skips it (it would add
+    // p = 0); wgmma is per warpgroup, so the choice is too
+    const bool active = g_first < a.S && k0 <= g_last &&
+                        (a.window <= 0 || k0 + BK - 1 > g_first - a.window);
     if (active) {
-      const uint16_t* Kt = Ks + st * BK * LD;
-      const uint16_t* Vt = Vs + st * BK * LD;
-      float s[NS][4];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      // S = Q K^T: K stored [key][d] is the col-major B operand
+      const uint32_t kt = base + L::K + st * NC * L::KB;
+      const uint32_t vt = base + L::V + st * NC * L::KB;
+      float s[32];
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < NKD; ++kk) {
-#pragma unroll
-        for (int jp = 0; jp < NS / 2; ++jp) {
-          uint32_t kb[4];
-          ldsm_x4(smem_u32(Kt + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) *
-                                    LD + 16 * kk + (((lane >> 3) & 1) << 3)),
-                  kb);
-          mma(s[2 * jp], qf[kk], kb[0], kb[1]);
-          mma(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
-        }
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss<64>(s, desc(qa + (kk >> 2) * L::QB + off, 16, 1024),
+                     desc(kt + (kk >> 2) * L::KB + off, 16, 1024), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait0();
+      pin(s);
 
       // scale, mask (only tiles on the warp's diagonal, its window's edge
       // or S's end), row max over the quad
-      const bool full = k0 + BK - 1 <= r_first && k0 + BK - 1 < a.S &&
-                        (a.window <= 0 || r_last - k0 < a.window);
+      const bool whole = k0 + BK - 1 <= r_first && k0 + BK - 1 < a.S &&
+                         (a.window <= 0 || r_last - k0 < a.window);
       float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * a.scale;
-          if (!full) {
+          float x = s[4 * j + e] * a.scale;
+          if (!whole) {
             const long long col = k0 + 8 * j + c0 + (e & 1);
             const long long row = e < 2 ? row0 : row1;
             const bool keep = col <= row && col < a.S &&
                               (a.window <= 0 || row - col < a.window);
             x = keep ? x : NEG;
           }
-          s[j][e] = x;
+          s[4 * j + e] = x;
           if (e < 2) mx0 = fmaxf(mx0, x);
           else mx1 = fmaxf(mx1, x);
         }
@@ -512,44 +772,46 @@ attn_bf16(const Args a) {
       m1 = mn1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        s[j][0] = exp2f(__fmul_rn(s[j][0], LOG2E) - ml0);
-        s[j][1] = exp2f(__fmul_rn(s[j][1], LOG2E) - ml0);
-        s[j][2] = exp2f(__fmul_rn(s[j][2], LOG2E) - ml1);
-        s[j][3] = exp2f(__fmul_rn(s[j][3], LOG2E) - ml1);
-        sum0 += s[j][0] + s[j][1];
-        sum1 += s[j][2] + s[j][3];
+      for (int j = 0; j < 8; ++j) {
+        s[4 * j] = exp2f(__fmul_rn(s[4 * j], LOG2E) - ml0);
+        s[4 * j + 1] = exp2f(__fmul_rn(s[4 * j + 1], LOG2E) - ml0);
+        s[4 * j + 2] = exp2f(__fmul_rn(s[4 * j + 2], LOG2E) - ml1);
+        s[4 * j + 3] = exp2f(__fmul_rn(s[4 * j + 3], LOG2E) - ml1);
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
       }
       l0 = l0 * corr0 + sum0;
       l1 = l1 * corr1 + sum1;
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        o[j][0] *= corr0;
-        o[j][1] *= corr0;
-        o[j][2] *= corr1;
-        o[j][3] *= corr1;
+      for (int j = 0; j < DP / 8; ++j) {
+        o[4 * j] *= corr0;
+        o[4 * j + 1] *= corr0;
+        o[4 * j + 2] *= corr1;
+        o[4 * j + 3] *= corr1;
       }
 
-      // O += P V: P's C fragments repacked as bf16 A fragments; V stored
-      // [key][d] is row-major B, read transposed
+      // O += P V: P's accumulator fragments repacked as bf16 A fragments
+      // in registers; V (keys x d, d contiguous) is the MN-major B operand
+      uint32_t pa[4][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int jd = 0; jd < NO / 2; ++jd) {
-          uint32_t vb[4];
-          ldsm_x4_t(smem_u32(Vt + (16 * kk + (lane & 7) +
-                                   (((lane >> 3) & 1) << 3)) * LD +
-                             16 * jd + ((lane >> 4) << 3)), vb);
-          mma(o[2 * jd], pa, vb[0], vb[1]);
-          mma(o[2 * jd + 1], pa, vb[2], vb[3]);
-        }
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
       }
+      pin(o);
+      pin(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(o, pa[kk], desc(vt + kk * 16 * ROW, L::KB, 1024), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      pin(o);
     }
-    __syncthreads();                           // stage st is free again
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);
   }
 
   // l over the quad; out = acc / max(l, 1e-30), columns < D, rows < S
@@ -567,9 +829,10 @@ attn_bf16(const Args a) {
     const float den = half ? den1 : den0;
     __nv_bfloat16* orow = out + ((b * a.S + row) * a.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + c0;
-      const float y0 = o[j][2 * half] / den, y1 = o[j][2 * half + 1] / den;
+      const float y0 = o[4 * j + 2 * half] / den;
+      const float y1 = o[4 * j + 2 * half + 1] / den;
       if (col + 1 < D && !(D & 1)) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(y0, y1);
@@ -582,33 +845,33 @@ attn_bf16(const Args a) {
 }
 
 template <int DP, bool VEC>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes(DP);
+int launch(const Args& a, const CUtensorMap* maps, cudaStream_t stream) {
+  constexpr int bytes = Smem<(DP + 63) / 64>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bf16<DP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      attn_wg<DP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((long long)a.nq * a.B * a.H);
-  attn_bf16<DP, VEC><<<blocks, THREADS, bytes, stream>>>(a);
+  attn_wg<DP, VEC><<<blocks, THREADS, bytes, stream>>>(a, maps[0], maps[1],
+                                                       maps[2]);
   return (int)cudaGetLastError();
 }
 
 template <bool VEC>
-int launch_dp(const Args& a, cudaStream_t stream) {
+int launch_dp(const Args& a, const CUtensorMap* maps, cudaStream_t stream) {
   switch ((a.D + 15) / 16) {
-    case 1: return launch<16, VEC>(a, stream);
-    case 2: return launch<32, VEC>(a, stream);
-    case 3: return launch<48, VEC>(a, stream);
-    case 4: return launch<64, VEC>(a, stream);
-    case 5: return launch<80, VEC>(a, stream);
-    case 6: return launch<96, VEC>(a, stream);
-    case 7: return launch<112, VEC>(a, stream);
-    default: return launch<128, VEC>(a, stream);
+    case 1: return launch<16, VEC>(a, maps, stream);
+    case 2: return launch<32, VEC>(a, maps, stream);
+    case 3: return launch<48, VEC>(a, maps, stream);
+    case 4: return launch<64, VEC>(a, maps, stream);
+    case 5: return launch<80, VEC>(a, maps, stream);
+    case 6: return launch<96, VEC>(a, maps, stream);
+    case 7: return launch<112, VEC>(a, maps, stream);
+    default: return launch<128, VEC>(a, maps, stream);
   }
 }
 
-// 16-byte copies need a 16-byte aligned base, d stride 1 and the other
-// strides in multiples of 8 elements (a stride of a size-1 dim is unused)
+// TMA needs a 16-byte aligned base, d stride 1 and the other strides in
+// multiples of 8 elements (a stride of a size-1 dim is unused)
 bool vec_ok(const void* p, const long long* st, long long n_b, long long n_h,
             long long S, long long D) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
@@ -616,7 +879,56 @@ bool vec_ok(const void* p, const long long* st, long long n_b, long long n_h,
          (st[1] % 8 == 0 || n_h == 1) && (st[0] % 8 == 0 || n_b == 1);
 }
 
-}  // namespace tc
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the rank-4 (d, s, head, batch) map of one input with the caller's
+// strides, boxes of 64 columns x `rows` rows, the 128-byte swizzle, zeros
+// out of bounds; a size-1 dim's stride, never used, is set to a packed one
+bool make_map(CUtensorMap* map, const void* p, const long long* st,
+              long long B, long long heads, long long S, long long D,
+              int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const long long ss = S > 1 ? st[2] : (D + 7) / 8 * 8;
+  const long long sh = heads > 1 ? st[1] : ss * S;
+  const long long sb = B > 1 ? st[0] : sh * heads;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(p), dims, strides, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -636,7 +948,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       D > DMAX || window < 0 || (dtype != 0 && dtype != 1) ||
       B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int bq = dtype == 1 ? tc::BQ : f32::BQ;
+  const int bq = dtype == 1 ? wg::BQ : f32::BQ;
   const long long nq = (S + bq - 1) / bq;
   if (nq * B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Args a;
@@ -659,8 +971,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.nq = (int)nq;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return f32::launch_any(a, st);
-  const bool vec = tc::vec_ok(q, a.sq, B, H, S, D) &&
-                   tc::vec_ok(k, a.sk, B, Hkv, S, D) &&
-                   tc::vec_ok(v, a.sv, B, Hkv, S, D);
-  return vec ? tc::launch_dp<true>(a, st) : tc::launch_dp<false>(a, st);
+  const bool vec = wg::vec_ok(q, a.sq, B, H, S, D) &&
+                   wg::vec_ok(k, a.sk, B, Hkv, S, D) &&
+                   wg::vec_ok(v, a.sv, B, Hkv, S, D);
+  CUtensorMap maps[3] = {};
+  const bool tma = vec &&
+      wg::make_map(&maps[0], q, a.sq, B, H, S, D, wg::BQ) &&
+      wg::make_map(&maps[1], k, a.sk, B, Hkv, S, D, wg::BK) &&
+      wg::make_map(&maps[2], v, a.sv, B, Hkv, S, D, wg::BK);
+  return tma ? wg::launch_dp<true>(a, maps, st)
+             : wg::launch_dp<false>(a, maps, st);
 }

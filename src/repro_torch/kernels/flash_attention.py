@@ -9,18 +9,17 @@ in f32 over kv tiles of 64 that a block's query rows can see. Both paths
 are bound by their operations (4 D flops per causal pair):
 
 - bf16 (every prefill of the port): the products run on the tensor cores
-  (``mma.sync`` bf16 x bf16 -> f32: exact products, f32 sums, as the TPU
-  kernel's), 128 query rows a block, K and V tiles in a 2-stage ring of
-  16-byte ``cp.async`` copies that overlap the math; D is padded to a
-  multiple of 16 with zero columns. Its ceiling is ``mma.sync``'s rate;
-  ``wgmma`` with TMA loads is left for a later PR.
+  (``wgmma`` bf16 x bf16 -> f32: exact products, f32 sums, as the TPU
+  kernel's), 128 query rows a block in two warpgroups, Q, K and V tiles
+  loaded by TMA into a 3-stage ring by one producer warp; D is padded to a
+  multiple of 16 with zero columns by the loads.
 - f32 (the shallow card-against-CPU checks): f32 FMAs on the CUDA cores,
   which keep the 2e-5 tolerance that TF32 tensor cores would miss.
 
 Each sum has a fixed order, so a second launch is bit-equal, and inputs
-that the 16-byte loads cannot take (unaligned, or a d stride != 1) go
-through the same kernel with element-wise loads into the same tiles, so
-every layout gives the same bits.
+that TMA cannot take (unaligned, or a d stride != 1) go through the same
+kernel with element-wise loads into the same tiles, so every layout gives
+the same bits.
 
 It takes any ``S >= 1`` (the ragged last tile is masked in the kernel),
 any ``D <= 128``, any ``H % Hkv == 0``, and q, k, v of one dtype (f32 or
