@@ -51,19 +51,22 @@
 // with m64n64k16 (Q and K K-major in shared memory), masks and takes the
 // online softmax on the accumulator fragments (row max and sum over the 4
 // threads of a quad), repacks P to bf16 A fragments in registers and adds
-// P.V with m64nDPk16 (V MN-major in shared memory). exp is
-// exp2f((s - m) log2 e), s and m each multiplied by log2 e with its own
-// rounding, so a fully masked row (s = m = -1e30) keeps p = 1 as expf(0)
-// does and is wiped by the next tile's corr = 0, as before. A warpgroup
-// skips the tiles its 64 rows cannot see, and a warp masks only the tiles
-// on its diagonal, its window's edge or S's ragged end; a skipped tile
-// would have added p = 0, so the result is the same bits. Inputs TMA cannot
-// take (a base or a b, h, s stride that is not a multiple of 16 bytes, or
-// a d stride != 1) take the same kernel with VEC = false: the producer
-// warp writes the same swizzled tiles element by element, so both layouts
-// give the same bits. Bound: the tensor cores' bf16 rate; the softmax
-// between the two products is not overlapped with them within a
-// warpgroup, only across the two warpgroups.
+// P.V with m64nDPk16 (V MN-major in shared memory). It issues tile t + 1's
+// scores together with tile t's P.V and takes t + 1's softmax while P.V
+// runs, so the tensor cores are not idle during a softmax; the output is
+// rescaled by t + 1's corr once P.V of t has landed, the same arithmetic
+// in the same order as one tile after another. exp is 2^x by the SFU
+// (ex2.approx.ftz: relative error <= 2^-22, below 2^-126 flushed to 0) of
+// s log2 e - m log2 e, each product with its own rounding, so a fully
+// masked row (s = m = -1e30) keeps p = 1 as expf(0) does and is wiped by
+// the next tile's corr = 0, as before. A warpgroup skips the tiles its 64
+// rows cannot see, and a warp masks only the tiles on its diagonal, its
+// window's edge or S's ragged end; a skipped tile would have added p = 0,
+// so the result is the same bits. Inputs TMA cannot take (a base or a b,
+// h, s stride that is not a multiple of 16 bytes, or a d stride != 1)
+// take the same kernel with VEC = false: the producer warp writes the same
+// swizzled tiles element by element, so both layouts give the same bits.
+// Bound: the tensor cores' bf16 rate.
 //
 // f32 inputs (attn_f32): every product is an f32 FMA on the CUDA cores;
 // TF32 tensor cores keep ~1e-3 and would miss the 2e-5 f32 tolerance. 256
@@ -333,17 +336,17 @@ struct Smem {
   static constexpr int BYTES = 1024 + BAR + 8 * (2 * STAGES + 1);
 };
 
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int acc);
+// O += P V for 64 rows and N columns, depth 16: P's A fragments in
+// registers, V MN-major in shared memory
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int acc);
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                             uint64_t b, int acc) {
+// S += Q K^T for 64 rows and 64 keys, depth 16: Q and K K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b,
+                                         int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -533,8 +536,9 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 // pins registers in program order around the asynchronous wgmma: their
 // writes before it, their reads after its wait
@@ -584,6 +588,81 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (t0 < 0) t0 = clock64();
     else if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// 2^x by the SFU (relative error <= 2^-22, results below 2^-126 flushed)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's online softmax in place on the m64n64 accumulator fragments
+// `s` (keys k0 .. k0 + 63): scale, mask (only on the warp's diagonal, its
+// window's edge or S's end), row max over the quad, m updated, s replaced
+// by p = 2^(s log2 e - m log2 e) and p summed into this thread's part of
+// l; corr is each row's factor for the running output.
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], float& m0, float& m1, float& l0, float& l1, float& corr0,
+    float& corr1, const Args& a, long long k0, long long r_first,
+    long long row0, long long row1, int c0) {
+  const bool whole = k0 + BK - 1 <= r_first && k0 + BK - 1 < a.S &&
+                     (a.window <= 0 || r_first + 15 - k0 < a.window);
+  float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * a.scale;
+      if (!whole) {
+        const long long col = k0 + 8 * j + c0 + (e & 1);
+        const long long row = e < 2 ? row0 : row1;
+        const bool keep = col <= row && col < a.S &&
+                          (a.window <= 0 || row - col < a.window);
+        x = keep ? x : NEG;
+      }
+      s[4 * j + e] = x;
+      if (e < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  // a row with nothing unmasked yet keeps m = -1e30 and gets p = 0
+  const float ml0 = mn0 == NEG ? 0.f : mn0 * LOG2E;
+  const float ml1 = mn1 == NEG ? 0.f : mn1 * LOG2E;
+  corr0 = m0 == mn0 ? 1.f : ex2(fmaf(m0, LOG2E, -ml0));
+  corr1 = m1 == mn1 ? 1.f : ex2(fmaf(m1, LOG2E, -ml1));
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], LOG2E, -ml0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], LOG2E, -ml0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], LOG2E, -ml1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], LOG2E, -ml1));
+    sum0 += s[4 * j] + s[4 * j + 1];
+    sum1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * corr0 + sum0;
+  l1 = l1 * corr1 + sum1;
+}
+
+// P rounded to bf16 A fragments of the four k16 steps of P.V (the m64nNk16
+// layout of the accumulator is the A layout of 16 rows by 16 keys)
+__device__ __forceinline__ void pack_p(const float (&s)[32],
+                                       uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
@@ -705,114 +784,109 @@ attn_wg(const __grid_constant__ Args a,
   // 2 (lane % 4) and the next in every 8-wide tile (the m64nNk16 layout)
   const int g = warp >> 2, w = warp & 3;
   const long long g_first = q0 + 64 * g, g_last = g_first + 63;
-  const long long r_first = g_first + 16 * w, r_last = r_first + 15;
+  const long long r_first = g_first + 16 * w;
   const long long row0 = r_first + (lane >> 2), row1 = row0 + 8;
   const int c0 = 2 * (lane & 3);
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's part
   float o[DP / 2];
 #pragma unroll
   for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
+
+
+  // the two warpgroups take turns to issue their products (named barriers
+  // 1 and 2), so one's softmax runs while the other's products do; both
+  // walk every tile of the block (a tile a warpgroup's rows cannot see
+  // adds p = 0), so their turns pair up
+  auto my_turn = [&]() {
+    asm volatile("bar.sync %0, 256;\n" :: "r"(1 + g) : "memory");
+  };
+  auto your_turn = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - g) : "memory");
+  };
+  auto arrived = [&](int t) {
+    mbar_wait(full + 8 * (t % STAGES), (t / STAGES) & 1);
+    __syncwarp();
+  };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % STAGES));
+  };
+  // S = Q K_t^T, issued (Q and K K-major)
   const uint32_t qa = base + L::Q + g * 64 * ROW;
+  auto scores = [&](int t, float (&sc)[32]) {
+    const uint32_t kt = base + L::K + (t % STAGES) * NC * L::KB;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NKD; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_qk(sc, desc(qa + (kk >> 2) * L::QB + off, 16, 1024),
+               desc(kt + (kk >> 2) * L::KB + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V_t, issued (V, keys x d with d contiguous, MN-major)
+  auto values = [&](int t, uint32_t (&p)[4][4]) {
+    const uint32_t vt = base + L::V + (t % STAGES) * NC * L::KB;
+    pin(o);
+    pin(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(o, p[kk], desc(vt + kk * 16 * ROW, L::KB, 1024), 1);
+    wgmma_commit();
+  };
 
   mbar_wait(qbar, 0);
-  for (int t = 0; t < nt; ++t) {
-    const int st = t % STAGES;
-    const long long k0 = (lo + t) * BK;
-    mbar_wait(full + 8 * st, (t / STAGES) & 1);
-    // a warpgroup whose rows see none of this tile skips it (it would add
-    // p = 0); wgmma is per warpgroup, so the choice is too
-    const bool active = g_first < a.S && k0 <= g_last &&
-                        (a.window <= 0 || k0 + BK - 1 > g_first - a.window);
-    if (active) {
-      const uint32_t kt = base + L::K + st * NC * L::KB;
-      const uint32_t vt = base + L::V + st * NC * L::KB;
-      float s[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < NKD; ++kk) {
-        const uint32_t off = (kk & 3) * 32;
-        wgmma_ss<64>(s, desc(qa + (kk >> 2) * L::QB + off, 16, 1024),
-                     desc(kt + (kk >> 2) * L::KB + off, 16, 1024), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait0();
-      pin(s);
-
-      // scale, mask (only tiles on the warp's diagonal, its window's edge
-      // or S's end), row max over the quad
-      const bool whole = k0 + BK - 1 <= r_first && k0 + BK - 1 < a.S &&
-                         (a.window <= 0 || r_last - k0 < a.window);
-      float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[4 * j + e] * a.scale;
-          if (!whole) {
-            const long long col = k0 + 8 * j + c0 + (e & 1);
-            const long long row = e < 2 ? row0 : row1;
-            const bool keep = col <= row && col < a.S &&
-                              (a.window <= 0 || row - col < a.window);
-            x = keep ? x : NEG;
-          }
-          s[4 * j + e] = x;
-          if (e < 2) mx0 = fmaxf(mx0, x);
-          else mx1 = fmaxf(mx1, x);
-        }
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float ml0 = __fmul_rn(mn0, LOG2E), ml1 = __fmul_rn(mn1, LOG2E);
-      const float corr0 = exp2f(__fmul_rn(m0, LOG2E) - ml0);
-      const float corr1 = exp2f(__fmul_rn(m1, LOG2E) - ml1);
-      m0 = mn0;
-      m1 = mn1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[4 * j] = exp2f(__fmul_rn(s[4 * j], LOG2E) - ml0);
-        s[4 * j + 1] = exp2f(__fmul_rn(s[4 * j + 1], LOG2E) - ml0);
-        s[4 * j + 2] = exp2f(__fmul_rn(s[4 * j + 2], LOG2E) - ml1);
-        s[4 * j + 3] = exp2f(__fmul_rn(s[4 * j + 3], LOG2E) - ml1);
-        sum0 += s[4 * j] + s[4 * j + 1];
-        sum1 += s[4 * j + 2] + s[4 * j + 3];
-      }
-      l0 = l0 * corr0 + sum0;
-      l1 = l1 * corr1 + sum1;
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        o[4 * j] *= corr0;
-        o[4 * j + 1] *= corr0;
-        o[4 * j + 2] *= corr1;
-        o[4 * j + 3] *= corr1;
-      }
-
-      // O += P V: P's accumulator fragments repacked as bf16 A fragments
-      // in registers; V (keys x d, d contiguous) is the MN-major B operand
-      uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
-      pin(o);
-      pin(pa);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DP>(o, pa[kk], desc(vt + kk * 16 * ROW, L::KB, 1024), 1);
-      wgmma_commit();
-      wgmma_wait0();
-      pin(o);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * st);
+  if (g == 1) your_turn();                     // warpgroup 0 goes first
+  float corr0, corr1;
+  uint32_t pa[4][4];
+  {
+    float s[32];
+    arrived(0);
+    my_turn();
+    scores(0, s);
+    your_turn();
+    wgmma_wait<0>();
+    pin(s);
+    softmax_tile(s, m0, m1, l0, l1, corr0, corr1, a, lo * BK, r_first, row0,
+                 row1, c0);
+    pack_p(s, pa);
   }
+  // S of tile t and P.V of tile t - 1 in flight together, then t's softmax
+  // while P.V runs; o is rescaled and P of t packed once P.V of t - 1 has
+  // landed (as FlashAttention-3 overlaps them)
+  for (int t = 1; t < nt; ++t) {
+    float s[32];
+    arrived(t);
+    my_turn();
+    scores(t, s);
+    values(t - 1, pa);
+    your_turn();
+    wgmma_wait<1>();
+    pin(s);
+    softmax_tile(s, m0, m1, l0, l1, corr0, corr1, a, (lo + t) * BK, r_first,
+                 row0, row1, c0);
+    wgmma_wait<0>();
+    pin(o);
+    pin(pa);
+    release(t - 1);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+    pack_p(s, pa);
+  }
+  my_turn();
+  values(nt - 1, pa);
+  your_turn();
+  wgmma_wait<0>();
+  pin(o);
+  pin(pa);
+  release(nt - 1);
+  if (g == 0) my_turn();                       // the last turn handed over
 
   // l over the quad; out = acc / max(l, 1e-30), columns < D, rows < S
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
