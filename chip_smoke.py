@@ -55,17 +55,20 @@ and holds every hand-written kernel against its plain PyTorch version:
                against the CPU;
   7. attn    — first (right after phase 6's kernel checks) the
                flash-attention kernel B5 against the naive oracle at the
-               three prefills' head shapes and on the edges (S of 1, 33,
-               127 and 4,095, windows 64, 128 and 500, G = 9, the smoke
-               widths), each bit-equal on a second launch and on inputs of
-               the other layout; bf16 outputs within the rounding the
-               kernel's contract allows (``_attn_check``); the window at
-               S = 16,384 against the chunked plain version, its time
-               against the causal one; times of B5, the plain version and
-               ``scaled_dot_product_attention`` at zamba2's and qwen3's
-               prefill shapes, B5 there held against the oracle too.
-               After phase 6, ``qwen3_8b`` at full width and depth (bf16,
-               8.19e9 params) prefills 16 x 4,096 tokens (36 B5
+               three prefills' head shapes and on the edges in f32 and
+               bf16 (S of 1, 33, 127 and 4,095, windows 64, 128 and 500,
+               G = 9, the smoke widths), each bit-equal on a second launch
+               and on inputs of another layout, bf16 also in layouts its
+               TMA loads cannot take (a base one element off, a d stride
+               of S) against their contiguous copies; bf16 outputs within
+               the rounding the kernel's contract allows (``_attn_check``);
+               the window at S = 16,384 in f32 and bf16 against the
+               chunked plain version, its time against the causal one;
+               times of B5, the plain version and
+               ``scaled_dot_product_attention`` at zamba2's, qwen3's and
+               danube's prefill shapes, B5 there held against the oracle
+               too. After phase 6, ``qwen3_8b`` at full width and depth
+               (bf16, 8.19e9 params) prefills 16 x 4,096 tokens (36 B5
                launches), decodes 8 steps and prefills again with CUDA
                events; then 2 layers deep in f32, prompt 1,024, on the
                card against the CPU. In every replica's event-timed

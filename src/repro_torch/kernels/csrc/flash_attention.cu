@@ -38,35 +38,39 @@
 // bf16 inputs (attn_wg): the products run on the tensor cores, wgmma
 // bf16 x bf16 -> f32. A bf16 product is exact in f32 and the sums are
 // f32, the TPU kernel's arithmetic; p is rounded to bf16 for P.V as the
-// contract says. A block of 288 threads takes 128 query rows: two consumer
-// warpgroups of 64 rows and one producer warp. The producer loads the Q
-// tile once and the K and V tiles into a 3-stage ring, by TMA boxes of
-// 64 columns with the 128-byte swizzle, each stage handed over by a pair
-// of mbarriers (full: the bytes have landed; empty: both warpgroups are
-// done with it). One rank-4 (d, s, head, batch) tensor map per input,
-// built on the host with the caller's strides, fills the ragged S tail
-// and the columns past D with zeros, so D is padded to DP = 16 ceil(D/16)
-// for free (120 -> 128): the zero columns add nothing to q . k, and the
-// P.V columns past D are not stored. A consumer warpgroup computes S = Q K^T
-// with m64n64k16 (Q and K K-major in shared memory), masks and takes the
+// contract says. A block of 384 threads takes 128 query rows and walks kv
+// tiles of 128 keys: two consumer warpgroups of 64 rows, and a producer
+// warpgroup whose first warp loads the Q tile once and the K and V tiles
+// into a 3-stage ring, by TMA boxes of 64 columns with the 128-byte
+// swizzle, each stage handed over by a pair of mbarriers (full: the bytes
+// have landed; empty: both consumers are done with it). The producer
+// warpgroup drops to 40 registers a thread (setmaxnreg) so that each
+// consumer thread can hold 232: its S (64), O (DP / 2) and P (32)
+// fragments. One rank-4 (d, s, head, batch) tensor map per input, built
+// on the host with the caller's strides, fills the ragged S tail and the
+// columns past D with zeros, so D is padded to DP = 16 ceil(D / 16) for
+// free (120 -> 128): the zero columns add nothing to q . k, and the P.V
+// columns past D are not stored. A consumer computes S = Q K^T with
+// m64n128k16 (Q and K K-major in shared memory), masks and takes the
 // online softmax on the accumulator fragments (row max and sum over the 4
 // threads of a quad), repacks P to bf16 A fragments in registers and adds
-// P.V with m64nDPk16 (V MN-major in shared memory). It issues tile t + 1's
-// scores together with tile t's P.V and takes t + 1's softmax while P.V
-// runs, so the tensor cores are not idle during a softmax; the output is
-// rescaled by t + 1's corr once P.V of t has landed, the same arithmetic
-// in the same order as one tile after another. exp is 2^x by the SFU
+// P.V with m64nDPk16 (V MN-major in shared memory). The softmax is
+// overlapped with the tensor cores twice over, as FlashAttention-3 does:
+// a consumer issues tile t's scores together with tile t - 1's P.V and
+// takes t's softmax while P.V runs (o is rescaled once P.V has landed: the
+// same arithmetic in the same order as one tile after another), and the
+// two consumers take turns to issue their products (named barriers 1 and
+// 2), so one's softmax runs while the other's products do. Both consumers
+// walk every tile of the block; a tile a consumer's rows cannot see adds
+// p = 0 and corr = 1, the same bits as skipping it. exp is 2^x by the SFU
 // (ex2.approx.ftz: relative error <= 2^-22, below 2^-126 flushed to 0) of
-// s log2 e - m log2 e, each product with its own rounding, so a fully
-// masked row (s = m = -1e30) keeps p = 1 as expf(0) does and is wiped by
-// the next tile's corr = 0, as before. A warpgroup skips the tiles its 64
-// rows cannot see, and a warp masks only the tiles on its diagonal, its
-// window's edge or S's ragged end; a skipped tile would have added p = 0,
-// so the result is the same bits. Inputs TMA cannot take (a base or a b,
-// h, s stride that is not a multiple of 16 bytes, or a d stride != 1)
-// take the same kernel with VEC = false: the producer warp writes the same
-// swizzled tiles element by element, so both layouts give the same bits.
-// Bound: the tensor cores' bf16 rate.
+// fma(s, log2 e, -m log2 e); a row with nothing unmasked yet keeps
+// m = -1e30 and gets p = 0. A warp masks only the tiles on its diagonal,
+// its window's edge or S's ragged end. Inputs TMA cannot take (a base or
+// a b, h, s stride that is not a multiple of 16 bytes, or a d stride !=
+// 1) take the same kernel with VEC = false: the producer warp writes the
+// same swizzled tiles element by element, so both layouts give the same
+// bits. Bound: the tensor cores' bf16 rate.
 //
 // f32 inputs (attn_f32): every product is an f32 FMA on the CUDA cores;
 // TF32 tensor cores keep ~1e-3 and would miss the 2e-5 f32 tolerance. 256
@@ -304,9 +308,12 @@ int launch_any(const Args& a, cudaStream_t stream) {
 namespace wg {
 
 constexpr int BQ = 128;               // query rows per block
-constexpr int BK = 64;                // keys per kv tile
+constexpr int BK = 128;               // keys per kv tile
 constexpr int CONSUMER_WARPS = 8;     // two warpgroups of 64 rows
-constexpr int THREADS = 32 * CONSUMER_WARPS + 32;  // + the producer warp
+constexpr int THREADS = 32 * CONSUMER_WARPS + 128;  // + a producer one
+// registers a thread after setmaxnreg: 128 x 40 + 256 x 232 <= 65,536 (a
+// block of 12 warps starts at 168)
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int STAGES = 3;             // K/V ring
 constexpr int ROW = 128;              // bytes of a swizzled row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
@@ -343,23 +350,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int acc);
 
-// S += Q K^T for 64 rows and 64 keys, depth 16: Q and K K-major in shared
+// S += Q K^T for 64 rows and 128 keys, depth 16: Q and K K-major in shared
 // memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b,
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b,
                                          int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(acc));
 }
 
@@ -372,8 +389,8 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
@@ -387,9 +404,10 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
@@ -403,10 +421,11 @@ __device__ __forceinline__ void wgmma_rs<48>(float (&d)[24],
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
       "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
@@ -421,11 +440,12 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
@@ -442,13 +462,14 @@ __device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39"
       "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
@@ -464,14 +485,16 @@ __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
       "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
@@ -488,16 +511,18 @@ __device__ __forceinline__ void wgmma_rs<112>(float (&d)[56],
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55"
       "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55])
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
@@ -515,20 +540,21 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
-
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -547,9 +573,10 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
-__device__ __forceinline__ void pin(uint32_t (&r)[4][4]) {
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < 4 * N; ++i)
     asm volatile("" : "+r"(r[i / 4][i % 4]) :: "memory");
 }
 
@@ -598,20 +625,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// One tile's online softmax in place on the m64n64 accumulator fragments
-// `s` (keys k0 .. k0 + 63): scale, mask (only on the warp's diagonal, its
-// window's edge or S's end), row max over the quad, m updated, s replaced
-// by p = 2^(s log2 e - m log2 e) and p summed into this thread's part of
-// l; corr is each row's factor for the running output.
+// One tile's online softmax in place on the m64n128 accumulator fragments
+// `s` (keys k0 .. k0 + BK - 1): scale, mask (only on the warp's diagonal,
+// its window's edge or S's end), row max over the quad, m updated, s
+// replaced by p = 2^fma(s, log2 e, -m log2 e) and p summed into this
+// thread's part of l; corr is each row's factor for the running output (1
+// where m did not move).
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[32], float& m0, float& m1, float& l0, float& l1, float& corr0,
-    float& corr1, const Args& a, long long k0, long long r_first,
-    long long row0, long long row1, int c0) {
+    float (&s)[BK / 2], float& m0, float& m1, float& l0, float& l1,
+    float& corr0, float& corr1, const Args& a, long long k0,
+    long long r_first, long long row0, long long row1, int c0) {
   const bool whole = k0 + BK - 1 <= r_first && k0 + BK - 1 < a.S &&
                      (a.window <= 0 || r_first + 15 - k0 < a.window);
   float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * j + e] * a.scale;
@@ -641,7 +669,7 @@ __device__ __forceinline__ void softmax_tile(
   m1 = mn1;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     s[4 * j] = ex2(fmaf(s[4 * j], LOG2E, -ml0));
     s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], LOG2E, -ml0));
     s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], LOG2E, -ml1));
@@ -653,12 +681,12 @@ __device__ __forceinline__ void softmax_tile(
   l1 = l1 * corr1 + sum1;
 }
 
-// P rounded to bf16 A fragments of the four k16 steps of P.V (the m64nNk16
+// P rounded to bf16 A fragments of the k16 steps of P.V (the m64nNk16
 // layout of the accumulator is the A layout of 16 rows by 16 keys)
-__device__ __forceinline__ void pack_p(const float (&s)[32],
-                                       uint32_t (&pa)[4][4]) {
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
+                                       uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
     pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
     pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -735,8 +763,12 @@ attn_wg(const __grid_constant__ Args a,
   }
   __syncthreads();
 
-  if (warp == CONSUMER_WARPS) {
-    // producer: Q once, then the kv tiles through the ring
+  if (warp >= CONSUMER_WARPS) {
+    // producer: one warp loads Q once, then the kv tiles through the ring;
+    // the warpgroup hands most of its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (warp != CONSUMER_WARPS) return;
     const uint16_t* q = static_cast<const uint16_t*>(a.q) + b * a.sq[0] +
                         h * a.sq[1];
     const uint16_t* k = static_cast<const uint16_t*>(a.k) + b * a.sk[0] +
@@ -779,6 +811,7 @@ attn_wg(const __grid_constant__ Args a,
     return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
   // consumers: warpgroup g owns rows q0 + 64 g .. + 63, warp w of it 16 of
   // them; this thread rows row0 = .. + lane / 4 and row0 + 8, columns
   // 2 (lane % 4) and the next in every 8-wide tile (the m64nNk16 layout)
@@ -813,7 +846,7 @@ attn_wg(const __grid_constant__ Args a,
   };
   // S = Q K_t^T, issued (Q and K K-major)
   const uint32_t qa = base + L::Q + g * 64 * ROW;
-  auto scores = [&](int t, float (&sc)[32]) {
+  auto scores = [&](int t, float (&sc)[BK / 2]) {
     const uint32_t kt = base + L::K + (t % STAGES) * NC * L::KB;
     wgmma_fence();
 #pragma unroll
@@ -825,13 +858,13 @@ attn_wg(const __grid_constant__ Args a,
     wgmma_commit();
   };
   // O += P V_t, issued (V, keys x d with d contiguous, MN-major)
-  auto values = [&](int t, uint32_t (&p)[4][4]) {
+  auto values = [&](int t, uint32_t (&p)[BK / 16][4]) {
     const uint32_t vt = base + L::V + (t % STAGES) * NC * L::KB;
     pin(o);
     pin(p);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_rs<DP>(o, p[kk], desc(vt + kk * 16 * ROW, L::KB, 1024), 1);
     wgmma_commit();
   };
@@ -839,9 +872,9 @@ attn_wg(const __grid_constant__ Args a,
   mbar_wait(qbar, 0);
   if (g == 1) your_turn();                     // warpgroup 0 goes first
   float corr0, corr1;
-  uint32_t pa[4][4];
+  uint32_t pa[BK / 16][4];
   {
-    float s[32];
+    float s[BK / 2];
     arrived(0);
     my_turn();
     scores(0, s);
@@ -856,7 +889,7 @@ attn_wg(const __grid_constant__ Args a,
   // while P.V runs; o is rescaled and P of t packed once P.V of t - 1 has
   // landed (as FlashAttention-3 overlaps them)
   for (int t = 1; t < nt; ++t) {
-    float s[32];
+    float s[BK / 2];
     arrived(t);
     my_turn();
     scores(t, s);

@@ -251,14 +251,15 @@ def test_chip_bf16_limit_holds_b5_arithmetic_not_a_lost_tile(s, hkv, g, d,
 
 def _b5_tc_arithmetic(q, k, v, window, fault=None):
     """The bf16 kernel's tiling in plain torch: query tiles of 128 rows,
-    each walking the kv tiles of 64 its rows can see, D zero-padded to
+    each walking the kv tiles of 128 its rows can see, D zero-padded to
     DP = 16 ceil(D / 16), scores in f32 sums per tile times D^-0.5,
-    exp2 of s log2(e) - m log2(e) (each product rounded), p rounded to
-    bf16 before P.V and l summing the unrounded p, the output's first D
-    columns rounded to bf16. ``fault`` is "lost tile" (the kv tile at
-    S / 2 dropped) or "stale pad" (the pad columns of q and k hold stale
-    values, not zeros)."""
-    BQ, BK, L2E = 128, 64, 1.4426950408889634
+    p = exp2(s log2(e) - m log2(e)) (the kernel fuses it into one FMA), a
+    row with nothing unmasked yet keeping m = -1e30 and p = 0, corr = 1
+    where m did not move, p rounded to bf16 before P.V and l summing the
+    unrounded p, the output's first D columns rounded to bf16. ``fault``
+    is "lost tile" (the kv tile at S / 2 dropped) or "stale pad" (the pad
+    columns of q and k hold stale values, not zeros)."""
+    BQ, BK, L2E, NEG = 128, 128, 1.4426950408889634, -1e30
     B, H, S, D = q.shape
     G, DP = H // k.shape[1], -(-D // 16) * 16
     qp, kp, vp = (torch.nn.functional.pad(t.float(), (0, DP - D))
@@ -276,7 +277,7 @@ def _b5_tc_arithmetic(q, k, v, window, fault=None):
         hi = min(q0 + BQ - 1, S - 1) // BK
         lo = (q0 - window + 1) // BK if window > 0 and q0 - window + 1 > 0 \
             else 0
-        m = torch.full((B, H, len(rows)), -1e30)
+        m = torch.full((B, H, len(rows)), NEG)
         l, acc = torch.zeros(B, H, len(rows)), torch.zeros(B, H, len(rows),
                                                           DP)
         for k0 in range(lo * BK, (hi + 1) * BK, BK):
@@ -288,11 +289,11 @@ def _b5_tc_arithmetic(q, k, v, window, fault=None):
                 mask &= rows[:, None] - cols[None, :] < window
             if k0 == lost:
                 mask &= False
-            s = torch.where(mask, s, -1e30)
+            s = torch.where(mask, s, NEG)
             m_new = torch.maximum(m, s.amax(-1))
-            ml = m_new * L2E
+            ml = torch.where(m_new == NEG, 0.0, m_new * L2E)
             p = torch.exp2(s * L2E - ml[..., None])
-            corr = torch.exp2(m * L2E - ml)
+            corr = torch.where(m == m_new, 1.0, torch.exp2(m * L2E - ml))
             l = l * corr + p.sum(-1)
             pv = p.bfloat16().float() @ vx[:, :, k0:k0 + BK]
             acc = acc * corr[..., None] + pv
