@@ -6,7 +6,9 @@ interpret mode, the JAX oracle and the JAX ``_chunked_causal_attention``;
 the layout and dispatch rules; the model's prefill going through the
 op (``qwen3_8b.smoke()`` served from the launcher); and the bf16 limit
 ``chip_smoke.py`` holds B5 to, against B5's arithmetic run here in plain
-torch, with and without one of its kv tiles.
+torch (the first kernel's tiles of 64, and the tensor-core kernel's
+tiling with D padded to a multiple of 16), with and without one of its
+kv tiles, and with pad columns that are not zero.
 
 Tolerances are those of ``tests/test_kernels.py``: rtol = atol = 2e-5 in
 float32 and 2e-2 in bfloat16 (both packages round the output, and in the
