@@ -12,11 +12,13 @@ and holds every hand-written kernel against its plain PyTorch version:
   2. kernels — each kernel against its plain version at the tick's shape,
                at FleetSim's Table 3 windows (1,440 and 2,880 samples,
                with the lag grids its refinement scores there) and at
-               the window bounds 600 and 4,096, and against itself (a
-               second launch must be bit-equal), with times of kernel,
-               plain version and the PyTorch library call
-               (``torch.fft.rfft`` for the spectrum) beside the least
-               time the card could take (bytes, or FFT-count flops);
+               the window bounds 600 and 4,096, the spectrum also at N
+               of 2, 3, 16,384 (its FFT route's every radix) and 7 and
+               1,031 (its direct route), and against itself (a second
+               launch must be bit-equal), with times of kernel, plain
+               version and the PyTorch library call (``torch.fft.rfft``
+               for the spectrum) beside the least time the card could
+               take (bytes, or FFT-count flops);
   3. tick    — a 16,384-job fleet (window 512, 6 telemetry fields, the
                paper's Table 3 traces) through ``SurveillanceEngine.tick``,
                cold, steady and with every job refit (traced with
@@ -41,9 +43,13 @@ and holds every hand-written kernel against its plain PyTorch version:
                kernel against its plain version at zamba2's and rwkv6's
                prefill shapes and on the edges (S of 1, 33 and 4,095, a
                decay below the clamp, an initial state, f32 inputs, the
-               smoke widths), the edges against the step recurrence too,
-               each bit-equal on a second launch; after phase 5, a
-               full-width, full-depth ``zamba2_2p7b`` replica (bf16)
+               smoke widths, q/k shared by an odd number of heads,
+               zamba2's layout in f32, odd widths, a d stride of 2, a
+               per-token decay with q/k per head), the edges against
+               the step recurrence too, each bit-equal on a second
+               launch; its bound is the least time on this card for the
+               scan's bytes or its flops as 3xTF32 tensor-core
+               products; after phase 5, a full-width, full-depth ``zamba2_2p7b`` replica (bf16)
                prefills 16 x 4,096 tokens (45 B4 and 9 B5 launches) and
                pre-copies with one decode step per round, each round's
                pair of trees also scanned by the dirty-block kernel's plain
@@ -104,6 +110,9 @@ PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # bf16 on the tensor cores (a bf16 product with f32 accumulation is the
 # same work there): the least time of bf16 attention
 PEAK_BF16_TENSOR_FLOPS = 989e12
+# TF32 on the tensor cores; an f32 product that keeps 2e-4 there takes
+# three of them (3xTF32: hi*hi + hi*lo + lo*hi)
+PEAK_TF32_TENSOR_FLOPS, TF32_SPLIT_PRODUCTS = 495e12, 3
 
 
 def _card_line() -> str:
@@ -181,8 +190,11 @@ def phase_kernels(torch, ops_mod, ref, dft, autocorr):
     # (the spectrum's peak), not by the bin's own power, so atol there is
     # 1e-5 of the peak. (8, 1440) and (8, 2880) are FleetSim's Table 3
     # windows (4 cycles of 360 and 720 s).
+    # The FFT route takes every 5-smooth N (each radix 2, 3, 4, 5 and 8
+    # appears below), the direct route the rest (7, the prime 1031).
     for B, N in [(FLEET, WINDOW), (1024, 4096), (37, 600), (8, 1440),
-                 (8, 2880)]:
+                 (8, 2880), (64, 2), (64, 3), (64, 7), (16, 16384),
+                 (37, 1031)]:
         x = torch.randn(B, N, device="cuda", generator=g) + 3.0
         got = dft.power_spectrum(x, center=True)
         want = ref.power_spectrum_ref(x, center=True)
@@ -200,7 +212,8 @@ def phase_kernels(torch, ops_mod, ref, dft, autocorr):
             x - x.mean(dim=1, keepdim=True)).abs().square())
         F = N // 2 + 1
         bound, by = _bound_ms(_spectrum_flops(B, N), 4.0 * (B * N + B * F))
-        print(f"[kernels] dft_power B={B} N={N}: max_abs_err "
+        print(f"[kernels] dft_power B={B} N={N} route {dft.route(N)} "
+              f"{dft.fft_plan(N) or ''}: max_abs_err "
               f"{float(err.max()):.6g} (atol {atol:.3g}) kernel {ms:.4f} ms "
               f"plain {plain:.4f} ms rfft {lib:.4f} ms bound {bound:.6g} ms "
               f"({by})")
@@ -924,13 +937,15 @@ def _scan_flops(B: int, H: int, S: int, Dk: int, Dv: int, *,
 
 
 def _scan_case(torch, g, kind, B, H, S, Dk, Dv, *, dtype=None, ssd=True,
-               decay_scale=0.3, init=False):
+               decay_scale=0.3, init=False, sliced=False, scalar=False):
     """Inputs of one B4 case on the card: ((q, k, v, log_decay), bonus,
     initial state). ``mamba``: q/k broadcast over heads and the per-head
     decay over Dk (stride-0 views), v a head view of (B, S, H, Dv), decay
     -exp(U(log 1e-3, log 1.6)) as dt * A spans; ``rwkv``: head views of
     (B, S, H, D), decay -exp(U(-6, -1)) as ``decay_base`` spans, bonus u;
-    ``plain``: contiguous f32, decay -|N(0, 1)| * ``decay_scale``."""
+    ``plain``: contiguous f32 (``sliced``: every other element of rows
+    twice as wide, a d stride of 2), decay -|N(0, 1)| * ``decay_scale``
+    (``scalar``: one value per token, stride 0 over Dk)."""
     def rn(*shape, dt=torch.float32):
         return torch.randn(*shape, device="cuda", generator=g).to(dt)
 
@@ -951,8 +966,11 @@ def _scan_case(torch, g, kind, B, H, S, Dk, Dv, *, dtype=None, ssd=True,
         lw = neg_exp_u(-6.0, -1.0, B, S, H, Dk).permute(0, 2, 1, 3)
         u = 0.5 * rn(H, Dk)
     else:
-        q, k, v = rn(B, H, S, Dk), rn(B, H, S, Dk), rn(B, H, S, Dv)
-        lw = -decay_scale * rn(B, H, S, Dk).abs()
+        w = 2 if sliced else 1
+        q, k, v = (rn(B, H, S, w * D)[..., ::w] for D in (Dk, Dk, Dv))
+        lw = -decay_scale * rn(B, H, S, w * Dk)[..., ::w].abs()
+        if scalar:
+            lw = lw[..., :1].expand(B, H, S, Dk)
         u = None if ssd else rn(H, Dk)
     return (q, k, v, lw), u, (rn(B, H, Dk, Dv) if init else None)
 
@@ -998,6 +1016,17 @@ def phase_ssm_kernel(torch, ref, gla, ssm_scan):
          dict(ssd=False, init=True), True),
         ("smoke dims Dk=16 Dv=32, stride-0 bf16", "mamba", (2, 8, 45, 16, 32),
          dict(dtype=bf16), True),
+        ("shared q/k over H=5 heads (two a block, one left), stride-0 bf16",
+         "mamba", (2, 5, 100, 64, 64), dict(dtype=bf16), True),
+        ("zamba2-like in f32 (every product split), stride-0 q/k/decay",
+         "mamba", (2, 8, 1000, 64, 64), dict(dtype=torch.float32), True),
+        ("odd widths Dk=20 Dv=33 RWKV bf16 (element-wise loads)", "rwkv",
+         (2, 3, 77, 20, 33), dict(dtype=bf16), True),
+        ("SSD f32, decay stride 0 over Dk, q/k per head, initial state",
+         "plain", (2, 3, 130, 64, 64), dict(ssd=True, init=True, scalar=True),
+         True),
+        ("d stride 2 SSD f32 (element-wise loads), initial state", "plain",
+         (2, 3, 70, 64, 64), dict(ssd=True, init=True, sliced=True), True),
     ]
     record = None
     for name, kind, (B, H, S, Dk, Dv), kw, step in cases:
@@ -1028,10 +1057,15 @@ def phase_ssm_kernel(torch, ref, gla, ssm_scan):
                       + 4.0 * B * H * (S * Dv + Dk * Dv)
                       + (0 if u is None else _distinct_bytes(u)))
             shared = ins[0].stride(1) == 0 and ins[1].stride(1) == 0
-            bound, by = _bound_ms(
-                _scan_flops(B, H, S, Dk, Dv, qk_shared=shared), nbytes)
+            flops = _scan_flops(B, H, S, Dk, Dv, qk_shared=shared)
+            # the least time on this card, whatever runs the scan: its
+            # bytes, or its flops as 3xTF32 products on the tensor cores
+            bound, by = _bound_ms(TF32_SPLIT_PRODUCTS * flops, nbytes,
+                                  PEAK_TF32_TENSOR_FLOPS)
+            f32_bound, f32_by = _bound_ms(flops, nbytes)
             line += (f"; kernel {ms:.4f} ms plain {plain:.4f} ms bound "
-                     f"{bound:.6g} ms ({by}, {nbytes / 1e9:.4f} GB)")
+                     f"{bound:.6g} ms ({by}, {nbytes / 1e9:.4f} GB; at the "
+                     f"f32 CUDA-core peak {f32_bound:.6g} ms, {f32_by})")
             if record is None:
                 record = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                               bound_ms=bound, bound_by=by, library_ms=None)

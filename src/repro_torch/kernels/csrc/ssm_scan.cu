@@ -1,5 +1,5 @@
-// Chunked gated-linear-attention scan (Mamba2 SSD / RWKV6 WKV), f32, for
-// sm_90a.
+// Chunked gated-linear-attention scan (Mamba2 SSD / RWKV6 WKV), f32 state
+// and output, products on the tensor cores, for sm_90a.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssm_scan.py (ssm_scan /
 // _kernel), and with it the function the JAX package's SSM layers call under
@@ -12,37 +12,50 @@
 //   RWKV (u != NULL): y_t = q_t S_{t-1} + (q_t . u . k_t) v_t
 //
 // chunk-parallel, as gla_chunked does: chunks of Q = 32 tokens, the log
-// decay clamped to [-4, 0] and cumulated inside the chunk, the pairwise
-// term factored around the mid-chunk cumulative decay (so both factors stay
-// inside f32 range), a masked Q x Q score tile, and the state carried from
-// chunk to chunk. y is written in f32 (gla_chunked's type; the TPU kernel
-// cast to v's), and the final state in f32.
-//
-// What differs from the TPU kernel: it walked the chunks as the innermost,
-// sequential grid axis with the state in VMEM scratch; here one thread
-// block per (b, h) walks them in a loop with the state in shared memory.
-// It also takes what gla_chunked takes and the TPU kernel did not: an
+// decay clamped to [-4, 0] and cumulated inside the chunk, a masked Q x Q
+// score tile, and the state carried from chunk to chunk. y is written in
+// f32 (gla_chunked's type), and the final state in f32. It takes an
 // optional initial state, any S >= 1 (the ragged last chunk is masked in
-// the loads, which is gla_chunked's zero padding without a padded copy),
-// and inputs of any strides, stride 0 included (Mamba2 broadcasts B and C
-// over heads and the per-head decay over the state dimension), read as
-// f32 or bf16 and widened to f32 in registers.
+// the loads: gla_chunked's zero padding without a padded copy), and inputs
+// of any strides, stride 0 included, read as f32 or bf16.
 //
-// Bound: per chunk 2 Q^2 Dk (scores) + 2 Q^2 Dv (intra-chunk readout)
-// + 2 Q Dk Dv (state readout) + 2 Q Dk Dv (state update) flops against
-// Q (2 Dk + Dv + Dk) input elements: about 200 flops per byte at Dk = Dv
-// = 64, so it is bound by its operations. The products run as f32 FMAs on
-// the CUDA cores, not TF32 tensor cores, whose ~1e-3 relative error misses
-// the 2e-4 tolerance. Every sum has a fixed order and there are no atomics,
-// so a second launch is bit-equal to the first.
+// Bound: the four products of a chunk (scores, scores x v, the state's
+// readout and its update) are ~200 flops per input byte at Dk = Dv = 64,
+// so the scan is bound by its operations on the CUDA cores and close to
+// its bytes on the tensor cores. The products run as mma.sync m16n8k8 TF32
+// with each f32 operand split as hi + lo (both TF32) and hi*hi + hi*lo +
+// lo*hi summed in f32 (3xTF32): one plain TF32 product keeps ~11 bits and
+// misses the 2e-4 tolerance, the split keeps ~21. An operand that is
+// exactly TF32 (raw bf16 inputs) has lo = 0, and its extra product is
+// skipped.
 //
-// Design (first version, simple): 256 threads, ~62 KB of dynamic shared
-// memory (q, k, cumulative decay, scratch and v tiles of Q x 64, the
-// 64 x 64 state, the Q x Q scores), rows padded to 65 floats so that
-// column reads hit distinct banks. Each matmul gives a thread a small
-// register tile (4 x 1 scores, 4 x 2 outputs, 8 x 2 state entries).
-// Dk and Dv up to 64; smaller ones are zero-padded in shared memory,
-// which adds nothing to any sum.
+// Two forms, chosen by the launcher:
+//
+// - SCALAR (SSD with a decay broadcast over Dk, Mamba2's): the scores are
+//   (q k^T)[t, s] * exp(L_t - L_s) for s <= t, with q k^T from the raw
+//   inputs and one exp per token pair; the readout is exp(L_t) (q_t S) and
+//   the update S = exp(L_end) S + k^T (v * exp(L_end - L_s)). Every
+//   exponent is <= 0, so nothing can overflow. When q and k are shared by
+//   every head (stride 0 over H), a block takes HB = 2 heads of one batch
+//   row, loads q and k once and forms q k^T once for both.
+// - GENERAL (per-channel decay: RWKV with its bonus, or SSD): the factored
+//   form of gla_chunked around the mid-chunk cumulative decay (4 x 16
+//   tokens = 64 < 88 keeps both factors inside f32 range).
+//
+// Design: 4 warps a head. Warp w keeps rows 16w..16w+15 of the head's
+// state in mma accumulators for the whole scan, and a copy in shared
+// memory for the next chunk's readout (stride 72, so the column reads of
+// a B fragment hit distinct banks; q/k tiles use stride 68 for row reads).
+// Inputs whose rows are 16-byte aligned arrive by bulk copies
+// (cp.async.bulk, one a row, on one mbarrier) issued a chunk ahead and are
+// widened to f32 tiles after the chunk before; other layouts are read
+// element by element. A chunk: the cumulated decay (SCALAR: one warp's
+// shuffles a head; GENERAL: a thread per channel and half chunk, then two
+// exps an element), the score tiles (the two above the diagonal skipped),
+// then each warp forms a 16 x 32 block of y (readout then scores x v) and
+// its 16 state rows; three barriers a chunk (five in the GENERAL form).
+// Fixed orders and no atomics, so a second launch is bit-equal to the
+// first.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,24 +63,19 @@ namespace {
 
 constexpr int Q = 32;                 // chunk, as gla.CHUNK
 constexpr int DMAX = 64;              // largest Dk and Dv
-constexpr int DP = DMAX + 1;          // padded row stride of the tiles
-constexpr int QP = Q + 1;             // padded row stride of the scores
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int QS = DMAX + 4;          // stride of q, k, X, L tiles (= 4 mod 32)
+constexpr int VS = DMAX + 8;          // stride of v and the state (= 8 mod 32)
+constexpr int PS = Q + 4;             // stride of the scores
+constexpr int GROUP = 128;            // threads a head
 constexpr float CLAMP = 4.0f;         // gla.LOG_DECAY_CLAMP
-constexpr int SMEM_FLOATS = 5 * Q * DP + DMAX * DP + Q * QP + 3 * DMAX + Q;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
-
-static_assert(THREADS == 4 * DMAX, "tile maps assume 256 threads, D <= 64");
-static_assert(WARPS * 4 == Q, "score and output tiles: 4 rows per warp");
-static_assert(WARPS * 8 == DMAX, "state tile: 8 rows per warp");
 
 // A (B, H, S, D) input read through its strides (in elements), f32 (0)
-// or bf16 (1).
+// or bf16 (1); vec: its rows of D elements are 16-byte aligned, so they
+// arrive by bulk copies.
 struct In {
   const void* p;
   long long sb, sh, st, sd;
-  int dtype;
+  int dtype, vec;
 };
 
 struct Args {
@@ -78,6 +86,7 @@ struct Args {
   float* state;         // (B, H, Dk, Dv)
   long long S;
   int H, Dk, Dv;
+  int q_exact, k_exact, v_exact;   // raw input exactly TF32 (bf16)
 };
 
 __device__ __forceinline__ float load(const In& x, long long off) {
@@ -92,187 +101,673 @@ __device__ __forceinline__ float clamp_log_decay(float x) {
   return x < -CLAMP ? -CLAMP : (x > 0.f ? 0.f : x);
 }
 
-__global__ void __launch_bounds__(THREADS)
-ssm_scan_kernel(const Args a) {
-  extern __shared__ float sm[];
-  float* qs = sm;                  // q; then q * exp(Lq)        (readout)
-  float* ks = qs + Q * DP;         // k; then k * exp(Ltot - L)  (update)
-  float* Ls = ks + Q * DP;         // log decay; cumsum L; then k * exp(shift - L)
-  float* Xs = Ls + Q * DP;         // RWKV's Lq = L - lw; then q * exp(Lq - shift)
-  float* vs = Xs + Q * DP;         // v
-  float* St = vs + Q * DP;         // state (Dk x Dv)
-  float* sc = St + DMAX * DP;      // masked scores (Q x Q)
-  float* shift = sc + Q * QP;      // L at mid-chunk
-  float* ltot = shift + DMAX;      // L at chunk end
-  float* us = ltot + DMAX;         // bonus u of this head
-  float* diag = us + DMAX;         // q_t . u . k_t
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long bh = blockIdx.x;
-  const long long b = bh / a.H, h = bh % a.H;
-  const bool ssd = a.u == nullptr;
-  const long long oq = b * a.q.sb + h * a.q.sh, ok = b * a.k.sb + h * a.k.sh;
-  const long long ov = b * a.v.sb + h * a.v.sh, ol = b * a.lw.sb + h * a.lw.sh;
-
-  for (int i = tid; i < DMAX * DMAX; i += THREADS) {
-    const int d = i / DMAX, e = i % DMAX;
-    St[d * DP + e] = (a.s0 != nullptr && d < a.Dk && e < a.Dv)
-        ? a.s0[(bh * a.Dk + d) * a.Dv + e] : 0.f;
+// Q x DMAX tile of x at rows t0.. into dst (row stride `stride`), element
+// by element (the layouts the bulk copies cannot take), zeros past S,
+// past D or for a head that does not exist.
+__device__ void load_tile(const In& x, long long base, long long t0,
+                          long long S, int D, bool valid, bool clamp,
+                          float* dst, int stride, int tid, int nthr) {
+  for (int i = tid; i < Q * DMAX; i += nthr) {
+    const int t = i / DMAX, d = i % DMAX;
+    const long long s = t0 + t;
+    float val = 0.f;
+    if (valid && s < S && d < D) {
+      val = load(x, base + s * x.st + d * x.sd);
+      if (clamp) val = clamp_log_decay(val);
+    }
+    dst[t * stride + d] = val;
   }
-  if (tid < DMAX)
-    us[tid] = (!ssd && tid < a.Dk) ? a.u[h * a.Dk + tid] : 0.f;
+}
+
+// --- asynchronous staging --------------------------------------------------
+// An input whose rows load as 16-byte vectors is copied global -> shared
+// into a staging tile of raw rows (DMAX elements of its own type a row):
+// one warp a tile, one bulk copy (cp.async.bulk) a row, all completing on
+// one mbarrier, issued before the previous chunk's products and widened
+// to f32 after them. Rows past S, or of a head that does not exist, are
+// not copied; the widening writes zeros there.
+__host__ __device__ constexpr int esize(int dtype) { return dtype == 0 ? 4 : 2; }
+
+__host__ __device__ inline int stage_bytes(const In& x) {
+  return x.vec ? Q * DMAX * esize(x.dtype) : 0;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// waits for the phase of this parity to complete; traps after ~2^33
+// cycles (seconds), so a fault ends the launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = -1;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 < 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// bytes the bulk copies of one chunk bring (the rows below S)
+__device__ __forceinline__ uint32_t tile_bytes(const In& x, int D, int rows) {
+  return x.vec ? (uint32_t)(rows * D * esize(x.dtype)) : 0u;
+}
+
+// one lane a row: x's rows t0.. into stg (x.vec only)
+__device__ __forceinline__ void stage_issue(const In& x, long long base,
+                                            long long t0, long long S, int D,
+                                            char* stg, uint32_t bar,
+                                            int lane) {
+  const long long s = t0 + lane;
+  if (s >= S) return;
+  const int es = esize(x.dtype);
+  bulk_copy(smem_addr(stg + lane * DMAX * es),
+            static_cast<const char*>(x.p) + (base + s * x.st) * es,
+            (uint32_t)(D * es), bar);
+}
+
+// widen the staged tile into dst (row stride `stride`), zeros past D,
+// past S and for a head that does not exist
+__device__ void stage_convert(const In& x, long long t0, long long S, int D,
+                              bool valid, bool clamp, const char* stg,
+                              float* dst, int stride, int tid, int nthr) {
+  for (int i = tid; i < Q * DMAX / 4; i += nthr) {
+    const int t = i / (DMAX / 4), d = (i % (DMAX / 4)) * 4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (d < D && valid && t0 + t < S) {
+      if (x.dtype == 0) {
+        o = *reinterpret_cast<const float4*>(stg + (t * DMAX + d) * 4);
+      } else {
+        const uint2 w = *reinterpret_cast<const uint2*>(stg +
+                                                        (t * DMAX + d) * 2);
+        o = make_float4(__uint_as_float(w.x << 16),
+                        __uint_as_float(w.x & 0xffff0000u),
+                        __uint_as_float(w.y << 16),
+                        __uint_as_float(w.y & 0xffff0000u));
+      }
+      if (clamp) {
+        o.x = clamp_log_decay(o.x); o.y = clamp_log_decay(o.y);
+        o.z = clamp_log_decay(o.z); o.w = clamp_log_decay(o.w);
+      }
+    }
+    *reinterpret_cast<float4*>(dst + t * stride + d) = o;
+  }
+}
+
+// --- tensor-core helpers ---------------------------------------------------
+// x to TF32, rounded to nearest with ties away from zero (cvt.rna's rule)
+// by integer operations on the bits
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact),
+// so the split keeps ~2^-23 of x. An EXACT operand (raw bf16) is its own
+// hi, and lo = 0.
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (EXACT) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = tf32_rna(__float_as_uint(x));
+    lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in 3xTF32: the small terms first, a term whose lo part is 0
+// left out
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  if (!AX) mma_tf32(c, al, bh);
+  if (!BX) mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// Fragments of m16n8k8 (g = lane / 4, r = lane % 4), read from a tile
+// through the thread's own base pointer. A (16 x 8) from a row-major tile
+// t[row][col] at (r0, c0): pass t + g * S + r.
+template <bool EXACT, int S>
+__device__ __forceinline__ void frag_a(const float* t, int r0, int c0,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split<EXACT>(t[r0 * S + c0], hi[0], lo[0]);
+  split<EXACT>(t[(r0 + 8) * S + c0], hi[1], lo[1]);
+  split<EXACT>(t[r0 * S + c0 + 4], hi[2], lo[2]);
+  split<EXACT>(t[(r0 + 8) * S + c0 + 4], hi[3], lo[3]);
+}
+
+// A (16 x 8) = t^T: A[m][k] = t[c0 + k][r0 + m]: pass t + r * S + g.
+template <bool EXACT, int S>
+__device__ __forceinline__ void frag_a_t(const float* t, int r0, int c0,
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split<EXACT>(t[c0 * S + r0], hi[0], lo[0]);
+  split<EXACT>(t[c0 * S + r0 + 8], hi[1], lo[1]);
+  split<EXACT>(t[(c0 + 4) * S + r0], hi[2], lo[2]);
+  split<EXACT>(t[(c0 + 4) * S + r0 + 8], hi[3], lo[3]);
+}
+
+// B (8 x 8) with B[k][n] = t[n0 + n][k0 + k]: pass t + g * S + r.
+template <bool EXACT, int S>
+__device__ __forceinline__ void frag_b_n(const float* t, int k0, int n0,
+                                         uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split<EXACT>(t[n0 * S + k0], hi[0], lo[0]);
+  split<EXACT>(t[n0 * S + k0 + 4], hi[1], lo[1]);
+}
+
+// B (8 x 8) with B[k][n] = t[k0 + k][n0 + n] * w_k (w0, w1: the scales of
+// rows r and r + 4): pass t + r * S + g.
+template <bool EXACT, int S>
+__device__ __forceinline__ void frag_b_k(const float* t, int k0, int n0,
+                                         float w0, float w1,
+                                         uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split<EXACT>(t[k0 * S + n0] * w0, hi[0], lo[0]);
+  split<EXACT>(t[(k0 + 4) * S + n0] * w1, hi[1], lo[1]);
+}
+
+// Shared-memory layout, in floats. Block-wide: q and k tiles (GENERAL
+// also X = q * exp(Lq - shift) and L / k_in). Per head: v, the state,
+// the scores, and the decay: SCALAR the chunk's cumulated log decay (Q),
+// GENERAL the chunk's total per channel (DMAX), the bonus (DMAX), the
+// cumsum's half totals (3 DMAX) and q_t . u . k_t (Q).
+template <bool SCALAR>
+struct Layout {
+  static constexpr int shared = (SCALAR ? 2 : 4) * Q * QS;
+  static constexpr int head =
+      Q * VS + DMAX * VS + Q * PS + (SCALAR ? Q : 5 * DMAX + Q);
+  static constexpr size_t bytes(int hb) {
+    return sizeof(float) * (size_t)(shared + hb * head);
+  }
+};
+
+// staging bytes after the float layout: q, k (block-wide), then v and
+// SCALAR's per-token log decay for each head, or GENERAL's lw tile
+struct Stage {
+  int bar, q, k, v, lw, lw_scalar;   // byte offsets; lw_scalar per head
+  int bytes;
+};
+
+__host__ __device__ inline Stage stage_layout(const Args& a, bool scalar,
+                                              int hb) {
+  Stage st;
+  st.bar = 0;                           // the mbarrier (8 bytes)
+  st.q = 16;
+  st.k = st.q + stage_bytes(a.q);
+  st.v = st.k + stage_bytes(a.k);
+  st.lw = st.v + hb * stage_bytes(a.v);
+  const bool lw_async = scalar && a.lw.dtype == 0;
+  st.lw_scalar = lw_async ? Q * 4 : 0;
+  st.bytes = st.lw + (scalar ? hb * st.lw_scalar : stage_bytes(a.lw));
+  return st;
+}
+
+// BF16: q, k and v are bf16, so the raw ones are exact TF32 operands.
+// Blocks an SM: GENERAL's 88 KB of shared memory fit 2; SCALAR fits 3 of
+// one head or 2 of two, which caps the registers.
+template <bool SCALAR, int HB, bool BF16>
+__global__ void __launch_bounds__(GROUP * HB, SCALAR ? (HB == 1 ? 3 : 2) : 2)
+ssm_scan_kernel(const Args a) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  using LY = Layout<SCALAR>;
+  constexpr int NT = GROUP * HB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hg = tid / GROUP, htid = tid % GROUP, wq = warp & 3;
+  const int g = lane >> 2, r4 = lane & 3;
+  const bool ssd = a.u == nullptr;
+
+  const int groups = (a.H + HB - 1) / HB;
+  const long long b = blockIdx.x / groups;
+  const int h0 = (int)(blockIdx.x % groups) * HB;
+  const int h = h0 + hg;
+  const bool valid = h < a.H;
+  const long long bh = b * a.H + h;
+
+  float* qs = sm;                       // q (GENERAL: then q * exp(Lq))
+  float* ks = qs + Q * QS;              // k (GENERAL: then k * exp(Ltot - L))
+  float* Xs = ks + Q * QS;              // GENERAL: q * exp(Lq - shift)
+  float* Ls = Xs + Q * QS;              // GENERAL: lw, then k * exp(shift - L)
+  float* hb = sm + LY::shared + hg * LY::head;
+  float* vs = hb;                       // v
+  float* St = vs + Q * VS;              // the state entering the chunk
+  float* Ps = St + DMAX * VS;           // masked scores
+  float* Lh = Ps + Q * PS;              // SCALAR: cumulated log decay (Q)
+  float* ltot = Lh;                     // GENERAL: total log decay (DMAX)
+  float* us = ltot + DMAX;              // GENERAL: bonus (DMAX)
+  float* part = us + DMAX;              // GENERAL: the halves' totals and
+                                        // the second half's first (3 DMAX)
+  float* diag = part + 3 * DMAX;        // GENERAL: q_t . u . k_t (Q)
+
+  const long long oq = b * a.q.sb + (long long)(SCALAR ? h0 : h) * a.q.sh;
+  const long long ok = b * a.k.sb + (long long)(SCALAR ? h0 : h) * a.k.sh;
+  const long long ov = b * a.v.sb + (long long)h * a.v.sh;
+  const long long ol = b * a.lw.sb + (long long)h * a.lw.sh;
+  constexpr bool QX = SCALAR && BF16;   // raw q and k read as they are
+  constexpr bool VX = BF16;
+
+  // the state: rows 16 wq + g (+ 8) and columns 8 n + 2 r4 (+ 1) in
+  // accumulators, 8 n-tiles
+  float Sacc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 16 * wq + g + (e >> 1) * 8, c = 8 * n + 2 * r4 + (e & 1);
+      Sacc[n][e] = (a.s0 != nullptr && valid && d < a.Dk && c < a.Dv)
+          ? a.s0[(bh * a.Dk + d) * a.Dv + c] : 0.f;
+    }
+  if (!SCALAR && htid < DMAX)
+    us[htid] = (!ssd && valid && htid < a.Dk) ? a.u[h * a.Dk + htid] : 0.f;
+
+  auto store_state = [&]() {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int row = 16 * wq + g, c = 8 * n + 2 * r4;
+      *reinterpret_cast<float2*>(&St[row * VS + c]) =
+          make_float2(Sacc[n][0], Sacc[n][1]);
+      *reinterpret_cast<float2*>(&St[(row + 8) * VS + c]) =
+          make_float2(Sacc[n][2], Sacc[n][3]);
+    }
+  };
+
+  const Stage stg_at = stage_layout(a, SCALAR, HB);
+  char* stg = reinterpret_cast<char*>(sm + LY::shared + HB * LY::head);
+  char* stg_v = stg + stg_at.v + hg * stage_bytes(a.v);
+  float* stg_lw = reinterpret_cast<float*>(stg + stg_at.lw + hg * stg_at.lw_scalar);
+
+  const uint32_t bar = smem_addr(stg + stg_at.bar);
+
+  // copies of chunk rows t0.. into staging: warp 0 q, 1 k, 2 + hh v of
+  // head hh, 3 GENERAL's log decay; thread 0 arms the mbarrier with the
+  // bytes of them all. SCALAR's per-token log decay: cp.async, 4 bytes a
+  // lane of each head's first warp.
+  auto issue_chunk = [&](long long t0) {
+    const int rows = (int)min((long long)Q, a.S - t0);
+    if (tid == 0) {
+      uint32_t bytes = tile_bytes(a.q, a.Dk, rows) +
+                       tile_bytes(a.k, a.Dk, rows);
+      for (int hh = 0; hh < HB; ++hh)
+        if (h0 + hh < a.H) bytes += tile_bytes(a.v, a.Dv, rows);
+      if (!SCALAR) bytes += tile_bytes(a.lw, a.Dk, rows);
+      mbar_expect(bar, bytes);
+    }
+    if (warp == 0 && a.q.vec)
+      stage_issue(a.q, oq, t0, a.S, a.Dk, stg + stg_at.q, bar, lane);
+    if (warp == 1 && a.k.vec)
+      stage_issue(a.k, ok, t0, a.S, a.Dk, stg + stg_at.k, bar, lane);
+    if (warp >= 2 && warp < 2 + HB && a.v.vec && h0 + warp - 2 < a.H) {
+      const int hh = warp - 2;
+      stage_issue(a.v, b * a.v.sb + (long long)(h0 + hh) * a.v.sh, t0, a.S,
+                  a.Dv, stg + stg_at.v + hh * stage_bytes(a.v), bar, lane);
+    }
+    if (!SCALAR && warp == 3 && a.lw.vec)
+      stage_issue(a.lw, ol, t0, a.S, a.Dk, stg + stg_at.lw, bar, lane);
+    if (SCALAR && stg_at.lw_scalar && wq == 0) {
+      const long long s = t0 + lane;
+      const bool full = valid && s < a.S;
+      const float* p = static_cast<const float*>(a.lw.p);
+      cp_async4(stg_lw + lane, full ? p + ol + s * a.lw.st : p, full);
+      cp_async_commit();
+    }
+  };
+
+  // wait for the chunk the last issue_chunk copied (its parity)
+  auto wait_chunk = [&](long long c) {
+    mbar_wait(bar, (uint32_t)(c & 1));
+    if (SCALAR && stg_at.lw_scalar && wq == 0) cp_async_wait_all();
+  };
+
+  // the chunk's f32 tiles: staged inputs widened, the rest loaded element
+  // by element; SCALAR also the decay's cumsum, one warp a head
+  auto convert_chunk = [&](long long t0) {
+    if (a.q.vec) stage_convert(a.q, t0, a.S, a.Dk, true, false,
+                               stg + stg_at.q, qs, QS, tid, NT);
+    else load_tile(a.q, oq, t0, a.S, a.Dk, true, false, qs, QS, tid, NT);
+    if (a.k.vec) stage_convert(a.k, t0, a.S, a.Dk, true, false,
+                               stg + stg_at.k, ks, QS, tid, NT);
+    else load_tile(a.k, ok, t0, a.S, a.Dk, true, false, ks, QS, tid, NT);
+    if (a.v.vec) stage_convert(a.v, t0, a.S, a.Dv, valid, false, stg_v, vs,
+                               VS, htid, GROUP);
+    else load_tile(a.v, ov, t0, a.S, a.Dv, valid, false, vs, VS, htid,
+                   GROUP);
+    if (SCALAR) {
+      if (wq == 0) {
+        const long long s = t0 + lane;
+        float L;
+        if (stg_at.lw_scalar) L = clamp_log_decay(stg_lw[lane]);
+        else L = (valid && s < a.S)
+            ? clamp_log_decay(load(a.lw, ol + s * a.lw.st)) : 0.f;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float n = __shfl_up_sync(0xffffffffu, L, o);
+          if (lane >= o) L += n;
+        }
+        Lh[lane] = L;
+      }
+    } else if (a.lw.vec) {
+      stage_convert(a.lw, t0, a.S, a.Dk, valid, true, stg + stg_at.lw, Ls,
+                    QS, tid, NT);
+    } else {
+      load_tile(a.lw, ol, t0, a.S, a.Dk, valid, true, Ls, QS, tid, NT);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  issue_chunk(0);
+  wait_chunk(0);
+  __syncthreads();
+  store_state();
+  convert_chunk(0);
+  __syncthreads();
 
   const long long nc = (a.S + Q - 1) / Q;
   for (long long c = 0; c < nc; ++c) {
     const long long t0 = c * Q;
-    // 1. load the chunk, zeros past S or past Dk / Dv (exact padding)
-    for (int i = tid; i < Q * DMAX; i += THREADS) {
-      const int t = i / DMAX, d = i % DMAX;
-      const long long s = t0 + t;
-      float qv = 0.f, kv = 0.f, lv = 0.f, vv = 0.f;
-      if (s < a.S && d < a.Dk) {
-        qv = load(a.q, oq + s * a.q.st + d * a.q.sd);
-        kv = load(a.k, ok + s * a.k.st + d * a.k.sd);
-        lv = clamp_log_decay(load(a.lw, ol + s * a.lw.st + d * a.lw.sd));
-      }
-      if (s < a.S && d < a.Dv) vv = load(a.v, ov + s * a.v.st + d * a.v.sd);
-      qs[t * DP + d] = qv;
-      ks[t * DP + d] = kv;
-      Ls[t * DP + d] = lv;
-      vs[t * DP + d] = vv;
-    }
-    __syncthreads();
+    if (c + 1 < nc) issue_chunk(t0 + Q);      // lands during this chunk
 
-    // 2. inclusive cumsum of the log decay (one thread per channel, in
-    //    order) and, for RWKV, the diagonal bonus (one warp per row)
-    if (tid < DMAX) {
+    if (!SCALAR) {
+      // thread (channel d, half): its 16 tokens in order, the cumsum in two
+      // halves; then the factored tiles in place, two exps an element
+      const int d = tid & (DMAX - 1), half = tid / DMAX, tb = 16 * half;
       float run = 0.f;
-      for (int t = 0; t < Q; ++t) {
-        const float lw = Ls[t * DP + tid];
-        run += lw;
-        Ls[t * DP + tid] = run;
-        if (!ssd) Xs[t * DP + tid] = run - lw;
-      }
-      shift[tid] = Ls[(Q / 2) * DP + tid];
-      ltot[tid] = run;
-    }
-    if (!ssd) {
-      for (int t = warp; t < Q; t += WARPS) {
-        float p = 0.f;
-        for (int d = lane; d < DMAX; d += 32)
-          p += qs[t * DP + d] * us[d] * ks[t * DP + d];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-        if (lane == 0) diag[t] = p;
+      for (int i = 0; i < 16; ++i) {
+        run += Ls[(tb + i) * QS + d];
+        Ls[(tb + i) * QS + d] = run;
       }
-    }
-    __syncthreads();
-
-    // 3. the decay factors, in place (each element by one thread)
-    for (int i = tid; i < Q * DMAX; i += THREADS) {
-      const int t = i / DMAX, d = i % DMAX, o = t * DP + d;
-      const float L = Ls[o], Lq = ssd ? L : Xs[o];
-      const float q = qs[o], k = ks[o];
-      Xs[o] = q * expf(Lq - shift[d]);
-      qs[o] = q * expf(Lq);
-      Ls[o] = k * expf(shift[d] - L);
-      ks[o] = k * expf(ltot[d] - L);
-    }
-    __syncthreads();
-
-    // 4. scores[t][s] = q_in[t] . k_in[s], masked (s <= t SSD, s < t RWKV),
-    //    plus the bonus on the diagonal; thread: rows warp*4.., column lane
-    {
-      const int s = lane;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int d = 0; d < DMAX; ++d) {
-        const float kk = Ls[s * DP + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] += Xs[(warp * 4 + i) * DP + d] * kk;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = warp * 4 + i;
-        float v = (ssd ? s <= t : s < t) ? acc[i] : 0.f;
-        if (!ssd && s == t) v += diag[t];
-        sc[t * QP + s] = v;
-      }
-    }
-    __syncthreads();
-
-    // 5. y = scores @ v + (q * exp(Lq)) @ S; thread: rows warp*4..,
-    //    columns lane and lane + 32
-    {
-      float yi[4][2] = {}, ye[4][2] = {};
-      for (int s = 0; s < Q; ++s) {
-        const float v0 = vs[s * DP + lane], v1 = vs[s * DP + lane + 32];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = sc[(warp * 4 + i) * QP + s];
-          yi[i][0] += p * v0;
-          yi[i][1] += p * v1;
-        }
-      }
-      for (int d = 0; d < DMAX; ++d) {
-        const float s0 = St[d * DP + lane], s1 = St[d * DP + lane + 32];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float qq = qs[(warp * 4 + i) * DP + d];
-          ye[i][0] += qq * s0;
-          ye[i][1] += qq * s1;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long s = t0 + warp * 4 + i;
-        if (s >= a.S) continue;
-        float* row = a.y + (bh * a.S + s) * a.Dv;
-        if (lane < a.Dv) row[lane] = yi[i][0] + ye[i][0];
-        if (lane + 32 < a.Dv) row[lane + 32] = yi[i][1] + ye[i][1];
-      }
-    }
-    __syncthreads();
-
-    // 6. S = diag(exp(Ltot)) S + (k * exp(Ltot - L))^T v; thread: state
-    //    rows warp*8.., columns lane and lane + 32
-    {
-      float acc[8][2] = {};
-      for (int s = 0; s < Q; ++s) {
-        const float v0 = vs[s * DP + lane], v1 = vs[s * DP + lane + 32];
+      part[half * DMAX + d] = run;            // each half's total
+      if (half == 1) part[2 * DMAX + d] = Ls[16 * QS + d];
+      if (!ssd) {
+        // the bonus q_t . u . k_t from the raw tiles, 8 tokens a warp
+        float p[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float kk = ks[s * DP + warp * 8 + i];
-          acc[i][0] += kk * v0;
-          acc[i][1] += kk * v1;
+          const int t = 8 * wq + i;
+          p[i] = qs[t * QS + lane] * us[lane] * ks[t * QS + lane] +
+                 qs[t * QS + lane + 32] * us[lane + 32] *
+                     ks[t * QS + lane + 32];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            p[i] += __shfl_xor_sync(0xffffffffu, p[i], o);
+        if (lane < 8) {
+          float v = p[0];
+#pragma unroll
+          for (int i = 1; i < 8; ++i) if (lane == i) v = p[i];
+          diag[8 * wq + lane] = v;
         }
       }
+      __syncthreads();
+      const float off = half ? part[d] : 0.f;
+      const float shift = part[d] + part[2 * DMAX + d];     // L at Q/2
+      const float tot = part[d] + part[DMAX + d];
+      const float e_shift = expf(shift), e_rest = expf(tot - shift);
+      float prev = 0.f;                     // the local cumsum before t
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int d = warp * 8 + i;
-        const float w = expf(ltot[d]);
-        St[d * DP + lane] = w * St[d * DP + lane] + acc[i][0];
-        St[d * DP + lane + 32] = w * St[d * DP + lane + 32] + acc[i][1];
+      for (int i = 0; i < 16; ++i) {
+        const int o = (tb + i) * QS + d;
+        const float loc = Ls[o], L = loc + off;
+        const float Lq = ssd ? L : prev + off;
+        prev = loc;
+        const float x = qs[o] * expf(Lq - shift);
+        const float kin = ks[o] * expf(shift - L);
+        Xs[o] = x;                          // q exp(Lq - shift)
+        qs[o] = x * e_shift;                // q exp(Lq)
+        Ls[o] = kin;                        // k exp(shift - L)
+        ks[o] = kin * e_rest;               // k exp(tot - L)
+      }
+      if (half == 0) ltot[d] = tot;
+      __syncthreads();
+    }
+
+    // scores: 8 tiles of 16 x 8 over the block's warps; the two above the
+    // diagonal are zero
+    for (int tile = warp; tile < 8; tile += NT / 32) {
+      const int mt = tile >> 2, nt = tile & 3;
+      const int r0 = 16 * mt, s0 = 8 * nt;
+      // two accumulators (even and odd k-steps) halve the chain of
+      // dependent products
+      float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc2[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s0 <= r0 + 15) {
+        const float* ta = (SCALAR ? qs : Xs) + g * QS + r4;
+        const float* tb = (SCALAR ? ks : Ls) + g * QS + r4;
+#pragma unroll
+        for (int kk = 0; kk < DMAX; kk += 16) {
+          uint32_t ah[4], al[4], bhi[2], blo[2];
+          frag_a<QX, QS>(ta, r0, kk, ah, al);
+          frag_b_n<QX, QS>(tb, kk, s0, bhi, blo);
+          mma3<QX, QX>(acc, ah, al, bhi, blo);
+          frag_a<QX, QS>(ta, r0, kk + 8, ah, al);
+          frag_b_n<QX, QS>(tb, kk + 8, s0, bhi, blo);
+          mma3<QX, QX>(acc2, ah, al, bhi, blo);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += acc2[e];
+      }
+#pragma unroll
+      for (int hh = 0; hh < HB; ++hh) {
+        float* P = sm + LY::shared + hh * LY::head + Q * VS + DMAX * VS;
+        const float* Lx = P + Q * PS;
+        const float* dg = Lx + 5 * DMAX;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = r0 + g + (e >> 1) * 8, s = s0 + 2 * r4 + (e & 1);
+          float val = 0.f;
+          if (SCALAR) {
+            if (s <= t) val = acc[e] * expf(Lx[t] - Lx[s]);
+          } else {
+            if (ssd ? s <= t : s < t) val = acc[e];
+            if (!ssd && s == t) val += dg[t];
+          }
+          P[t * PS + s] = val;
+        }
       }
     }
+    __syncthreads();
+
+    // y: warp wq forms rows 16 (wq & 1).. and columns 32 (wq >> 1)..:
+    // the readout of the state entering the chunk, then scores x v
+    {
+      const int mt = wq & 1, nb = (wq >> 1) * 4, r0 = 16 * mt;
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      const float* ta = qs + g * QS + r4;
+      const float* tS = St + r4 * VS + g;
+#pragma unroll
+      for (int kk = 0; kk < DMAX; kk += 8) {
+        uint32_t ah[4], al[4];
+        frag_a<QX, QS>(ta, r0, kk, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bhi[2], blo[2];
+          frag_b_k<false, VS>(tS, kk, 8 * (nb + j), 1.f, 1.f, bhi, blo);
+          mma3<QX, false>(acc[j], ah, al, bhi, blo);
+        }
+      }
+      if (SCALAR) {
+        const float e0 = expf(Lh[r0 + g]), e1 = expf(Lh[r0 + g + 8]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[j][0] *= e0; acc[j][1] *= e0;
+          acc[j][2] *= e1; acc[j][3] *= e1;
+        }
+      }
+      const float* tP = Ps + g * PS + r4;
+      const float* tv = vs + r4 * VS + g;
+#pragma unroll
+      for (int kk = 0; kk < Q; kk += 8) {
+        if (mt == 0 && kk >= Q / 2) break;       // rows < 16 see s < 16
+        uint32_t ah[4], al[4];
+        frag_a<false, PS>(tP, r0, kk, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bhi[2], blo[2];
+          frag_b_k<VX, VS>(tv, kk, 8 * (nb + j), 1.f, 1.f, bhi, blo);
+          mma3<false, VX>(acc[j], ah, al, bhi, blo);
+        }
+      }
+      if (valid) {
+        const bool even = (a.Dv & 1) == 0;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long t = t0 + r0 + g + 8 * half;
+          if (t >= a.S) continue;
+          float* row = a.y + (bh * a.S + t) * a.Dv;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 8 * (nb + j) + 2 * r4;
+            const float y0 = acc[j][2 * half], y1 = acc[j][2 * half + 1];
+            if (even && col + 1 < a.Dv) {
+              *reinterpret_cast<float2*>(row + col) = make_float2(y0, y1);
+            } else {
+              if (col < a.Dv) row[col] = y0;
+              if (col + 1 < a.Dv) row[col + 1] = y1;
+            }
+          }
+        }
+      }
+    }
+
+    // the state: S = decay * S + k'^T v' over the chunk's tokens; warp wq
+    // owns rows 16 wq..
+    {
+      const int d0 = 16 * wq;
+      const float tot = SCALAR ? Lh[Q - 1] : 0.f;
+      const float dec0 = expf(SCALAR ? tot : ltot[d0 + g]);
+      const float dec1 = expf(SCALAR ? tot : ltot[d0 + g + 8]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        Sacc[n][0] *= dec0; Sacc[n][1] *= dec0;
+        Sacc[n][2] *= dec1; Sacc[n][3] *= dec1;
+      }
+      // GENERAL reads v as it is (exact when bf16); SCALAR scales it
+      constexpr bool UX = !SCALAR && VX;
+      const float* tk = ks + r4 * QS + g;
+      const float* tv = vs + r4 * VS + g;
+#pragma unroll
+      for (int kk = 0; kk < Q; kk += 8) {
+        uint32_t ah[4], al[4];
+        frag_a_t<QX, QS>(tk, d0, kk, ah, al);
+        const float w0 = SCALAR ? expf(tot - Lh[kk + r4]) : 1.f;
+        const float w1 = SCALAR ? expf(tot - Lh[kk + r4 + 4]) : 1.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          uint32_t bhi[2], blo[2];
+          frag_b_k<UX, VS>(tv, kk, 8 * n, w0, w1, bhi, blo);
+          mma3<QX, UX>(Sacc[n], ah, al, bhi, blo);
+        }
+      }
+    }
+    if (c + 1 < nc) wait_chunk(c + 1);
+    __syncthreads();
+    store_state();
+    if (c + 1 < nc) convert_chunk(t0 + Q);
     __syncthreads();
   }
 
-  for (int i = tid; i < a.Dk * a.Dv; i += THREADS) {
-    const int d = i / a.Dv, e = i % a.Dv;
-    a.state[bh * a.Dk * a.Dv + i] = St[d * DP + e];
+  if (valid) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 16 * wq + g + (e >> 1) * 8;
+        const int col = 8 * n + 2 * r4 + (e & 1);
+        if (d < a.Dk && col < a.Dv)
+          a.state[(bh * a.Dk + d) * a.Dv + col] = Sacc[n][e];
+      }
   }
 }
 
 bool valid_dtype(int code) { return code == 0 || code == 1; }
 
+// rows of D elements at stride 1 arrive by bulk copies when every row
+// starts 16-byte aligned and is a whole number of 16 bytes
+int vector_ok(const In& x, long long D) {
+  const long long vw = x.dtype == 0 ? 4 : 8;
+  return x.sd == 1 && D % vw == 0 && x.sb % vw == 0 && x.sh % vw == 0 &&
+         x.st % vw == 0 && reinterpret_cast<uintptr_t>(x.p) % 16 == 0;
+}
+
+template <bool SCALAR, int HB>
+cudaError_t launch(const Args& a, long long B, void* stream) {
+  const size_t smem = Layout<SCALAR>::bytes(HB)
+                      + stage_layout(a, SCALAR, HB).bytes;
+  const bool bf16 = a.q_exact && a.k_exact && a.v_exact;
+  auto kernel = bf16 ? ssm_scan_kernel<SCALAR, HB, true>
+                     : ssm_scan_kernel<SCALAR, HB, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = B * ((a.H + HB - 1) / HB);
+  kernel<<<(unsigned)blocks, GROUP * HB, smem, (cudaStream_t)stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, lw: (B, H, S, Dk); v: (B, H, S, Dv); each read through its four
-// strides (in elements, 0 allowed) with its dtype code (0 f32, 1 bf16). u: (H, Dk) f32 contiguous, NULL for SSD mode. s0: (B, H, Dk, Dv)
-// f32 contiguous, or NULL for a zero initial state. y: (B, H, S, Dv) f32
-// and state: (B, H, Dk, Dv) f32, both contiguous.
+// strides (in elements, 0 allowed) with its dtype code (0 f32, 1 bf16).
+// u: (H, Dk) f32 contiguous, NULL for SSD mode. s0: (B, H, Dk, Dv) f32
+// contiguous, or NULL for a zero initial state. y: (B, H, S, Dv) f32 and
+// state: (B, H, Dk, Dv) f32, both contiguous.
 // shape = {B, H, S, Dk, Dv}; strides = {q, k, v, lw} x {b, h, s, d};
-// dtypes = {q, k, v, lw}. Returns the cudaError_t of the launch.
+// dtypes = {q, k, v, lw}. The form: SCALAR for SSD with a log decay of
+// stride 0 over Dk, two heads a block when q and k also have stride 0
+// over H; GENERAL otherwise. Returns the cudaError_t of the launch.
 extern "C" int ssm_scan_launch(const void* q, const void* k, const void* v,
                                const void* lw, const float* u,
                                const float* s0, float* y, float* state,
@@ -287,17 +782,21 @@ extern "C" int ssm_scan_launch(const void* q, const void* k, const void* v,
   for (int i = 0; i < 4; ++i)
     if (!valid_dtype(dtypes[i])) return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, lw};
+  const long long dims[4] = {Dk, Dk, Dv, Dk};
   In ins[4];
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
     ins[i] = In{ptrs[i], strides[4 * i], strides[4 * i + 1],
-                strides[4 * i + 2], strides[4 * i + 3], dtypes[i]};
+                strides[4 * i + 2], strides[4 * i + 3], dtypes[i], 0};
+    ins[i].vec = vector_ok(ins[i], dims[i]);
+  }
   const Args a{ins[0], ins[1], ins[2], ins[3], u, s0, y, state, S, (int)H,
-               (int)Dk, (int)Dv};
-  cudaError_t err = cudaFuncSetAttribute(
-      ssm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  ssm_scan_kernel<<<(unsigned)(B * H), THREADS, SMEM_BYTES,
-                    (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+               (int)Dk, (int)Dv, dtypes[0] == 1, dtypes[1] == 1,
+               dtypes[2] == 1};
+  const bool scalar = u == nullptr && ins[3].sd == 0;
+  const bool shared_qk = ins[0].sh == 0 && ins[1].sh == 0;
+  cudaError_t err;
+  if (scalar && shared_qk) err = launch<true, 2>(a, B, stream);
+  else if (scalar) err = launch<true, 1>(a, B, stream);
+  else err = launch<false, 1>(a, B, stream);
+  return (int)err;
 }

@@ -5,16 +5,18 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``) and the function the JAX package's attention prefill
 runs in its place, ``repro/models/blocks.py`` ``_chunked_causal_attention``:
 causal GQA attention with an optional sliding window, by an online softmax
-in f32 over kv tiles of 64 that a block's query rows can see. Both paths
+in f32 over the kv tiles that a block's query rows can see. Both paths
 are bound by their operations (4 D flops per causal pair):
 
 - bf16 (every prefill of the port): the products run on the tensor cores
   (``wgmma`` bf16 x bf16 -> f32: exact products, f32 sums, as the TPU
-  kernel's), 128 query rows a block in two warpgroups, Q, K and V tiles
-  loaded by TMA into a 3-stage ring by one producer warp; D is padded to a
-  multiple of 16 with zero columns by the loads.
-- f32 (the shallow card-against-CPU checks): f32 FMAs on the CUDA cores,
-  which keep the 2e-5 tolerance that TF32 tensor cores would miss.
+  kernel's), 128 query rows a block in two consumer warpgroups walking kv
+  tiles of 128 keys, Q, K and V tiles loaded by TMA into a 3-stage ring by
+  a producer warpgroup; D is padded to a multiple of 16 with zero columns
+  by the loads.
+- f32 (the shallow card-against-CPU checks): f32 FMAs on the CUDA cores
+  over kv tiles of 64, which keep the 2e-5 tolerance that TF32 tensor
+  cores would miss.
 
 Each sum has a fixed order, so a second launch is bit-equal, and inputs
 that TMA cannot take (unaligned, or a d stride != 1) go through the same

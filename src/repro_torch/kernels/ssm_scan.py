@@ -4,10 +4,18 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py``
 (``ssm_scan``) and the function the JAX package's SSM layers run in its
 place, ``repro/models/gla.py`` ``gla_chunked``: the chunked
 gated-linear-attention scan of Mamba2 (SSD mode) and RWKV6 (RWKV mode,
-strict past plus the bonus ``u``). One thread block per (batch, head)
-walks the chunks of 32 tokens with the f32 state in shared memory; the
-products are f32 FMAs on the CUDA cores, in a fixed order, so the
-function is bound by its operations and a second launch is bit-equal.
+strict past plus the bonus ``u``). Four warps a head walk the chunks of
+32 tokens with the f32 state in their mma accumulators; the products run
+on the tensor cores as 3xTF32 (each f32 operand split hi + lo, three
+TF32 products summed in f32, which keeps 2e-4 where one plain TF32
+product does not; a raw bf16 operand is exact and needs no lo term).
+The kernel picks its form from the inputs: SSD with a log decay of
+stride 0 over Dk (Mamba2's) scales the raw q k^T by one exp per token
+pair, two heads a block when q and k are shared by every head; any other
+decay (RWKV, per-channel SSD) takes ``gla_chunked``'s factored form.
+Inputs whose rows are 16-byte aligned arrive by bulk copies one chunk
+ahead; others are read element by element. Fixed orders and no atomics,
+so a second launch is bit-equal.
 
 It computes what ``gla_chunked`` computes: ``y`` in f32, an optional
 initial state, any ``S >= 1`` (the ragged last chunk is masked in the

@@ -111,6 +111,128 @@ def test_dft_table_cache_capped():
 
 
 # ---------------------------------------------------------------------------
+# B1's FFT route, in plain torch
+# ---------------------------------------------------------------------------
+def _b1_fft_arithmetic(x, center):
+    """The FFT route of ``csrc/dft_power.cu`` in plain torch: each row on
+    its own as (x, 0), its f64 mean subtracted in f32, then one Stockham
+    pass per radix of ``dft.fft_plan(N)`` in the kernel's order: butterfly
+    j reads j + r N/R, takes twiddle ``(k r N / (Ns R))`` of the table
+    ``dft.twiddles`` (k = j mod Ns), runs the radix-R DFT and writes output
+    q to (j - k) R + k + q Ns; complex64 throughout."""
+    B, N = x.shape
+    z = x.clone()
+    if center:
+        z = x - (x.double().mean(dim=1, keepdim=True)).float()
+    z = z.to(torch.complex64)
+    tw = torch.complex(*dft.twiddles(N, x.device).unbind(1))
+    ns = 1
+    for R in dft.fft_plan(N):
+        M = N // R
+        j = torch.arange(M)
+        k = j % ns
+        r = torch.arange(R)
+        v = z[:, j[:, None] + r[None, :] * M]                 # (B, M, R)
+        v = v * tw[k[:, None] * r[None, :] * (N // (ns * R))]
+        dft_r = torch.exp(-2j * torch.pi * torch.outer(r, r).double() / R)
+        v = v @ dft_r.to(torch.complex64)
+        out = torch.empty_like(z)
+        out[:, ((j - k) * R + k)[:, None] + r[None, :] * ns] = v
+        z, ns = out, ns * R
+    f = z[:, : N // 2 + 1]
+    return f.real ** 2 + f.imag ** 2
+
+
+@pytest.mark.parametrize("n,want_plan", [
+    (2, [2]), (3, [3]), (4, [4]), (5, [5]), (8, [8]), (16, [8, 2]),
+    (512, [8, 8, 8]), (600, [8, 5, 5, 3]), (1440, [8, 4, 5, 3, 3]),
+    (2880, [8, 8, 5, 3, 3]), (4096, [8, 8, 8, 8]),
+    (16384, [8, 8, 8, 8, 4]), (6561, [3] * 8), (15625, [5] * 6),
+    (7, None), (14, None), (1031, None), (16383, None)])
+def test_b1_route_and_plan(n, want_plan):
+    """Every 5-smooth N takes the FFT route with its radices in the
+    kernel's order (8s, a 4 or 2, 5s, 3s), their product N; any other N
+    the direct route."""
+    plan = dft.fft_plan(n)
+    assert plan == want_plan
+    assert dft.route(n) == ("direct" if want_plan is None else "fft")
+    if plan is not None:
+        assert int(np.prod(plan)) == n and len(plan) <= 16
+
+
+def test_b1_twiddle_table_exact_and_cached():
+    """The FFT route's table: W_N^m = exp(-2 pi i m / N) from f64, one per
+    N and device, the last few kept."""
+    tw = dft.twiddles(600, torch.device("cpu"))
+    m = np.arange(600)
+    want = np.exp(-2j * np.pi * m / 600)
+    assert tw.shape == (600, 2) and tw.dtype == torch.float32
+    # within half an f32 ulp of 1 (numpy's f64 and torch's differ in the
+    # last f64 bit near 0)
+    np.testing.assert_allclose(tw[:, 0].numpy(), want.real, rtol=0,
+                               atol=6e-8)
+    np.testing.assert_allclose(tw[:, 1].numpy(), want.imag, rtol=0,
+                               atol=6e-8)
+    assert dft.twiddles(600, torch.device("cpu")) is tw
+    for n in range(2, 2 + 2 * dft._TWIDDLE_CACHE_MAX):
+        dft.twiddles(n, torch.device("cpu"))
+    assert len(dft._TWIDDLES) <= dft._TWIDDLE_CACHE_MAX
+
+
+def test_b1_paths_send_fft_sizes():
+    """The tick's window, FleetSim's Table 3 windows and the window bounds
+    all take the FFT route."""
+    for n in (512, 600, 1440, 2880, 4096):
+        assert dft.route(n) == "fft"
+
+
+@pytest.mark.parametrize("b,n", [(3, 512), (2, 640), (2, 1920)])
+def test_b1_fft_arithmetic_matches_jax_dft(b, n):
+    """The FFT route's arithmetic against the Pallas kernel (interpret
+    mode; it takes N % 128 == 0): radix 8 alone, with a 5, with 5 and 3s."""
+    x = _randn(n + b, b, n) + 3.0
+    want = np.asarray(jax_dft_power(jnp.asarray(x), center=True))
+    got = _b1_fft_arithmetic(torch.as_tensor(x), True).numpy()
+    np.testing.assert_allclose(got, want[:, : n // 2 + 1],
+                               rtol=2e-4, atol=2e-2)
+
+
+@pytest.mark.parametrize("n", [512, 600, 1440, 2880, 4096, 3, 15, 45, 243,
+                               375, 2025])
+@pytest.mark.parametrize("center", [True, False])
+def test_b1_fft_arithmetic_matches_numpy(n, center):
+    """The paths' N and odd N (radices 3 and 5 alone) against numpy's
+    f64 FFT, at the spectrum tolerance, and the plain version's DFT sums."""
+    x = _randn(3 * n, 4, n) + 1.5
+    x64 = x.astype(np.float64)
+    if center:
+        x64 = x64 - x64.mean(axis=1, keepdims=True)
+    f = np.fft.rfft(x64, axis=1)
+    want = f.real ** 2 + f.imag ** 2
+    got = _b1_fft_arithmetic(torch.as_tensor(x), center)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-2)
+    np.testing.assert_allclose(
+        got.numpy(), ref.power_spectrum_ref(torch.as_tensor(x), center),
+        rtol=2e-4, atol=2e-2)
+
+
+@pytest.mark.parametrize("n", [512, 1440])
+def test_b1_constant_row_gives_zero_power(n):
+    """Each row is transformed on its own: a constant 0/1 row beside a
+    noisy one still gives P = 0 exactly after mean removal (the cycle
+    fit's degenerate-window clamp reads that); packing two rows into one
+    complex row would leak the noisy row's rounding into it."""
+    x = np.stack([np.ones(n, np.float32), np.zeros(n, np.float32),
+                  _randn(n, n) + 0.5])
+    got = _b1_fft_arithmetic(torch.as_tensor(x), True).numpy()
+    assert (got[:2] == 0).all() and (got[2, 1:] > 0).any()
+    z = torch.as_tensor(x[0] + 1j * x[2]).to(torch.complex64)[None]
+    Z = torch.fft.fft(z - z.mean(dim=1, keepdim=True)).numpy()[0]
+    packed = np.abs(Z + np.conj(np.roll(Z[::-1], 1))) ** 2 / 4
+    assert packed[1: n // 2 + 1].max() > 0       # the packed form leaks
+
+
+# ---------------------------------------------------------------------------
 # dirty blocks (pre-copy)
 # ---------------------------------------------------------------------------
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,

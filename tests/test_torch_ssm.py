@@ -181,6 +181,175 @@ def test_cpu_scan_launches_no_kernel_and_the_wrapper_refuses_cpu():
 
 
 # ---------------------------------------------------------------------------
+# B4's tensor-core arithmetic, in plain torch
+# ---------------------------------------------------------------------------
+def _tf32(x):
+    """f32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
+    by the kernel's integer rounding of the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, a_exact=False, b_exact=False, terms=3):
+    """a @ b as the kernel's products: each f32 operand split hi + lo (both
+    TF32) and lo.hi + hi.lo + hi.hi summed in f32, a term whose lo is 0
+    (an exact bf16 operand) left out; ``terms=1`` keeps hi.hi alone, a
+    plain TF32 product."""
+    ah = a if a_exact else _tf32(a)
+    bh = b if b_exact else _tf32(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    if terms == 3 and not a_exact:
+        out = out + _tf32(a - ah) @ bh
+    if terms == 3 and not b_exact:
+        out = out + ah @ _tf32(b - bh)
+    return out + ah @ bh
+
+
+def _b4_tc_arithmetic(q, k, v, lw, bonus=None, s0=None, *, scalar=False,
+                      exact=False, terms=3):
+    """``csrc/ssm_scan.cu`` in plain torch: chunks of 32 (the ragged tail
+    zero-filled), the log decay clamped, the products of ``_mm``.
+    ``scalar`` (SSD, one decay a token): scores (q k^T) exp(L_t - L_s),
+    readout exp(L_t) (q S), update exp(L_end) S + k^T (v exp(L_end - L_s)).
+    Else the factored form: the cumsum in two halves of 16, X = q exp(Lq -
+    shift), q exp(Lq) = X exp(shift), k_in = k exp(shift - L), k_out =
+    k_in exp(L_end - shift). ``exact``: q, k, v hold bf16 values."""
+    Q = 32
+    B, H, S, Dk = q.shape
+    pad = (-S) % Q
+    q, k, v, lw = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                   for t in (q, k, v, lw))
+    lw = lw.clamp(-4.0, 0.0)
+    st = torch.zeros(B, H, Dk, v.shape[-1]) if s0 is None else s0.float()
+    pos = torch.arange(Q)
+    ssd = bonus is None
+    mask = pos[:, None] >= pos[None, :] if ssd else pos[:, None] > pos[None, :]
+    ys = []
+    for c in range(0, S + pad, Q):
+        qc, kc, vc, lc = (t[:, :, c:c + Q] for t in (q, k, v, lw))
+        if scalar:
+            L = torch.cumsum(lc[..., 0], dim=-1)                # (B, H, Q)
+            G = _mm(qc, kc.transpose(-1, -2), exact, exact, terms)
+            P = torch.where(mask, G * torch.exp(L[..., :, None]
+                                                - L[..., None, :]), 0.0)
+            y = (torch.exp(L)[..., None] * _mm(qc, st, exact, False, terms)
+                 + _mm(P, vc, False, exact, terms))
+            tot = L[..., -1:]
+            w = torch.exp(tot - L)[..., None]
+            st = (torch.exp(tot)[..., None] * st
+                  + _mm(kc.transpose(-1, -2), vc * w, exact, False, terms))
+        else:
+            L1 = torch.cumsum(lc[:, :, :16], dim=2)
+            L = torch.cat([L1, torch.cumsum(lc[:, :, 16:], dim=2)
+                           + L1[:, :, -1:]], dim=2)
+            Lq = L if ssd else torch.cat(
+                [torch.zeros_like(L[:, :, :1]), L[:, :, :-1]], dim=2)
+            shift, tot = L[:, :, 16:17], L[:, :, -1:]
+            X = qc * torch.exp(Lq - shift)
+            kin = kc * torch.exp(shift - L)
+            P = torch.where(mask, _mm(X, kin.transpose(-1, -2), terms=terms),
+                            0.0)
+            if not ssd:
+                diag = torch.einsum("bhtd,hd,bhtd->bht", qc, bonus.float(),
+                                    kc)
+                P = P + diag[..., None] * torch.eye(Q)
+            y = (_mm(X * torch.exp(shift), st, terms=terms)
+                 + _mm(P, vc, False, exact, terms))
+            kout = kin * torch.exp(tot - shift)
+            st = (torch.exp(tot[:, :, 0])[..., None] * st
+                  + _mm(kout.transpose(-1, -2), vc, False, exact, terms))
+        ys.append(y)
+    return torch.cat(ys, dim=2)[:, :, :S], st
+
+
+def _mamba_inputs(seed, B, H, S, dk, dv, bf16):
+    """Mamba2's call: q, k shared by every head and one decay a token per
+    head (stride-0 views), -exp(U(log 1e-3, log 1.6)) as dt * A spans."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    q, k, v = f(B, S, dk), f(B, S, dk), f(B, S, H, dv)
+    if bf16:
+        q, k, v = (t.bfloat16().float() for t in (q, k, v))
+    lw = -torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1.6),
+                                              (B, S, H))).astype(np.float32))
+    return (q[:, None].expand(B, H, S, dk), k[:, None].expand(B, H, S, dk),
+            v.permute(0, 2, 1, 3),
+            lw.permute(0, 2, 1)[..., None].expand(B, H, S, dk))
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_b4_tc_arithmetic_ssd_broadcast_matches_pallas_and_gla(bf16):
+    """The SCALAR form on Mamba2's stride-0 q/k/decay (bf16 raw inputs
+    read as exact operands, or f32 split everywhere) against the Pallas
+    kernel in interpret mode and ``gla_chunked``, within 2e-4."""
+    ins = _mamba_inputs(3 + bf16, 2, 3, 96, 32, 16, bf16)
+    got = _b4_tc_arithmetic(*ins, scalar=True, exact=bf16)
+    dense = [np.ascontiguousarray(t.numpy()) for t in ins]
+    yk, stk = jax_ssm_scan(*map(jnp.asarray, dense), ssd=True)
+    want = gla.gla_chunked(*ins)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(yk), **SCAN_TOL)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(stk), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("ssd", [True, False])
+def test_b4_tc_arithmetic_factored_matches_pallas_and_gla(ssd):
+    """The GENERAL form (per-channel decay; RWKV with its bonus) against
+    the Pallas kernel in interpret mode and ``gla_chunked``."""
+    q, k, v, lw, u, _ = _scan_inputs(21 + ssd, 2, 3, 64, 32, 16, ssd)
+    got = _b4_tc_arithmetic(*map(_t, (q, k, v, lw)), _t(u))
+    yk, stk = jax_ssm_scan(*map(_j, (q, k, v, lw)), bonus=_j(u), ssd=ssd)
+    want = gla.gla_chunked(*map(_t, (q, k, v, lw)), bonus=_t(u))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(yk), **SCAN_TOL)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(stk), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("s", [45, 77])
+@pytest.mark.parametrize("form", ["rwkv", "ssd", "scalar"])
+def test_b4_tc_arithmetic_ragged_with_initial_state(s, form):
+    """A ragged S and an initial state (which the Pallas kernel does not
+    take): each form against the JAX package's ``gla_chunked`` and the
+    step recurrence."""
+    q, k, v, lw, u, s0 = _scan_inputs(s + len(form), 2, 3, s, 16, 24,
+                                      form != "rwkv")
+    if form == "scalar":
+        lw = np.ascontiguousarray(np.broadcast_to(lw[..., :1], lw.shape))
+    got = _b4_tc_arithmetic(*map(_t, (q, k, v, lw)), _t(u), _t(s0),
+                            scalar=form == "scalar")
+    yj, stj = jax_gla.gla_chunked(*map(_j, (q, k, v, lw)), bonus=_j(u),
+                                  initial_state=_j(s0))
+    yr, str_ = ref.ssm_scan_ref(*map(_t, (q, k, v, lw)), bonus=_t(u),
+                                initial_state=_t(s0))
+    for want in ((yj, stj), (yr, str_)):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   **SCAN_TOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   **SCAN_TOL)
+
+
+@pytest.mark.parametrize("form", ["rwkv", "scalar"])
+def test_b4_single_tf32_product_misses_the_tolerance(form):
+    """C-w2: the same arithmetic with each f32 product taken as one plain
+    TF32 product (hi.hi alone, ~11 bits) fails 2e-4, which the 3xTF32
+    split above keeps."""
+    q, k, v, lw, u, s0 = _scan_inputs(9, 2, 3, 96, 32, 32, form == "scalar")
+    if form == "scalar":
+        lw = np.ascontiguousarray(np.broadcast_to(lw[..., :1], lw.shape))
+    args = (*map(_t, (q, k, v, lw)), _t(u), _t(s0))
+    want = ref.ssm_scan_ref(*args[:4], bonus=args[4], initial_state=args[5])
+    split = _b4_tc_arithmetic(*args, scalar=form == "scalar")
+    np.testing.assert_allclose(split[0].numpy(), want[0].numpy(), **SCAN_TOL)
+    plain = _b4_tc_arithmetic(*args, scalar=form == "scalar", terms=1)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(plain[0].numpy(), want[0].numpy(),
+                                   **SCAN_TOL)
+
+
+# ---------------------------------------------------------------------------
 # the layers
 # ---------------------------------------------------------------------------
 def _tensors(params):
