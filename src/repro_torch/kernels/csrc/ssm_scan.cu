@@ -45,17 +45,17 @@
 // Design: 4 warps a head. Warp w keeps rows 16w..16w+15 of the head's
 // state in mma accumulators for the whole scan, and a copy in shared
 // memory for the next chunk's readout (stride 72, so the column reads of
-// a B fragment hit distinct banks; q/k tiles use stride 68 for row reads).
-// Inputs whose rows are 16-byte aligned arrive by bulk copies
-// (cp.async.bulk, one a row, on one mbarrier) issued a chunk ahead and are
-// widened to f32 tiles after the chunk before; other layouts are read
-// element by element. A chunk: the cumulated decay (SCALAR: one warp's
-// shuffles a head; GENERAL: a thread per channel and half chunk, then two
-// exps an element), the score tiles (the two above the diagonal skipped),
-// then each warp forms a 16 x 32 block of y (readout then scores x v) and
-// its 16 state rows; three barriers a chunk (five in the GENERAL form).
-// Fixed orders and no atomics, so a second launch is bit-equal to the
-// first.
+// a B fragment hit distinct banks). A chunk's inputs land in one of two
+// staging buffers while the chunk before computes: by bulk copies
+// (cp.async.bulk, one a row, on one mbarrier) where the rows are 16-byte
+// aligned, else element by element; in bf16 when q, k and v are bf16 (the
+// models' case), else in f32; and the products read them there as they
+// are. A chunk: the cumulated decay (SCALAR: one warp's shuffles a head;
+// GENERAL: a thread per channel and half chunk, then two exps an
+// element), the score tiles (the two above the diagonal skipped), then
+// each warp forms a 16 x 32 block of y (readout then scores x v) and its
+// 16 state rows; three barriers a chunk (five in the GENERAL form). Fixed
+// orders and no atomics, so a second launch is bit-equal to the first.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,8 +63,8 @@ namespace {
 
 constexpr int Q = 32;                 // chunk, as gla.CHUNK
 constexpr int DMAX = 64;              // largest Dk and Dv
-constexpr int QS = DMAX + 4;          // stride of q, k, X, L tiles (= 4 mod 32)
-constexpr int VS = DMAX + 8;          // stride of v and the state (= 8 mod 32)
+constexpr int QS = DMAX + 4;          // stride of f32 tiles (= 4 mod 32)
+constexpr int VS = DMAX + 8;          // stride of the state (= 8 mod 32)
 constexpr int PS = Q + 4;             // stride of the scores
 constexpr int GROUP = 128;            // threads a head
 constexpr float CLAMP = 4.0f;         // gla.LOG_DECAY_CLAMP
@@ -86,8 +86,9 @@ struct Args {
   float* state;         // (B, H, Dk, Dv)
   long long S;
   int H, Dk, Dv;
-  int q_exact, k_exact, v_exact;   // raw input exactly TF32 (bf16)
 };
+
+__host__ __device__ constexpr int esize(int dtype) { return dtype == 0 ? 4 : 2; }
 
 __device__ __forceinline__ float load(const In& x, long long off) {
   if (x.dtype == 0) return static_cast<const float*>(x.p)[off];
@@ -101,36 +102,30 @@ __device__ __forceinline__ float clamp_log_decay(float x) {
   return x < -CLAMP ? -CLAMP : (x > 0.f ? 0.f : x);
 }
 
-// Q x DMAX tile of x at rows t0.. into dst (row stride `stride`), element
-// by element (the layouts the bulk copies cannot take), zeros past S,
-// past D or for a head that does not exist.
-__device__ void load_tile(const In& x, long long base, long long t0,
-                          long long S, int D, bool valid, bool clamp,
-                          float* dst, int stride, int tid, int nthr) {
-  for (int i = tid; i < Q * DMAX; i += nthr) {
-    const int t = i / DMAX, d = i % DMAX;
-    const long long s = t0 + t;
-    float val = 0.f;
-    if (valid && s < S && d < D) {
-      val = load(x, base + s * x.st + d * x.sd);
-      if (clamp) val = clamp_log_decay(val);
-    }
-    dst[t * stride + d] = val;
-  }
-}
+// --- staging -----------------------------------------------------------------
+// Each chunk's inputs land in one of two staging buffers, in their own
+// type when it is the kernel's (bf16 raw bits when q, k and v are bf16,
+// else f32), rows padded so that fragment reads hit distinct banks
+// (144-byte bf16 rows, 272-byte f32 rows). A tile whose rows are 16-byte
+// aligned arrives by bulk copies (cp.async.bulk, one a row, issued by one
+// warp, all completing on one mbarrier); rows past S are zeroed by the
+// same lanes, and columns past D stay as the kernel zeroed them. Other
+// layouts are read element by element into the same tiles. The products
+// read the staged tiles as they are: nothing is widened in between.
+template <bool BF16> struct Stg;
+template <> struct Stg<true> {
+  using T = uint16_t;
+  static constexpr int S = DMAX + 8;
+};
+template <> struct Stg<false> {
+  using T = float;
+  static constexpr int S = DMAX + 4;
+};
 
-// --- asynchronous staging --------------------------------------------------
-// An input whose rows load as 16-byte vectors is copied global -> shared
-// into a staging tile of raw rows (DMAX elements of its own type a row):
-// one warp a tile, one bulk copy (cp.async.bulk) a row, all completing on
-// one mbarrier, issued before the previous chunk's products and widened
-// to f32 after them. Rows past S, or of a head that does not exist, are
-// not copied; the widening writes zeros there.
-__host__ __device__ constexpr int esize(int dtype) { return dtype == 0 ? 4 : 2; }
-
-__host__ __device__ inline int stage_bytes(const In& x) {
-  return x.vec ? Q * DMAX * esize(x.dtype) : 0;
+__device__ __forceinline__ float widen(uint16_t b) {
+  return __uint_as_float((uint32_t)b << 16);
 }
+__device__ __forceinline__ float widen(float f) { return f; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -175,7 +170,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 4 : 0)
                : "memory");
 }
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -183,49 +177,53 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// bytes the bulk copies of one chunk bring (the rows below S)
+// x's tile arrives by bulk copies into T rows (its type is T's, its rows
+// 16-byte aligned)
+template <typename T>
+__device__ __forceinline__ bool bulk_ok(const In& x) {
+  return x.vec && esize(x.dtype) == (int)sizeof(T);
+}
+
+// bytes the bulk copies of one tile bring
+template <typename T>
 __device__ __forceinline__ uint32_t tile_bytes(const In& x, int D, int rows) {
-  return x.vec ? (uint32_t)(rows * D * esize(x.dtype)) : 0u;
+  return bulk_ok<T>(x) ? (uint32_t)(rows * D * sizeof(T)) : 0u;
 }
 
-// one lane a row: x's rows t0.. into stg (x.vec only)
-__device__ __forceinline__ void stage_issue(const In& x, long long base,
-                                            long long t0, long long S, int D,
-                                            char* stg, uint32_t bar,
-                                            int lane) {
-  const long long s = t0 + lane;
-  if (s >= S) return;
-  const int es = esize(x.dtype);
-  bulk_copy(smem_addr(stg + lane * DMAX * es),
-            static_cast<const char*>(x.p) + (base + s * x.st) * es,
-            (uint32_t)(D * es), bar);
-}
-
-// widen the staged tile into dst (row stride `stride`), zeros past D,
-// past S and for a head that does not exist
-__device__ void stage_convert(const In& x, long long t0, long long S, int D,
-                              bool valid, bool clamp, const char* stg,
-                              float* dst, int stride, int tid, int nthr) {
-  for (int i = tid; i < Q * DMAX / 4; i += nthr) {
-    const int t = i / (DMAX / 4), d = (i % (DMAX / 4)) * 4;
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (d < D && valid && t0 + t < S) {
-      if (x.dtype == 0) {
-        o = *reinterpret_cast<const float4*>(stg + (t * DMAX + d) * 4);
-      } else {
-        const uint2 w = *reinterpret_cast<const uint2*>(stg +
-                                                        (t * DMAX + d) * 2);
-        o = make_float4(__uint_as_float(w.x << 16),
-                        __uint_as_float(w.x & 0xffff0000u),
-                        __uint_as_float(w.y << 16),
-                        __uint_as_float(w.y & 0xffff0000u));
-      }
-      if (clamp) {
-        o.x = clamp_log_decay(o.x); o.y = clamp_log_decay(o.y);
-        o.z = clamp_log_decay(o.z); o.w = clamp_log_decay(o.w);
-      }
+// x's rows t0.. into the staged tile dst (row stride SE). Bulk: lane =
+// row of the issuing warp, rows past S zeroed. Else element by element
+// over `nthr` threads, zeros past S and past D. A head that does not
+// exist keeps the zeros the kernel started with.
+template <typename T, int SE>
+__device__ void stage_tile(const In& x, long long base, long long t0,
+                           long long S, int D, T* dst, uint32_t bar,
+                           bool issuer, int lane, int tid, int nthr) {
+  if (bulk_ok<T>(x)) {
+    if (!issuer) return;
+    const long long s = t0 + lane;
+    T* row = dst + lane * SE;
+    if (s < S) {
+      bulk_copy(smem_addr(row),
+                static_cast<const T*>(x.p) + base + s * x.st,
+                (uint32_t)(D * sizeof(T)), bar);
+    } else {
+      for (int i = 0; i < D * (int)sizeof(T) / 16; ++i)
+        reinterpret_cast<uint4*>(row)[i] = make_uint4(0u, 0u, 0u, 0u);
     }
-    *reinterpret_cast<float4*>(dst + t * stride + d) = o;
+    return;
+  }
+  for (int i = tid; i < Q * DMAX; i += nthr) {
+    const int t = i / DMAX, d = i % DMAX;
+    const long long s = t0 + t;
+    T val = T(0);
+    if (s < S && d < D) {
+      const long long off = base + s * x.st + d * x.sd;
+      if constexpr (sizeof(T) == 2)
+        val = static_cast<const uint16_t*>(x.p)[off];       // bf16 bits
+      else
+        val = load(x, off);
+    }
+    dst[t * SE + d] = val;
   }
 }
 
@@ -270,92 +268,84 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   mma_tf32(c, ah, bh);
 }
 
-// Fragments of m16n8k8 (g = lane / 4, r = lane % 4), read from a tile
-// through the thread's own base pointer. A (16 x 8) from a row-major tile
-// t[row][col] at (r0, c0): pass t + g * S + r.
-template <bool EXACT, int S>
-__device__ __forceinline__ void frag_a(const float* t, int r0, int c0,
+// Fragments of m16n8k8 (g = lane / 4, r = lane % 4), read from a tile of
+// element type E and row stride S through the thread's own base pointer.
+// A (16 x 8) from a row-major tile t[row][col] at (r0, c0): pass
+// t + g * S + r.
+template <bool EXACT, int S, typename E>
+__device__ __forceinline__ void frag_a(const E* t, int r0, int c0,
                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split<EXACT>(t[r0 * S + c0], hi[0], lo[0]);
-  split<EXACT>(t[(r0 + 8) * S + c0], hi[1], lo[1]);
-  split<EXACT>(t[r0 * S + c0 + 4], hi[2], lo[2]);
-  split<EXACT>(t[(r0 + 8) * S + c0 + 4], hi[3], lo[3]);
+  split<EXACT>(widen(t[r0 * S + c0]), hi[0], lo[0]);
+  split<EXACT>(widen(t[(r0 + 8) * S + c0]), hi[1], lo[1]);
+  split<EXACT>(widen(t[r0 * S + c0 + 4]), hi[2], lo[2]);
+  split<EXACT>(widen(t[(r0 + 8) * S + c0 + 4]), hi[3], lo[3]);
 }
 
 // A (16 x 8) = t^T: A[m][k] = t[c0 + k][r0 + m]: pass t + r * S + g.
-template <bool EXACT, int S>
-__device__ __forceinline__ void frag_a_t(const float* t, int r0, int c0,
+template <bool EXACT, int S, typename E>
+__device__ __forceinline__ void frag_a_t(const E* t, int r0, int c0,
                                          uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split<EXACT>(t[c0 * S + r0], hi[0], lo[0]);
-  split<EXACT>(t[c0 * S + r0 + 8], hi[1], lo[1]);
-  split<EXACT>(t[(c0 + 4) * S + r0], hi[2], lo[2]);
-  split<EXACT>(t[(c0 + 4) * S + r0 + 8], hi[3], lo[3]);
+  split<EXACT>(widen(t[c0 * S + r0]), hi[0], lo[0]);
+  split<EXACT>(widen(t[c0 * S + r0 + 8]), hi[1], lo[1]);
+  split<EXACT>(widen(t[(c0 + 4) * S + r0]), hi[2], lo[2]);
+  split<EXACT>(widen(t[(c0 + 4) * S + r0 + 8]), hi[3], lo[3]);
 }
 
 // B (8 x 8) with B[k][n] = t[n0 + n][k0 + k]: pass t + g * S + r.
-template <bool EXACT, int S>
-__device__ __forceinline__ void frag_b_n(const float* t, int k0, int n0,
+template <bool EXACT, int S, typename E>
+__device__ __forceinline__ void frag_b_n(const E* t, int k0, int n0,
                                          uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  split<EXACT>(t[n0 * S + k0], hi[0], lo[0]);
-  split<EXACT>(t[n0 * S + k0 + 4], hi[1], lo[1]);
+  split<EXACT>(widen(t[n0 * S + k0]), hi[0], lo[0]);
+  split<EXACT>(widen(t[n0 * S + k0 + 4]), hi[1], lo[1]);
 }
 
 // B (8 x 8) with B[k][n] = t[k0 + k][n0 + n] * w_k (w0, w1: the scales of
 // rows r and r + 4): pass t + r * S + g.
-template <bool EXACT, int S>
-__device__ __forceinline__ void frag_b_k(const float* t, int k0, int n0,
+template <bool EXACT, int S, typename E>
+__device__ __forceinline__ void frag_b_k(const E* t, int k0, int n0,
                                          float w0, float w1,
                                          uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  split<EXACT>(t[k0 * S + n0] * w0, hi[0], lo[0]);
-  split<EXACT>(t[(k0 + 4) * S + n0] * w1, hi[1], lo[1]);
+  split<EXACT>(widen(t[k0 * S + n0]) * w0, hi[0], lo[0]);
+  split<EXACT>(widen(t[(k0 + 4) * S + n0]) * w1, hi[1], lo[1]);
 }
 
-// Shared-memory layout, in floats. Block-wide: q and k tiles (GENERAL
-// also X = q * exp(Lq - shift) and L / k_in). Per head: v, the state,
-// the scores, and the decay: SCALAR the chunk's cumulated log decay (Q),
-// GENERAL the chunk's total per channel (DMAX), the bonus (DMAX), the
-// cumsum's half totals (3 DMAX) and q_t . u . k_t (Q).
-template <bool SCALAR>
-struct Layout {
-  static constexpr int shared = (SCALAR ? 2 : 4) * Q * QS;
-  static constexpr int head =
-      Q * VS + DMAX * VS + Q * PS + (SCALAR ? Q : 5 * DMAX + Q);
-  static constexpr size_t bytes(int hb) {
-    return sizeof(float) * (size_t)(shared + hb * head);
-  }
-};
-
-// staging bytes after the float layout: q, k (block-wide), then v and
-// SCALAR's per-token log decay for each head, or GENERAL's lw tile
-struct Stage {
-  int bar, q, k, v, lw, lw_scalar;   // byte offsets; lw_scalar per head
-  int bytes;
-};
-
-__host__ __device__ inline Stage stage_layout(const Args& a, bool scalar,
-                                              int hb) {
-  Stage st;
-  st.bar = 0;                           // the mbarrier (8 bytes)
-  st.q = 16;
-  st.k = st.q + stage_bytes(a.q);
-  st.v = st.k + stage_bytes(a.k);
-  st.lw = st.v + hb * stage_bytes(a.v);
-  const bool lw_async = scalar && a.lw.dtype == 0;
-  st.lw_scalar = lw_async ? Q * 4 : 0;
-  st.bytes = st.lw + (scalar ? hb * st.lw_scalar : stage_bytes(a.lw));
-  return st;
-}
-
-// BF16: q, k and v are bf16, so the raw ones are exact TF32 operands.
-// Blocks an SM: GENERAL's 88 KB of shared memory fit 2; SCALAR fits 3 of
-// one head or 2 of two, which caps the registers.
+// Shared-memory layout. Floats first: GENERAL's four f32 tiles (q then
+// q exp(Lq), k then k exp(Ltot - L), X = q exp(Lq - shift), the cumsum then
+// k exp(shift - L)); per head the state, the scores and the decay's
+// scratch (SCALAR: the chunk's cumulated log decay, Q; GENERAL: the total
+// per channel, the bonus, the cumsum's half totals and q_t . u . k_t,
+// 5 DMAX + Q). Then the mbarrier (16 bytes) and two staging buffers, each
+// q, k, HB v tiles and the log decay (SCALAR: Q f32 a head; GENERAL: an
+// f32 tile).
 template <bool SCALAR, int HB, bool BF16>
-__global__ void __launch_bounds__(GROUP * HB, SCALAR ? (HB == 1 ? 3 : 2) : 2)
+struct Layout {
+  using T = typename Stg<BF16>::T;
+  static constexpr int SE = Stg<BF16>::S;
+  static constexpr int shared = SCALAR ? 0 : 4 * Q * QS;
+  static constexpr int head =
+      DMAX * VS + Q * PS + (SCALAR ? Q : 5 * DMAX + Q);
+  static constexpr int floats = shared + HB * head;
+  static constexpr int tile = Q * SE * (int)sizeof(T);       // bytes
+  static constexpr int lw_tile = SCALAR ? HB * Q * 4 : Q * QS * 4;
+  static constexpr int buffer = (2 + HB) * tile + lw_tile;   // bytes
+  static constexpr int bar = floats * 4;
+  static constexpr int stage = bar + 16;
+  static constexpr size_t bytes = (size_t)stage + 2 * buffer;
+  static_assert(floats % 4 == 0 && tile % 16 == 0 && buffer % 16 == 0,
+                "16-byte alignment of the staged tiles");
+};
+
+template <bool SCALAR, int HB, bool BF16>
+__global__ void __launch_bounds__(GROUP * HB, 2)
 ssm_scan_kernel(const Args a) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  using LY = Layout<SCALAR>;
+  using LY = Layout<SCALAR, HB, BF16>;
+  using T = typename LY::T;
+  constexpr int SE = LY::SE;
   constexpr int NT = GROUP * HB;
+  constexpr bool QX = SCALAR && BF16;   // raw q and k read as they are
+  constexpr bool VX = BF16;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hg = tid / GROUP, htid = tid % GROUP, wq = warp & 3;
   const int g = lane >> 2, r4 = lane & 3;
@@ -368,13 +358,11 @@ ssm_scan_kernel(const Args a) {
   const bool valid = h < a.H;
   const long long bh = b * a.H + h;
 
-  float* qs = sm;                       // q (GENERAL: then q * exp(Lq))
-  float* ks = qs + Q * QS;              // k (GENERAL: then k * exp(Ltot - L))
-  float* Xs = ks + Q * QS;              // GENERAL: q * exp(Lq - shift)
-  float* Ls = Xs + Q * QS;              // GENERAL: lw, then k * exp(shift - L)
-  float* hb = sm + LY::shared + hg * LY::head;
-  float* vs = hb;                       // v
-  float* St = vs + Q * VS;              // the state entering the chunk
+  float* qs = sm;                       // GENERAL: q exp(Lq)
+  float* ks = qs + Q * QS;              // GENERAL: k exp(Ltot - L)
+  float* Xs = ks + Q * QS;              // GENERAL: q exp(Lq - shift)
+  float* Ls = Xs + Q * QS;              // GENERAL: cumsum, k exp(shift - L)
+  float* St = sm + LY::shared + hg * LY::head;   // state entering the chunk
   float* Ps = St + DMAX * VS;           // masked scores
   float* Lh = Ps + Q * PS;              // SCALAR: cumulated log decay (Q)
   float* ltot = Lh;                     // GENERAL: total log decay (DMAX)
@@ -382,13 +370,22 @@ ssm_scan_kernel(const Args a) {
   float* part = us + DMAX;              // GENERAL: the halves' totals and
                                         // the second half's first (3 DMAX)
   float* diag = part + 3 * DMAX;        // GENERAL: q_t . u . k_t (Q)
+  char* smc = reinterpret_cast<char*>(sm);
+  const uint32_t bar = smem_addr(smc + LY::bar);
+  // staged tiles of buffer c & 1
+  auto q_at = [&](long long c) {
+    return reinterpret_cast<T*>(smc + LY::stage + (c & 1) * LY::buffer);
+  };
+  auto k_at = [&](long long c) { return q_at(c) + Q * SE; };
+  auto v_at = [&](long long c, int hh) { return q_at(c) + (2 + hh) * Q * SE; };
+  auto lw_at = [&](long long c) {
+    return reinterpret_cast<float*>(smc + LY::stage + (c & 1) * LY::buffer +
+                                    (2 + HB) * LY::tile);
+  };
 
   const long long oq = b * a.q.sb + (long long)(SCALAR ? h0 : h) * a.q.sh;
   const long long ok = b * a.k.sb + (long long)(SCALAR ? h0 : h) * a.k.sh;
-  const long long ov = b * a.v.sb + (long long)h * a.v.sh;
   const long long ol = b * a.lw.sb + (long long)h * a.lw.sh;
-  constexpr bool QX = SCALAR && BF16;   // raw q and k read as they are
-  constexpr bool VX = BF16;
 
   // the state: rows 16 wq + g (+ 8) and columns 8 n + 2 r4 (+ 1) in
   // accumulators, 8 n-tiles
@@ -415,113 +412,96 @@ ssm_scan_kernel(const Args a) {
     }
   };
 
-  const Stage stg_at = stage_layout(a, SCALAR, HB);
-  char* stg = reinterpret_cast<char*>(sm + LY::shared + HB * LY::head);
-  char* stg_v = stg + stg_at.v + hg * stage_bytes(a.v);
-  float* stg_lw = reinterpret_cast<float*>(stg + stg_at.lw + hg * stg_at.lw_scalar);
-
-  const uint32_t bar = smem_addr(stg + stg_at.bar);
-
-  // copies of chunk rows t0.. into staging: warp 0 q, 1 k, 2 + hh v of
+  // chunk c's rows t0.. into buffer c & 1: warp 0 q, 1 k, 2 + hh v of
   // head hh, 3 GENERAL's log decay; thread 0 arms the mbarrier with the
-  // bytes of them all. SCALAR's per-token log decay: cp.async, 4 bytes a
-  // lane of each head's first warp.
-  auto issue_chunk = [&](long long t0) {
+  // bytes of their bulk copies. SCALAR's per-token log decay: cp.async, 4
+  // bytes a lane of each head's first warp (f32), else loaded.
+  auto issue_chunk = [&](long long c) {
+    const long long t0 = c * Q;
     const int rows = (int)min((long long)Q, a.S - t0);
     if (tid == 0) {
-      uint32_t bytes = tile_bytes(a.q, a.Dk, rows) +
-                       tile_bytes(a.k, a.Dk, rows);
+      uint32_t bytes = tile_bytes<T>(a.q, a.Dk, rows) +
+                       tile_bytes<T>(a.k, a.Dk, rows);
       for (int hh = 0; hh < HB; ++hh)
-        if (h0 + hh < a.H) bytes += tile_bytes(a.v, a.Dv, rows);
-      if (!SCALAR) bytes += tile_bytes(a.lw, a.Dk, rows);
+        if (h0 + hh < a.H) bytes += tile_bytes<T>(a.v, a.Dv, rows);
+      if (!SCALAR) bytes += tile_bytes<float>(a.lw, a.Dk, rows);
       mbar_expect(bar, bytes);
     }
-    if (warp == 0 && a.q.vec)
-      stage_issue(a.q, oq, t0, a.S, a.Dk, stg + stg_at.q, bar, lane);
-    if (warp == 1 && a.k.vec)
-      stage_issue(a.k, ok, t0, a.S, a.Dk, stg + stg_at.k, bar, lane);
-    if (warp >= 2 && warp < 2 + HB && a.v.vec && h0 + warp - 2 < a.H) {
-      const int hh = warp - 2;
-      stage_issue(a.v, b * a.v.sb + (long long)(h0 + hh) * a.v.sh, t0, a.S,
-                  a.Dv, stg + stg_at.v + hh * stage_bytes(a.v), bar, lane);
-    }
-    if (!SCALAR && warp == 3 && a.lw.vec)
-      stage_issue(a.lw, ol, t0, a.S, a.Dk, stg + stg_at.lw, bar, lane);
-    if (SCALAR && stg_at.lw_scalar && wq == 0) {
-      const long long s = t0 + lane;
-      const bool full = valid && s < a.S;
-      const float* p = static_cast<const float*>(a.lw.p);
-      cp_async4(stg_lw + lane, full ? p + ol + s * a.lw.st : p, full);
-      cp_async_commit();
-    }
-  };
-
-  // wait for the chunk the last issue_chunk copied (its parity)
-  auto wait_chunk = [&](long long c) {
-    mbar_wait(bar, (uint32_t)(c & 1));
-    if (SCALAR && stg_at.lw_scalar && wq == 0) cp_async_wait_all();
-  };
-
-  // the chunk's f32 tiles: staged inputs widened, the rest loaded element
-  // by element; SCALAR also the decay's cumsum, one warp a head
-  auto convert_chunk = [&](long long t0) {
-    if (a.q.vec) stage_convert(a.q, t0, a.S, a.Dk, true, false,
-                               stg + stg_at.q, qs, QS, tid, NT);
-    else load_tile(a.q, oq, t0, a.S, a.Dk, true, false, qs, QS, tid, NT);
-    if (a.k.vec) stage_convert(a.k, t0, a.S, a.Dk, true, false,
-                               stg + stg_at.k, ks, QS, tid, NT);
-    else load_tile(a.k, ok, t0, a.S, a.Dk, true, false, ks, QS, tid, NT);
-    if (a.v.vec) stage_convert(a.v, t0, a.S, a.Dv, valid, false, stg_v, vs,
-                               VS, htid, GROUP);
-    else load_tile(a.v, ov, t0, a.S, a.Dv, valid, false, vs, VS, htid,
-                   GROUP);
+    stage_tile<T, SE>(a.q, oq, t0, a.S, a.Dk, q_at(c), bar, warp == 0,
+                      lane, tid, NT);
+    stage_tile<T, SE>(a.k, ok, t0, a.S, a.Dk, k_at(c), bar, warp == 1,
+                      lane, tid, NT);
+    if (valid)
+      stage_tile<T, SE>(a.v, b * a.v.sb + (long long)h * a.v.sh, t0, a.S,
+                        a.Dv, v_at(c, hg), bar, wq == 2, lane, htid, GROUP);
     if (SCALAR) {
       if (wq == 0) {
         const long long s = t0 + lane;
-        float L;
-        if (stg_at.lw_scalar) L = clamp_log_decay(stg_lw[lane]);
-        else L = (valid && s < a.S)
-            ? clamp_log_decay(load(a.lw, ol + s * a.lw.st)) : 0.f;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float n = __shfl_up_sync(0xffffffffu, L, o);
-          if (lane >= o) L += n;
+        const bool full = valid && s < a.S;
+        float* dst = lw_at(c) + hg * Q + lane;
+        if (a.lw.dtype == 0) {
+          const float* p = static_cast<const float*>(a.lw.p);
+          cp_async4(dst, full ? p + ol + s * a.lw.st : p, full);
+          cp_async_commit();
+        } else {
+          *dst = full ? load(a.lw, ol + s * a.lw.st) : 0.f;
         }
-        Lh[lane] = L;
       }
-    } else if (a.lw.vec) {
-      stage_convert(a.lw, t0, a.S, a.Dk, valid, true, stg + stg_at.lw, Ls,
-                    QS, tid, NT);
     } else {
-      load_tile(a.lw, ol, t0, a.S, a.Dk, valid, true, Ls, QS, tid, NT);
+      stage_tile<float, QS>(a.lw, ol, t0, a.S, a.Dk, lw_at(c), bar,
+                            warp == 3, lane, tid, NT);
     }
   };
 
+  // after the copies of chunk c have landed: the state entering it and,
+  // SCALAR, the cumulated log decay (one warp's shuffles a head)
+  auto wait_and_prepare = [&](long long c) {
+    mbar_wait(bar, (uint32_t)(c & 1));
+    if (SCALAR && wq == 0) cp_async_wait_all();
+    __syncthreads();
+    store_state();
+    if (SCALAR && wq == 0) {
+      float L = clamp_log_decay(lw_at(c)[hg * Q + lane]);
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float n = __shfl_up_sync(0xffffffffu, L, o);
+        if (lane >= o) L += n;
+      }
+      Lh[lane] = L;
+    }
+    __syncthreads();
+  };
+
+  // zero both staging buffers (columns past D and absent heads stay so),
+  // then hand them to the bulk copies
+  for (int i = tid; i < 2 * LY::buffer / 16; i += NT)
+    reinterpret_cast<uint4*>(smc + LY::stage)[i] = make_uint4(0u, 0u, 0u, 0u);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   if (tid == 0) {
     mbar_init(bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   issue_chunk(0);
-  wait_chunk(0);
-  __syncthreads();
-  store_state();
-  convert_chunk(0);
-  __syncthreads();
+  wait_and_prepare(0);
 
   const long long nc = (a.S + Q - 1) / Q;
   for (long long c = 0; c < nc; ++c) {
     const long long t0 = c * Q;
-    if (c + 1 < nc) issue_chunk(t0 + Q);      // lands during this chunk
+    if (c + 1 < nc) issue_chunk(c + 1);       // lands during this chunk
+    const T* qst = q_at(c);
+    const T* kst = k_at(c);
+    const T* vst = v_at(c, hg);
 
     if (!SCALAR) {
       // thread (channel d, half): its 16 tokens in order, the cumsum in two
-      // halves; then the factored tiles in place, two exps an element
+      // halves; then the factored tiles, two exps an element
+      const float* lwst = lw_at(c);
       const int d = tid & (DMAX - 1), half = tid / DMAX, tb = 16 * half;
       float run = 0.f;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
-        run += Ls[(tb + i) * QS + d];
+        run += clamp_log_decay(lwst[(tb + i) * QS + d]);
         Ls[(tb + i) * QS + d] = run;
       }
       part[half * DMAX + d] = run;            // each half's total
@@ -532,9 +512,10 @@ ssm_scan_kernel(const Args a) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int t = 8 * wq + i;
-          p[i] = qs[t * QS + lane] * us[lane] * ks[t * QS + lane] +
-                 qs[t * QS + lane + 32] * us[lane + 32] *
-                     ks[t * QS + lane + 32];
+          p[i] = widen(qst[t * SE + lane]) * us[lane] *
+                     widen(kst[t * SE + lane]) +
+                 widen(qst[t * SE + lane + 32]) * us[lane + 32] *
+                     widen(kst[t * SE + lane + 32]);
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
@@ -560,8 +541,8 @@ ssm_scan_kernel(const Args a) {
         const float loc = Ls[o], L = loc + off;
         const float Lq = ssd ? L : prev + off;
         prev = loc;
-        const float x = qs[o] * expf(Lq - shift);
-        const float kin = ks[o] * expf(shift - L);
+        const float x = widen(qst[(tb + i) * SE + d]) * expf(Lq - shift);
+        const float kin = widen(kst[(tb + i) * SE + d]) * expf(shift - L);
         Xs[o] = x;                          // q exp(Lq - shift)
         qs[o] = x * e_shift;                // q exp(Lq)
         Ls[o] = kin;                        // k exp(shift - L)
@@ -580,24 +561,30 @@ ssm_scan_kernel(const Args a) {
       // dependent products
       float acc[4] = {0.f, 0.f, 0.f, 0.f}, acc2[4] = {0.f, 0.f, 0.f, 0.f};
       if (s0 <= r0 + 15) {
-        const float* ta = (SCALAR ? qs : Xs) + g * QS + r4;
-        const float* tb = (SCALAR ? ks : Ls) + g * QS + r4;
 #pragma unroll
         for (int kk = 0; kk < DMAX; kk += 16) {
-          uint32_t ah[4], al[4], bhi[2], blo[2];
-          frag_a<QX, QS>(ta, r0, kk, ah, al);
-          frag_b_n<QX, QS>(tb, kk, s0, bhi, blo);
+          uint32_t ah[4], al[4], bhi[2], blo[2], ah2[4], al2[4], bh2[2],
+              bl2[2];
+          if constexpr (SCALAR) {
+            frag_a<QX, SE>(qst + g * SE + r4, r0, kk, ah, al);
+            frag_b_n<QX, SE>(kst + g * SE + r4, kk, s0, bhi, blo);
+            frag_a<QX, SE>(qst + g * SE + r4, r0, kk + 8, ah2, al2);
+            frag_b_n<QX, SE>(kst + g * SE + r4, kk + 8, s0, bh2, bl2);
+          } else {
+            frag_a<false, QS>(Xs + g * QS + r4, r0, kk, ah, al);
+            frag_b_n<false, QS>(Ls + g * QS + r4, kk, s0, bhi, blo);
+            frag_a<false, QS>(Xs + g * QS + r4, r0, kk + 8, ah2, al2);
+            frag_b_n<false, QS>(Ls + g * QS + r4, kk + 8, s0, bh2, bl2);
+          }
           mma3<QX, QX>(acc, ah, al, bhi, blo);
-          frag_a<QX, QS>(ta, r0, kk + 8, ah, al);
-          frag_b_n<QX, QS>(tb, kk + 8, s0, bhi, blo);
-          mma3<QX, QX>(acc2, ah, al, bhi, blo);
+          mma3<QX, QX>(acc2, ah2, al2, bh2, bl2);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[e] += acc2[e];
       }
 #pragma unroll
       for (int hh = 0; hh < HB; ++hh) {
-        float* P = sm + LY::shared + hh * LY::head + Q * VS + DMAX * VS;
+        float* P = sm + LY::shared + hh * LY::head + DMAX * VS;
         const float* Lx = P + Q * PS;
         const float* dg = Lx + 5 * DMAX;
 #pragma unroll
@@ -625,12 +612,12 @@ ssm_scan_kernel(const Args a) {
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      const float* ta = qs + g * QS + r4;
       const float* tS = St + r4 * VS + g;
 #pragma unroll
       for (int kk = 0; kk < DMAX; kk += 8) {
         uint32_t ah[4], al[4];
-        frag_a<QX, QS>(ta, r0, kk, ah, al);
+        if constexpr (SCALAR) frag_a<QX, SE>(qst + g * SE + r4, r0, kk, ah, al);
+        else frag_a<false, QS>(qs + g * QS + r4, r0, kk, ah, al);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t bhi[2], blo[2];
@@ -647,7 +634,7 @@ ssm_scan_kernel(const Args a) {
         }
       }
       const float* tP = Ps + g * PS + r4;
-      const float* tv = vs + r4 * VS + g;
+      const T* tv = vst + r4 * SE + g;
 #pragma unroll
       for (int kk = 0; kk < Q; kk += 8) {
         if (mt == 0 && kk >= Q / 2) break;       // rows < 16 see s < 16
@@ -656,7 +643,7 @@ ssm_scan_kernel(const Args a) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t bhi[2], blo[2];
-          frag_b_k<VX, VS>(tv, kk, 8 * (nb + j), 1.f, 1.f, bhi, blo);
+          frag_b_k<VX, SE>(tv, kk, 8 * (nb + j), 1.f, 1.f, bhi, blo);
           mma3<false, VX>(acc[j], ah, al, bhi, blo);
         }
       }
@@ -696,27 +683,23 @@ ssm_scan_kernel(const Args a) {
       }
       // GENERAL reads v as it is (exact when bf16); SCALAR scales it
       constexpr bool UX = !SCALAR && VX;
-      const float* tk = ks + r4 * QS + g;
-      const float* tv = vs + r4 * VS + g;
+      const T* tv = vst + r4 * SE + g;
 #pragma unroll
       for (int kk = 0; kk < Q; kk += 8) {
         uint32_t ah[4], al[4];
-        frag_a_t<QX, QS>(tk, d0, kk, ah, al);
+        if constexpr (SCALAR) frag_a_t<QX, SE>(kst + r4 * SE + g, d0, kk, ah, al);
+        else frag_a_t<false, QS>(ks + r4 * QS + g, d0, kk, ah, al);
         const float w0 = SCALAR ? expf(tot - Lh[kk + r4]) : 1.f;
         const float w1 = SCALAR ? expf(tot - Lh[kk + r4 + 4]) : 1.f;
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           uint32_t bhi[2], blo[2];
-          frag_b_k<UX, VS>(tv, kk, 8 * n, w0, w1, bhi, blo);
+          frag_b_k<UX, SE>(tv, kk, 8 * n, w0, w1, bhi, blo);
           mma3<QX, UX>(Sacc[n], ah, al, bhi, blo);
         }
       }
     }
-    if (c + 1 < nc) wait_chunk(c + 1);
-    __syncthreads();
-    store_state();
-    if (c + 1 < nc) convert_chunk(t0 + Q);
-    __syncthreads();
+    if (c + 1 < nc) wait_and_prepare(c + 1);
   }
 
   if (valid) {
@@ -742,19 +725,23 @@ int vector_ok(const In& x, long long D) {
          x.st % vw == 0 && reinterpret_cast<uintptr_t>(x.p) % 16 == 0;
 }
 
-template <bool SCALAR, int HB>
+template <bool SCALAR, int HB, bool BF16>
 cudaError_t launch(const Args& a, long long B, void* stream) {
-  const size_t smem = Layout<SCALAR>::bytes(HB)
-                      + stage_layout(a, SCALAR, HB).bytes;
-  const bool bf16 = a.q_exact && a.k_exact && a.v_exact;
-  auto kernel = bf16 ? ssm_scan_kernel<SCALAR, HB, true>
-                     : ssm_scan_kernel<SCALAR, HB, false>;
+  const size_t smem = Layout<SCALAR, HB, BF16>::bytes;
+  auto kernel = ssm_scan_kernel<SCALAR, HB, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = B * ((a.H + HB - 1) / HB);
   kernel<<<(unsigned)blocks, GROUP * HB, smem, (cudaStream_t)stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool SCALAR, int HB>
+cudaError_t launch_typed(const Args& a, bool bf16, long long B,
+                         void* stream) {
+  return bf16 ? launch<SCALAR, HB, true>(a, B, stream)
+              : launch<SCALAR, HB, false>(a, B, stream);
 }
 
 }  // namespace
@@ -767,7 +754,8 @@ cudaError_t launch(const Args& a, long long B, void* stream) {
 // shape = {B, H, S, Dk, Dv}; strides = {q, k, v, lw} x {b, h, s, d};
 // dtypes = {q, k, v, lw}. The form: SCALAR for SSD with a log decay of
 // stride 0 over Dk, two heads a block when q and k also have stride 0
-// over H; GENERAL otherwise. Returns the cudaError_t of the launch.
+// over H; GENERAL otherwise. Staged in bf16 when q, k and v are all bf16,
+// else in f32. Returns the cudaError_t of the launch.
 extern "C" int ssm_scan_launch(const void* q, const void* k, const void* v,
                                const void* lw, const float* u,
                                const float* s0, float* y, float* state,
@@ -790,13 +778,13 @@ extern "C" int ssm_scan_launch(const void* q, const void* k, const void* v,
     ins[i].vec = vector_ok(ins[i], dims[i]);
   }
   const Args a{ins[0], ins[1], ins[2], ins[3], u, s0, y, state, S, (int)H,
-               (int)Dk, (int)Dv, dtypes[0] == 1, dtypes[1] == 1,
-               dtypes[2] == 1};
+               (int)Dk, (int)Dv};
+  const bool bf16 = dtypes[0] == 1 && dtypes[1] == 1 && dtypes[2] == 1;
   const bool scalar = u == nullptr && ins[3].sd == 0;
   const bool shared_qk = ins[0].sh == 0 && ins[1].sh == 0;
   cudaError_t err;
-  if (scalar && shared_qk) err = launch<true, 2>(a, B, stream);
-  else if (scalar) err = launch<true, 1>(a, B, stream);
-  else err = launch<false, 1>(a, B, stream);
+  if (scalar && shared_qk) err = launch_typed<true, 2>(a, bf16, B, stream);
+  else if (scalar) err = launch_typed<true, 1>(a, bf16, B, stream);
+  else err = launch_typed<false, 1>(a, bf16, B, stream);
   return (int)err;
 }
