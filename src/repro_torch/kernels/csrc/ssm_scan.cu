@@ -46,16 +46,16 @@
 // state in mma accumulators for the whole scan, and a copy in shared
 // memory for the next chunk's readout (stride 72, so the column reads of
 // a B fragment hit distinct banks). A chunk's inputs land in one of two
-// staging buffers while the chunk before computes: by bulk copies
-// (cp.async.bulk, one a row, on one mbarrier) where the rows are 16-byte
-// aligned, else element by element; in bf16 when q, k and v are bf16 (the
-// models' case), else in f32; and the products read them there as they
-// are. A chunk: the cumulated decay (SCALAR: one warp's shuffles a head;
+// staging buffers while the chunk before computes: one TMA box a tile (on
+// one mbarrier) where TMA takes the layout, else element by element; in
+// bf16 when q, k and v are bf16 (the models' case), else in f32; and the
+// products read them there as they are. A chunk: the cumulated decay (SCALAR: one warp's shuffles a head;
 // GENERAL: a thread per channel and half chunk, then two exps an
 // element), the score tiles (the two above the diagonal skipped), then
 // each warp forms a 16 x 32 block of y (readout then scores x v) and its
 // 16 state rows; three barriers a chunk (five in the GENERAL form). Fixed
 // orders and no atomics, so a second launch is bit-equal to the first.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,12 +70,12 @@ constexpr int GROUP = 128;            // threads a head
 constexpr float CLAMP = 4.0f;         // gla.LOG_DECAY_CLAMP
 
 // A (B, H, S, D) input read through its strides (in elements), f32 (0)
-// or bf16 (1); vec: its rows of D elements are 16-byte aligned, so they
-// arrive by bulk copies.
+// or bf16 (1); tma: its tiles arrive by TMA through the tensor map the
+// launcher built (16-byte aligned rows, d stride 1).
 struct In {
   const void* p;
   long long sb, sh, st, sd;
-  int dtype, vec;
+  int dtype, tma;
 };
 
 struct Args {
@@ -106,12 +106,12 @@ __device__ __forceinline__ float clamp_log_decay(float x) {
 // Each chunk's inputs land in one of two staging buffers, in their own
 // type when it is the kernel's (bf16 raw bits when q, k and v are bf16,
 // else f32), rows padded so that fragment reads hit distinct banks
-// (144-byte bf16 rows, 272-byte f32 rows). A tile whose rows are 16-byte
-// aligned arrives by bulk copies (cp.async.bulk, one a row, issued by one
-// warp, all completing on one mbarrier); rows past S are zeroed by the
-// same lanes, and columns past D stay as the kernel zeroed them. Other
-// layouts are read element by element into the same tiles. The products
-// read the staged tiles as they are: nothing is widened in between.
+// (144-byte bf16 rows, 272-byte f32 rows). A tile whose layout TMA takes
+// arrives as one box of 32 rows (cp.async.bulk.tensor, on one mbarrier),
+// the pad columns, the columns past D and the rows past S zero-filled by
+// TMA itself. Other layouts are read element by element into the same
+// tiles. The products read the staged tiles as they are: nothing is
+// widened in between.
 template <bool BF16> struct Stg;
 template <> struct Stg<true> {
   using T = uint16_t;
@@ -156,12 +156,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
+// one box of a rank-4 (d, s, head, batch) tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int s, int h, int b, uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+      "fence.proxy.async.shared::cta;\n"
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(s),
+         "r"(h), "r"(b), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -177,39 +181,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// x's tile arrives by bulk copies into T rows (its type is T's, its rows
-// 16-byte aligned)
+// the bytes of one staged tile of T (a TMA box: every row, pad included)
 template <typename T>
-__device__ __forceinline__ bool bulk_ok(const In& x) {
-  return x.vec && esize(x.dtype) == (int)sizeof(T);
+__host__ __device__ constexpr uint32_t box_bytes() {
+  return (uint32_t)(Q * Stg<sizeof(T) == 2>::S * sizeof(T));
 }
 
-// bytes the bulk copies of one tile bring
-template <typename T>
-__device__ __forceinline__ uint32_t tile_bytes(const In& x, int D, int rows) {
-  return bulk_ok<T>(x) ? (uint32_t)(rows * D * sizeof(T)) : 0u;
-}
-
-// x's rows t0.. into the staged tile dst (row stride SE). Bulk: lane =
-// row of the issuing warp, rows past S zeroed. Else element by element
-// over `nthr` threads, zeros past S and past D. A head that does not
-// exist keeps the zeros the kernel started with.
+// x's rows t0.. into the staged tile dst (row stride SE): one TMA box from
+// the issuing thread, or element by element over `nthr` threads, zeros
+// past S and past D. A head that does not exist keeps the zeros the
+// kernel started with.
 template <typename T, int SE>
-__device__ void stage_tile(const In& x, long long base, long long t0,
-                           long long S, int D, T* dst, uint32_t bar,
-                           bool issuer, int lane, int tid, int nthr) {
-  if (bulk_ok<T>(x)) {
-    if (!issuer) return;
-    const long long s = t0 + lane;
-    T* row = dst + lane * SE;
-    if (s < S) {
-      bulk_copy(smem_addr(row),
-                static_cast<const T*>(x.p) + base + s * x.st,
-                (uint32_t)(D * sizeof(T)), bar);
-    } else {
-      for (int i = 0; i < D * (int)sizeof(T) / 16; ++i)
-        reinterpret_cast<uint4*>(row)[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
+__device__ void stage_tile(const In& x, const CUtensorMap* map,
+                           long long base, long long t0, long long S, int D,
+                           int h, int b, T* dst, uint32_t bar, bool issuer,
+                           int tid, int nthr) {
+  if (x.tma) {
+    if (issuer)
+      tma_load(smem_addr(dst), map, (int)t0, x.sh ? h : 0, x.sb ? b : 0,
+               bar);
     return;
   }
   for (int i = tid; i < Q * DMAX; i += nthr) {
@@ -329,15 +319,20 @@ struct Layout {
   static constexpr int lw_tile = SCALAR ? HB * Q * 4 : Q * QS * 4;
   static constexpr int buffer = (2 + HB) * tile + lw_tile;   // bytes
   static constexpr int bar = floats * 4;
-  static constexpr int stage = bar + 16;
-  static constexpr size_t bytes = (size_t)stage + 2 * buffer;
-  static_assert(floats % 4 == 0 && tile % 16 == 0 && buffer % 16 == 0,
-                "16-byte alignment of the staged tiles");
+  // the staging buffers start at the next 128-byte boundary (TMA's
+  // alignment), found at run time: room for it is allocated
+  static constexpr size_t bytes = (size_t)bar + 16 + 127 + 2 * buffer;
+  static_assert(floats % 4 == 0 && tile % 128 == 0 && buffer % 128 == 0,
+                "128-byte alignment of the staged tiles");
 };
 
 template <bool SCALAR, int HB, bool BF16>
 __global__ void __launch_bounds__(GROUP * HB, 2)
-ssm_scan_kernel(const Args a) {
+ssm_scan_kernel(const __grid_constant__ Args a,
+                const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tl) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   using LY = Layout<SCALAR, HB, BF16>;
@@ -372,14 +367,16 @@ ssm_scan_kernel(const Args a) {
   float* diag = part + 3 * DMAX;        // GENERAL: q_t . u . k_t (Q)
   char* smc = reinterpret_cast<char*>(sm);
   const uint32_t bar = smem_addr(smc + LY::bar);
+  char* stage = smc + (((smem_addr(smc) + LY::bar + 16 + 127) & ~127u) -
+                       smem_addr(smc));
   // staged tiles of buffer c & 1
   auto q_at = [&](long long c) {
-    return reinterpret_cast<T*>(smc + LY::stage + (c & 1) * LY::buffer);
+    return reinterpret_cast<T*>(stage + (c & 1) * LY::buffer);
   };
   auto k_at = [&](long long c) { return q_at(c) + Q * SE; };
   auto v_at = [&](long long c, int hh) { return q_at(c) + (2 + hh) * Q * SE; };
   auto lw_at = [&](long long c) {
-    return reinterpret_cast<float*>(smc + LY::stage + (c & 1) * LY::buffer +
+    return reinterpret_cast<float*>(stage + (c & 1) * LY::buffer +
                                     (2 + HB) * LY::tile);
   };
 
@@ -412,28 +409,28 @@ ssm_scan_kernel(const Args a) {
     }
   };
 
-  // chunk c's rows t0.. into buffer c & 1: warp 0 q, 1 k, 2 + hh v of
-  // head hh, 3 GENERAL's log decay; thread 0 arms the mbarrier with the
-  // bytes of their bulk copies. SCALAR's per-token log decay: cp.async, 4
-  // bytes a lane of each head's first warp (f32), else loaded.
+  // chunk c's rows t0.. into buffer c & 1: TMA boxes issued by lane 0 of
+  // warp 0 (q), 1 (k), 2 of each head (its v) and 3 (GENERAL's log
+  // decay), thread 0 arming the mbarrier with their bytes; other layouts
+  // element by element. SCALAR's per-token log decay: cp.async, 4 bytes a
+  // lane of each head's first warp (f32), else loaded.
   auto issue_chunk = [&](long long c) {
     const long long t0 = c * Q;
-    const int rows = (int)min((long long)Q, a.S - t0);
     if (tid == 0) {
-      uint32_t bytes = tile_bytes<T>(a.q, a.Dk, rows) +
-                       tile_bytes<T>(a.k, a.Dk, rows);
+      uint32_t bytes = (a.q.tma + a.k.tma) * box_bytes<T>();
       for (int hh = 0; hh < HB; ++hh)
-        if (h0 + hh < a.H) bytes += tile_bytes<T>(a.v, a.Dv, rows);
-      if (!SCALAR) bytes += tile_bytes<float>(a.lw, a.Dk, rows);
+        if (h0 + hh < a.H) bytes += a.v.tma * box_bytes<T>();
+      if (!SCALAR) bytes += a.lw.tma * box_bytes<float>();
       mbar_expect(bar, bytes);
     }
-    stage_tile<T, SE>(a.q, oq, t0, a.S, a.Dk, q_at(c), bar, warp == 0,
-                      lane, tid, NT);
-    stage_tile<T, SE>(a.k, ok, t0, a.S, a.Dk, k_at(c), bar, warp == 1,
-                      lane, tid, NT);
+    stage_tile<T, SE>(a.q, &tq, oq, t0, a.S, a.Dk, h0, (int)b, q_at(c), bar,
+                      tid == 0, tid, NT);
+    stage_tile<T, SE>(a.k, &tk, ok, t0, a.S, a.Dk, h0, (int)b, k_at(c), bar,
+                      tid == 32, tid, NT);
     if (valid)
-      stage_tile<T, SE>(a.v, b * a.v.sb + (long long)h * a.v.sh, t0, a.S,
-                        a.Dv, v_at(c, hg), bar, wq == 2, lane, htid, GROUP);
+      stage_tile<T, SE>(a.v, &tv, b * a.v.sb + (long long)h * a.v.sh, t0,
+                        a.S, a.Dv, h, (int)b, v_at(c, hg), bar,
+                        htid == 64, htid, GROUP);
     if (SCALAR) {
       if (wq == 0) {
         const long long s = t0 + lane;
@@ -448,8 +445,8 @@ ssm_scan_kernel(const Args a) {
         }
       }
     } else {
-      stage_tile<float, QS>(a.lw, ol, t0, a.S, a.Dk, lw_at(c), bar,
-                            warp == 3, lane, tid, NT);
+      stage_tile<float, QS>(a.lw, &tl, ol, t0, a.S, a.Dk, h, (int)b,
+                            lw_at(c), bar, tid == 96, tid, NT);
     }
   };
 
@@ -473,9 +470,9 @@ ssm_scan_kernel(const Args a) {
   };
 
   // zero both staging buffers (columns past D and absent heads stay so),
-  // then hand them to the bulk copies
+  // then hand them to TMA
   for (int i = tid; i < 2 * LY::buffer / 16; i += NT)
-    reinterpret_cast<uint4*>(smc + LY::stage)[i] = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(stage)[i] = make_uint4(0u, 0u, 0u, 0u);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   if (tid == 0) {
     mbar_init(bar, 1);
@@ -717,23 +714,85 @@ ssm_scan_kernel(const Args a) {
 
 bool valid_dtype(int code) { return code == 0 || code == 1; }
 
-// rows of D elements at stride 1 arrive by bulk copies when every row
-// starts 16-byte aligned and is a whole number of 16 bytes
-int vector_ok(const In& x, long long D) {
-  const long long vw = x.dtype == 0 ? 4 : 8;
-  return x.sd == 1 && D % vw == 0 && x.sb % vw == 0 && x.sh % vw == 0 &&
-         x.st % vw == 0 && reinterpret_cast<uintptr_t>(x.p) % 16 == 0;
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The rank-4 (d, s, head, batch) map of x with its strides, boxes of the
+// staged row width (`se` elements, past D zero-filled) by 32 rows, zeros
+// out of bounds; a dim of stride 0 (q, k shared by every head) or of size
+// 1 is mapped as size 1. False where TMA cannot take the layout (a base or
+// a row, head or batch stride not a multiple of 16 bytes, a d stride != 1)
+// or the driver has no encoder: x is then read element by element.
+bool make_map(CUtensorMap* map, const In& x, long long B, long long H,
+              long long S, long long D, int se) {
+  const long long es = esize(x.dtype);
+  const long long nh = x.sh ? H : 1, nb = x.sb ? B : 1;
+  const long long ss = S > 1 ? x.st : (D + 7) / 8 * 8;
+  const long long sh = nh > 1 ? x.sh : ss * S;
+  const long long sb = nb > 1 ? x.sb : sh * nh;
+  if ((x.sd != 1 && D > 1) || reinterpret_cast<uintptr_t>(x.p) % 16 ||
+      (ss * es) % 16 || (sh * es) % 16 || (sb * es) % 16)
+    return false;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)nh,
+                              (cuuint64_t)nb};
+  const cuuint64_t strides[3] = {(cuuint64_t)(ss * es), (cuuint64_t)(sh * es),
+                                 (cuuint64_t)(sb * es)};
+  const cuuint32_t box[4] = {(cuuint32_t)se, (cuuint32_t)Q, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return encode(map, x.dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(x.p), dims, strides, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool SCALAR, int HB, bool BF16>
-cudaError_t launch(const Args& a, long long B, void* stream) {
-  const size_t smem = Layout<SCALAR, HB, BF16>::bytes;
+cudaError_t launch(Args a, long long B, void* stream) {
+  using LY = Layout<SCALAR, HB, BF16>;
+  // TMA takes an input staged in its own type: q, k, v when they are the
+  // kernel's type, GENERAL's log decay when f32
+  CUtensorMap maps[4] = {};
+  In* ins[4] = {&a.q, &a.k, &a.v, &a.lw};
+  const long long dims[4] = {a.Dk, a.Dk, a.Dv, a.Dk};
+  for (int i = 0; i < 4; ++i) {
+    const bool typed = i < 3 ? (ins[i]->dtype == 1) == BF16
+                             : !SCALAR && ins[i]->dtype == 0;
+    ins[i]->tma = typed && make_map(&maps[i], *ins[i], B, a.H, a.S, dims[i],
+                                    i < 3 ? LY::SE : QS);
+  }
+  const size_t smem = LY::bytes;
   auto kernel = ssm_scan_kernel<SCALAR, HB, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks = B * ((a.H + HB - 1) / HB);
-  kernel<<<(unsigned)blocks, GROUP * HB, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<(unsigned)blocks, GROUP * HB, smem, (cudaStream_t)stream>>>(
+      a, maps[0], maps[1], maps[2], maps[3]);
   return cudaGetLastError();
 }
 
@@ -770,13 +829,10 @@ extern "C" int ssm_scan_launch(const void* q, const void* k, const void* v,
   for (int i = 0; i < 4; ++i)
     if (!valid_dtype(dtypes[i])) return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, lw};
-  const long long dims[4] = {Dk, Dk, Dv, Dk};
   In ins[4];
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 4; ++i)
     ins[i] = In{ptrs[i], strides[4 * i], strides[4 * i + 1],
                 strides[4 * i + 2], strides[4 * i + 3], dtypes[i], 0};
-    ins[i].vec = vector_ok(ins[i], dims[i]);
-  }
   const Args a{ins[0], ins[1], ins[2], ins[3], u, s0, y, state, S, (int)H,
                (int)Dk, (int)Dv};
   const bool bf16 = dtypes[0] == 1 && dtypes[1] == 1 && dtypes[2] == 1;

@@ -14,7 +14,7 @@ stride 0 over Dk (Mamba2's) scales the raw q k^T by one exp per token
 pair, two heads a block when q and k are shared by every head; any other
 decay (RWKV, per-channel SSD) takes ``gla_chunked``'s factored form.
 Each chunk's inputs are staged in shared memory while the chunk before
-computes (bulk copies where the rows are 16-byte aligned, else element by
+computes (one TMA box a tile where TMA takes the layout, else element by
 element; bf16 when q, k and v are bf16) and the products read them there. Fixed orders and no atomics,
 so a second launch is bit-equal.
 
