@@ -23,9 +23,9 @@
 // and writes the R outputs. The first pass reads the rows from device
 // memory (x minus its mean, as (x, 0)) and the last writes |Z|^2 of bins
 // 0..N/2 to device memory, so the data crosses shared memory only between
-// passes: into a second buffer up to N = 8192, in place above it (all
-// reads before a barrier, all writes after), so that N = 16384 fits its
-// 128 KB. Twiddles come from one length-N f32 table in device memory
+// passes: into a second buffer up to N = 8192 (one pad point every 16
+// points against bank conflicts), in place above it (all reads before a
+// barrier, all writes after), so that N = 16384 fits its 128 KB. Twiddles come from one length-N f32 table in device memory
 // (built once per N in f64 by the wrapper), indexed by the exact integer
 // k * r * N / (Ns * R) < N. Each row is transformed on its own, not
 // packed two to a complex row: a packed pair leaks one row's rounding into
@@ -278,7 +278,16 @@ struct PassIO {
 // Butterfly u = (row g, j) of a radix-R pass: inputs j + r N/R, twiddle r
 // W_N^(k r N/(Ns R)) with k = j mod Ns (all 1 when Ns = 1), outputs to
 // (j - k) R + k + q Ns.
-template <int R, bool FIRST>
+// Point i of the two-buffer passes lies at i + i / 16: one pad point
+// every 16 spreads the strided writes of the early passes over all banks
+// (without it the first pass's writes of 8 points a butterfly conflict
+// 8-way). The in-place passes keep i.
+template <bool PAD>
+__device__ __forceinline__ int at(int i) {
+  return PAD ? i + (i >> 4) : i;
+}
+
+template <int R, bool FIRST, bool PAD>
 __device__ __forceinline__ void butterfly(float2 (&v)[R], const float2* in,
                                           const PassIO& io,
                                           const float2* __restrict__ tw,
@@ -292,7 +301,7 @@ __device__ __forceinline__ void butterfly(float2 (&v)[R], const float2* in,
                          0.f);
   } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = in[g * N + j + r * M];
+    for (int r = 0; r < R; ++r) v[r] = in[at<PAD>(g * N + j + r * M)];
   }
   if (Ns > 1)
 #pragma unroll
@@ -300,7 +309,7 @@ __device__ __forceinline__ void butterfly(float2 (&v)[R], const float2* in,
   dft_small<R>(v);
 }
 
-template <int R, bool LAST>
+template <int R, bool LAST, bool PAD>
 __device__ __forceinline__ void store_butterfly(const float2 (&v)[R],
                                                 float2* out, const PassIO& io,
                                                 int N, int Ns, int g, int j,
@@ -315,14 +324,14 @@ __device__ __forceinline__ void store_butterfly(const float2 (&v)[R],
     return;
   }
   const int dst = g * N + (j - k) * R + k;
-  if (R % 2 == 0 && Ns == 1) {
+  if (!PAD && R % 2 == 0 && Ns == 1) {
     float4* o = reinterpret_cast<float4*>(out + dst);
 #pragma unroll
     for (int r = 0; r < R; r += 2)
       o[r / 2] = make_float4(v[r].x, v[r].y, v[r + 1].x, v[r + 1].y);
   } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) out[dst + r * Ns] = v[r];
+    for (int r = 0; r < R; ++r) out[at<PAD>(dst + r * Ns)] = v[r];
   }
 }
 
@@ -339,8 +348,8 @@ __device__ __forceinline__ void fft_pass_pp(const float2* in, float2* out,
     const int g = by_m.div(u), j = u - g * M;
     const int k = j - by_ns.div(j) * Ns;
     float2 v[R];
-    butterfly<R, FIRST>(v, in, io, tw, N, M, Ns, g, j, k);
-    store_butterfly<R, LAST>(v, out, io, N, Ns, g, j, k);
+    butterfly<R, FIRST, true>(v, in, io, tw, N, M, Ns, g, j, k);
+    store_butterfly<R, LAST, true>(v, out, io, N, Ns, g, j, k);
   }
   __syncthreads();
 }
@@ -360,8 +369,8 @@ __device__ __forceinline__ void fft_pass_ip(float2* buf, const PassIO& io,
     const int u = threadIdx.x + i * blockDim.x;
     if (u < total) {
       const int g = by_m.div(u), j = u - g * M;
-      butterfly<R, FIRST>(v[i], buf, io, tw, N, M, Ns, g, j,
-                          j - by_ns.div(j) * Ns);
+      butterfly<R, FIRST, false>(v[i], buf, io, tw, N, M, Ns, g, j,
+                                 j - by_ns.div(j) * Ns);
     }
   }
   __syncthreads();
@@ -370,8 +379,8 @@ __device__ __forceinline__ void fft_pass_ip(float2* buf, const PassIO& io,
     const int u = threadIdx.x + i * blockDim.x;
     if (u < total) {
       const int g = by_m.div(u), j = u - g * M;
-      store_butterfly<R, LAST>(v[i], buf, io, N, Ns, g, j,
-                               j - by_ns.div(j) * Ns);
+      store_butterfly<R, LAST, false>(v[i], buf, io, N, Ns, g, j,
+                                      j - by_ns.div(j) * Ns);
     }
   }
   __syncthreads();
@@ -411,9 +420,11 @@ fft_power_kernel(const float* __restrict__ x, float* __restrict__ out,
                  const float2* __restrict__ tw, int B, int N, int G,
                  int center, double inv_n, unsigned long long codes,
                  int n_pass) {
-  extern __shared__ float2 buf[];            // G * N points, once or twice
-  float2* alt = INPLACE ? buf : buf + (size_t)G * N;
-  double* part = reinterpret_cast<double*>(alt + (size_t)G * N);  // 32
+  // G * N points in place, or twice G * N * 17 / 16 (padded, `at`)
+  extern __shared__ float2 buf[];
+  const int span = INPLACE ? G * N : G * N + (G * N >> 4);
+  float2* alt = INPLACE ? buf : buf + span;
+  double* part = reinterpret_cast<double*>(alt + span);  // 32
   float* mean = reinterpret_cast<float*>(part + 32);   // G
   const int tid = threadIdx.x, T = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, W = T >> 5;
@@ -422,14 +433,33 @@ fft_power_kernel(const float* __restrict__ x, float* __restrict__ out,
   const PassIO io{x + b0 * N, center ? mean : nullptr,
                   out + b0 * (N / 2 + 1), rows};
 
+  // row g's f64 sum over the points (16-byte loads where aligned) i0,
+  // i0 + step, ..., in a fixed order
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto row_sum = [&](int g, int i0, int step) {
+    double acc = 0.0;
+    if (g >= rows) return acc;
+    const float* row = io.xb + (size_t)g * N;
+    if (vec) {
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+      for (int t = i0; t < N / 4; t += step) {
+        const float4 v = row4[t];
+        acc += (double)v.x;
+        acc += (double)v.y;
+        acc += (double)v.z;
+        acc += (double)v.w;
+      }
+    } else {
+      for (int t = i0; t < N; t += step) acc += (double)row[t];
+    }
+    return acc;
+  };
   if (center) {
     // row means in f64 from device memory, each summed in a fixed order
     // (the first pass reads the rows again, from the cache)
     if (G >= W) {
       for (int g = warp; g < G; g += W) {
-        double acc = 0.0;
-        if (g < rows)
-          for (int t = lane; t < N; t += 32) acc += (double)io.xb[g * N + t];
+        double acc = row_sum(g, lane, 32);
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -438,10 +468,7 @@ fft_power_kernel(const float* __restrict__ x, float* __restrict__ out,
     } else {
       const int wpr = W / G;                  // warps per row
       const int g = warp / wpr, sub = warp - g * wpr;
-      double acc = 0.0;
-      if (g < rows)
-        for (int t = sub * 32 + lane; t < N; t += wpr * 32)
-          acc += (double)io.xb[g * N + t];
+      double acc = g < G ? row_sum(g, sub * 32 + lane, wpr * 32) : 0.0;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -528,7 +555,8 @@ extern "C" int dft_power_fft_launch(const float* x, float* out,
   }
   // two buffers up to N = 8192 (128 KB), one in place above it
   const bool inplace = N > 8192;
-  const size_t smem = sizeof(float2) * (size_t)G * N * (inplace ? 1 : 2)
+  const size_t span = inplace ? (size_t)G * N : (size_t)G * N + G * N / 16;
+  const size_t smem = sizeof(float2) * span * (inplace ? 1 : 2)
                       + 32 * sizeof(double) + sizeof(float) * G;
   auto kernel = N <= 2048 ? fft_power_kernel<16, 128, false>
               : N <= 8192 ? fft_power_kernel<8, FFT_MAX_THREADS, false>

@@ -469,8 +469,8 @@ ssm_scan_kernel(const __grid_constant__ Args a,
     __syncthreads();
   };
 
-  // zero both staging buffers (columns past D and absent heads stay so),
-  // then hand them to TMA
+  // zero both staging buffers (an absent head's v tiles stay so), then
+  // hand them to TMA
   for (int i = tid; i < 2 * LY::buffer / 16; i += NT)
     reinterpret_cast<uint4*>(stage)[i] = make_uint4(0u, 0u, 0u, 0u);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written DFT power-spectrum kernels (``csrc/dft_power.cu``).
+"""Wrapper of the hand-written DFT power-spectrum kernels
+(``csrc/dft_power.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/dft.py`` (``dft_power``),
 the cycle-recognition spectrum of every surveillance tick. The TPU version

@@ -15,8 +15,8 @@ pair, two heads a block when q and k are shared by every head; any other
 decay (RWKV, per-channel SSD) takes ``gla_chunked``'s factored form.
 Each chunk's inputs are staged in shared memory while the chunk before
 computes (one TMA box a tile where TMA takes the layout, else element by
-element; bf16 when q, k and v are bf16) and the products read them there. Fixed orders and no atomics,
-so a second launch is bit-equal.
+element; bf16 when q, k and v are bf16) and the products read them
+there. Fixed orders and no atomics, so a second launch is bit-equal.
 
 It computes what ``gla_chunked`` computes: ``y`` in f32, an optional
 initial state, any ``S >= 1`` (the ragged last chunk is masked in the
