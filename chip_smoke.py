@@ -18,12 +18,20 @@ and holds every hand-written kernel against its plain PyTorch version:
                launch must be bit-equal), with times of kernel, plain
                version and the PyTorch library call (``torch.fft.rfft``
                for the spectrum) beside the least time the card could
-               take (bytes, or FFT-count flops);
+               take (bytes, or FFT-count flops); the lag scores also at
+               (64, 16,384, lags 1..8,192), (37, 1,031, lags 2..515), a
+               grid whose first tile is consecutive and the rest
+               scattered, and one that starts at clamped negatives, each
+               case printing the route of every lag tile
+               (``autocorr.tile_routes``) and Wiener-Khinchin's time in
+               f32 as a reference of several calls (not a library call),
+               and, after phase 3, at each shape the tick sent;
   3. tick    — a 16,384-job fleet (window 512, 6 telemetry fields, the
                paper's Table 3 traces) through ``SurveillanceEngine.tick``,
                cold, steady and with every job refit (traced with
                ``torch.profiler`` for the device's busy share), checked
-               against a CPU engine on 1,024 jobs;
+               against a CPU engine on 1,024 jobs; prints the (J, N, L)
+               of each lag-score call it made;
   4. fleet   — quickstart steps 2-3 and an 8-job ``run_with_plan``,
                ``alma-paper`` against ``immediate``, checked against the
                same runs on the CPU;
@@ -237,40 +245,87 @@ def phase_kernels(torch, ops_mod, ref, dft, autocorr):
             records["dft_power"] = dict(
                 max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
                 bound_ms=bound, bound_by=by, library_ms=lib)
-    # autocorr: rtol 2e-4 / atol 2e-3 of tests/test_kernels.py
+    # autocorr: rtol 2e-4 / atol 2e-3 of tests/test_kernels.py. The tick's
+    # shape and FleetSim's windows take the tensor route on every tile;
+    # random and scattered lags the CUDA route; the mixed grid (its first
+    # 105 lags consecutive, the rest scattered) and the one starting at
+    # clamped negatives both
     lag_sets = [(FLEET, WINDOW, torch.arange(2, 257)),
                 (1024, 4096, torch.randint(0, 4096, (64,), generator=g,
                                            device="cuda")),
                 (37, 600, torch.tensor([0, 1, 2, 5, 59, 120, 300, 598, 599,
                                         600, 601, 900, -4])),
                 (8, 1440, _fleet_lags(torch, 1440)),
-                (8, 2880, _fleet_lags(torch, 2880))]
+                (8, 2880, _fleet_lags(torch, 2880)),
+                (64, 16384, torch.arange(1, 8193)),
+                (37, 1031, torch.arange(2, 516)),
+                (37, 1031, torch.cat([
+                    torch.arange(2, 107, device="cuda"),
+                    torch.randint(-3, 1041, (95,), generator=g,
+                                  device="cuda")])),
+                (37, 600, torch.arange(-20, 280))]
     for J, N, lags in lag_sets:
-        x = torch.randn(J, N, device="cuda", generator=g)
-        x = x - x.mean(dim=1, keepdim=True)
-        lags = lags.to(device="cuda", dtype=torch.int32)
-        got = autocorr.autocorr_score(x, lags)
-        want = ref.autocorr_score_ref(x, lags)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        if not bool((err <= 2e-4 * want.abs() + 2e-3).all()):
-            raise AssertionError(f"autocorr disagrees at {(J, N)}: max abs "
-                                 f"err {float(err.max())}")
-        if not torch.equal(got, autocorr.autocorr_score(x, lags)):
-            raise AssertionError(f"autocorr not deterministic at {(J, N)}")
-        ms = _median_ms(lambda: autocorr.autocorr_score(x, lags))
-        plain = _median_ms(lambda: ref.autocorr_score_ref(x, lags), 5)
-        L = lags.shape[0]
-        bound, by = _bound_ms(_autocorr_flops(J, N, lags),
-                              4.0 * (J * N + L + J * L))
-        print(f"[kernels] autocorr J={J} N={N} L={L}: max_abs_err "
-              f"{float(err.max()):.6g} kernel {ms:.4f} ms plain "
-              f"{plain:.4f} ms bound {bound:.6g} ms ({by})")
+        rec = _autocorr_case(torch, ref, autocorr, g, J, N, lags,
+                             back_to_back=(J, N) == (FLEET, WINDOW))
         if (J, N) == (FLEET, WINDOW):
-            records["autocorr"] = dict(
-                max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
-                bound_ms=bound, bound_by=by, library_ms=None)
+            records["autocorr"] = rec
     return records
+
+
+def _runs(routes) -> str:
+    """``["tensor", "tensor", "cuda"]`` -> ``"tensor x2, cuda x1"``."""
+    out = []
+    for r in routes:
+        if out and out[-1][0] == r:
+            out[-1][1] += 1
+        else:
+            out.append([r, 1])
+    return ", ".join(f"{r} x{n}" for r, n in out)
+
+
+def _autocorr_case(torch, ref, autocorr, g, J, N, lags, *,
+                   back_to_back=False):
+    """B2 against its plain version on J seeded mean-removed rows of N at
+    the lag grid ``lags``: rtol 2e-4 / atol 2e-3, a second launch
+    bit-equal; prints each tile's route (``autocorr.tile_routes``), the
+    kernel's, the plain version's and Wiener-Khinchin's times beside the
+    bound. Returns the kernel's record."""
+    x = torch.randn(J, N, device="cuda", generator=g)
+    x = x - x.mean(dim=1, keepdim=True)
+    lags = lags.to(device="cuda", dtype=torch.int32)
+    L = lags.shape[0]
+    lt = autocorr.plan(J, N, L).lt
+    print(f"[kernels] autocorr J={J} N={N} L={L} lags {int(lags[0])}.."
+          f"{int(lags[-1])} tiles of {lt}: routes "
+          f"{_runs(autocorr.tile_routes(lags.tolist(), N, lt))}")
+    got = autocorr.autocorr_score(x, lags)
+    want = ref.autocorr_score_ref(x, lags)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= 2e-4 * want.abs() + 2e-3).all()):
+        raise AssertionError(f"autocorr disagrees at {(J, N, L)}: max abs "
+                             f"err {float(err.max())}")
+    if not torch.equal(got, autocorr.autocorr_score(x, lags)):
+        raise AssertionError(f"autocorr not deterministic at {(J, N, L)}")
+    ms = _median_ms(lambda: autocorr.autocorr_score(x, lags))
+    plain = _median_ms(lambda: ref.autocorr_score_ref(x, lags), 5)
+    m = N + int(lags.clamp(0, N).max())
+    idx = lags.clamp(0, N).long()
+    wk = _median_ms(lambda: torch.fft.irfft(
+        torch.fft.rfft(x, m).abs().square(), m)[:, idx])
+    bound, by = _bound_ms(_autocorr_flops(J, N, lags),
+                          4.0 * (J * N + L + J * L))
+    print(f"[kernels] autocorr J={J} N={N} L={L}: max_abs_err "
+          f"{float(err.max()):.6g} kernel {ms:.4f} ms plain {plain:.4f} ms "
+          f"bound {bound:.6g} ms ({by}); Wiener-Khinchin in f32 (rfft, "
+          f"abs^2, irfft, gather: several calls, not one library call) "
+          f"{wk:.4f} ms")
+    if back_to_back:
+        dev = _stream_ms(lambda: autocorr.autocorr_score(x, lags))
+        print(f"[kernels] autocorr J={J} N={N} L={L} back to back: kernel "
+              f"{dev:.4f} ms")
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def _sample_matrix(np, trace, t0, steps, rng, phase_means):
@@ -286,7 +341,8 @@ def _sample_matrix(np, trace, t0, steps, rng, phase_means):
 
 def phase_tick(torch, np, ops_mod):
     """A FLEET-job surveillance fleet on Table 3 traces, one cold and one
-    steady tick on the card, checked against a CPU engine."""
+    steady tick on the card, checked against a CPU engine. Returns the
+    launches, the times and the (J, N, lags) of each B2 call on the card."""
     from repro_torch.core.fleetsim import make_training_nb, phase_means, \
         table3_traces
     from repro_torch.core.surveillance import SurveillanceEngine
@@ -334,10 +390,26 @@ def phase_tick(torch, np, ops_mod):
         return remain_cold, remain, t_cold, t_steady, refits
 
     fleet, eng = make("cuda", FLEET)
-    ops_mod.reset_launch_counts()
-    remain_cold, remain_steady, t_cold, t_steady, refits = run(
-        fleet, eng, FLEET)
-    launches = ops_mod.launch_counts()
+    # record what B2 receives: the cycle fit calls ops.autocorr_score
+    # through the module; the launch counter stays on the kernel's wrapper
+    scores, b2_calls = ops_mod.autocorr_score, []
+
+    def recording(x, lags):
+        b2_calls.append((*x.shape, lags))
+        return scores(x, lags)
+
+    ops_mod.autocorr_score = recording
+    try:
+        ops_mod.reset_launch_counts()
+        remain_cold, remain_steady, t_cold, t_steady, refits = run(
+            fleet, eng, FLEET)
+        launches = ops_mod.launch_counts()
+        t_full, profile = _full_refit_profile(torch, eng)
+    finally:
+        ops_mod.autocorr_score = scores
+    print("[tick] B2 received (J, N, L, lags): " + ", ".join(
+        f"({J}, {N}, {lags.numel()}, {int(lags[0])}..{int(lags[-1])})"
+        for J, N, lags in b2_calls))
     print(f"[tick] {FLEET} jobs x window {WINDOW}: cold {t_cold:.4f} s, "
           f"steady {t_steady:.4f} s per tick (mean of {STEADY_TICKS}), "
           f"refitted per tick {refits}, launches {launches}")
@@ -345,7 +417,6 @@ def phase_tick(torch, np, ops_mod):
         raise AssertionError(f"tick did not run both kernels: {launches}")
     if len(remain_steady) != FLEET or refits[0] != FLEET:
         raise AssertionError("tick did not fit the whole fleet")
-    t_full, profile = _full_refit_profile(torch, eng)
     periods = np.asarray([eng.jobs[f"job{i:05d}"].model.period
                           for i in range(FLEET)])
     confs = np.asarray([eng.jobs[f"job{i:05d}"].model.confidence
@@ -367,7 +438,7 @@ def phase_tick(torch, np, ops_mod):
     print(f"[tick] remain and period equal the CPU engine on {CHECK_JOBS} "
           f"jobs; cyclic share {float((periods > 1).mean()):.4f}")
     return launches, {"tick_cold_s": t_cold, "tick_steady_s": t_steady,
-                      "tick_full_s": t_full, **profile}
+                      "tick_full_s": t_full, **profile}, b2_calls
 
 
 def _full_refit_profile(torch, eng):
@@ -1821,7 +1892,16 @@ def main() -> int:
     records["ssm_scan"] = phase_ssm_kernel(torch, ref, gla, ssm_scan)
     records["flash_attention"] = phase_attention_kernel(torch, ref,
                                                         flash_attention)
-    tick_launches, tick_times = phase_tick(torch, np, ops)
+    tick_launches, tick_times, tick_b2 = phase_tick(torch, np, ops)
+    # phase 2's B2 check at each shape the tick sent (captured in phase 3)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    seen = set()
+    for J, N, lags in tick_b2:
+        key = (J, N, lags.numel(), int(lags[0]), int(lags[-1]))
+        if key not in seen:
+            seen.add(key)
+            _autocorr_case(torch, ref, autocorr, g, J, N, lags,
+                           back_to_back=True)
     fleet_launches = phase_fleet(torch, ops)
     records["dirty_delta"] = phase_dirty_delta(torch, ref, dirty_delta)
     phase_placement(torch)

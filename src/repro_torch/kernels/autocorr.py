@@ -2,13 +2,28 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/autocorr.py``
 (``autocorr_score``): the period refinement of the cycle fit scores every
-job's mean-removed row against one shared grid of candidate lags. This
-direct method is bound by its operations (J * sum over lags of N - lag
-multiply-adds); the function needs less (Wiener-Khinchin), so its least
-time is set by the bytes it moves. One block
-per (row, lag tile) keeps the row in shared memory; each warp reduces one
-lag with shuffles in a fixed order, with no atomics, so the result is the
-same on every run.
+job's mean-removed row against one shared grid of candidate lags. The
+direct sums are J * sum over lags of N - lag multiply-adds; the function
+needs less (Wiener-Khinchin), so its least time is set by the bytes it
+moves.
+
+The lags are cut into tiles (``lag_tiles``), and the kernel picks each
+tile's route on the device from the lags it reads (``tile_routes`` is the
+same rule in Python, for the tests and ``chip_smoke.py``):
+
+- ``"tensor"``, a tile of consecutive clamped lags (every grid the cycle
+  fit sends): the tile's scores are the diagonal sums of one Hankel
+  product of two shifted views of the row, run on the tensor cores as
+  3xTF32 ``mma.sync`` m16n8k4 (each f32 operand split hi + lo, both
+  TF32);
+- ``"cuda"``, any other tile (scattered lags, or lags that clamp to one
+  value): each warp scores 4 lags of a row at once with lane-strided sums
+  on the CUDA cores, reduced by shuffles.
+
+A block stages its rows once and cuts its tensor work into one contiguous
+range a warp; parts of a tile cut between warps are summed in warp order.
+No atomics, so the result is the same on every run. The host never reads
+the lags: ``plan`` chooses the tiles and the blocks from (J, N, L) alone.
 
 This wrapper only launches: it takes CUDA tensors and raises on anything
 else. The plain version lives in ``kernels/ref.py``; ``kernels/ops.py``
@@ -16,12 +31,79 @@ chooses between the two by the tensor's device.
 """
 from __future__ import annotations
 
+import functools
+from typing import List, NamedTuple, Sequence
+
 import torch
 
 from repro_torch.kernels import build
 
-#: the row is staged whole in shared memory
+#: the rows are staged whole in shared memory
 MAX_N = 16384
+#: time block of the tensor route's Hankel product: the n side of m16n8k8
+T = 8
+#: 16-row tiles of lag offsets in one product, at most
+MAX_MT = 8
+#: lag tiles a block, at most (the kernel's table of tiles)
+MAX_TILES = 64
+#: blocks that give each of the H100's 132 SMs four
+FILL = 528
+#: staged rows a block may take, in bytes
+ROWS_BYTES = 32 * 1024
+PAD = 256
+
+
+class Plan(NamedTuple):
+    mt: int        # 16-row tiles of lag offsets a product
+    lt: int        # lags a tile, 16 mt - 7
+    tiles: int     # lag tiles, ceil(L / lt)
+    rows: int      # rows a block
+    group: int     # lag tiles a block
+    groups: int    # blocks along the lag tiles
+
+
+def lag_tiles(L: int, want: int = 1):
+    """(mt, lt, tiles): the fewest tiles of at most ``16 MAX_MT - 7`` lags,
+    the smallest tile that still takes L in that many, then smaller tiles
+    (mt down to 1) until there are ``want`` of them."""
+    n0 = -(-L // (16 * MAX_MT - (T - 1)))
+    mt = -(-(-(-L // n0) + T - 1) // 16)
+    while mt > 1 and -(-L // (16 * mt - (T - 1))) < want:
+        mt -= 1
+    lt = 16 * mt - (T - 1)
+    return mt, lt, -(-L // lt)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(J: int, N: int, L: int) -> Plan:
+    """Tiles and blocks of a launch: up to 4 rows a block (one a warp) when
+    J still fills the card and the rows fit ``ROWS_BYTES``; when the rows
+    alone give fewer than ``FILL`` blocks, smaller lag tiles, spread over
+    blocks, make up the rest (a small J's work is latency, not products)."""
+    row_bytes = 4 * (-(-(N + PAD) // 4) * 4)
+    rows = next(rb for rb in (4, 2, 1)
+                if rb == 1 or (J // rb >= FILL and rb * row_bytes
+                               <= ROWS_BYTES))
+    blocks = -(-J // rows)
+    want = 1 if blocks >= FILL else -(-FILL // blocks)
+    mt, lt, tiles = lag_tiles(L, want)
+    groups = max(min(tiles, want), -(-tiles // MAX_TILES))
+    group = -(-tiles // groups)
+    return Plan(mt, lt, tiles, rows, group, -(-tiles // group))
+
+
+def tile_routes(lags: Sequence[int], N: int, lt: int) -> List[str]:
+    """Each tile's route (tiles of ``lt`` lags, ``plan(...).lt``), as the
+    kernel decides it: ``"tensor"`` when the tile's lags clamped to [0, N]
+    run a0, a0 + 1, ..., else ``"cuda"``."""
+    lags = [min(max(int(v), 0), N) for v in lags]
+    routes = []
+    for t in range(-(-len(lags) // lt)):
+        tile = lags[t * lt:(t + 1) * lt]
+        routes.append("tensor" if all(v == tile[0] + k
+                                      for k, v in enumerate(tile))
+                      else "cuda")
+    return routes
 
 
 def autocorr_score(x: torch.Tensor, lags: torch.Tensor) -> torch.Tensor:
@@ -44,11 +126,15 @@ def autocorr_score(x: torch.Tensor, lags: torch.Tensor) -> torch.Tensor:
     out = torch.empty((J, L), dtype=torch.float32, device=x.device)
     if J == 0 or L == 0:
         return out
+    p = plan(J, N, L)
+    if p.groups > 65535:
+        raise ValueError(f"autocorr kernel takes at most "
+                         f"{65535 * MAX_TILES * p.lt} lags, got {L}")
     lib = build.load("autocorr")
     with torch.cuda.device(x.device):
         err = lib.autocorr_launch(
-            x.data_ptr(), lags.data_ptr(), out.data_ptr(), J, N, L,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), lags.data_ptr(), out.data_ptr(), J, N, L, p.mt,
+            p.rows, p.group, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"autocorr kernel launch failed: cudaError {err}")
     autocorr_score.launches += 1

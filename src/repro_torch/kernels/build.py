@@ -34,7 +34,7 @@ SIGNATURES = {
     "dft_power": {"dft_power_launch": ([_P, _P, _I, _I, _I, _P], _I),
                   "dft_power_fft_launch": ([_P, _P, _P, _I, _I, _I, _P, _I,
                                             _P], _I)},
-    "autocorr": {"autocorr_launch": ([_P, _P, _P, _I, _I, _I, _P], _I)},
+    "autocorr": {"autocorr_launch": ([_P, _P, _P] + [_I] * 6 + [_P], _I)},
     "dirty_delta": {"dirty_delta_launch": ([_P, _I, _P, _L, _P], _I)},
     "ssm_scan": {"ssm_scan_launch": ([_P] * 12, _I)},
     "flash_attention": {"flash_attention_launch": ([_P] * 6 + [_I, _I, _P],

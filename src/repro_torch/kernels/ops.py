@@ -7,7 +7,10 @@ layers' chunked scan and attention prefill.
   ==============  ===============================  ===========================
   power_spectrum  dft.power_spectrum (dft_power.cu) ref.power_spectrum_ref
   autocorr_score  autocorr.autocorr_score          ref.autocorr_score_ref
-                  (autocorr.cu)
+                  (autocorr.cu): consecutive lag
+                  tiles a 3xTF32 Hankel product
+                  on the tensor cores, other
+                  tiles direct sums
   dirty_blocks    dirty_delta.max_abs_delta        ref.max_abs_delta_ref
   (and _many)     (dirty_delta.cu), float dtypes;  (integer and bool dtypes:
                   _many: one launch for many pairs exact != on any device)

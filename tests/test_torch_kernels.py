@@ -233,6 +233,164 @@ def test_b1_constant_row_gives_zero_power(n):
 
 
 # ---------------------------------------------------------------------------
+# B2's two routes, in plain torch
+# ---------------------------------------------------------------------------
+def _tf32(x):
+    """f32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
+    by the kernel's integer rounding of the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b, terms=3):
+    """a @ b as the kernel's products: each f32 operand split hi + lo (both
+    TF32), lo.hi + hi.lo + hi.hi summed in f32; ``terms=1`` keeps hi.hi
+    alone, a plain TF32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    if terms == 3:
+        out = out + _tf32(a - ah) @ bh
+        out = out + ah @ _tf32(b - bh)
+    return out + ah @ bh
+
+
+def _b2_tc_arithmetic(x, lags, T, LT, terms=3):
+    """``csrc/autocorr.cu`` in plain torch: tiles of LT lags, each routed
+    by ``autocorr.tile_routes``. A tensor tile at a0 is the Hankel product
+    ``G[w, i] = sum_b x[bT + a0 + w] x[bT + i]`` (w < LT + T - 1, the time
+    blocks with bT < N - a0, x zero past N) in 3xTF32, then
+    ``R[a0 + d] = sum_i G[d + i, i]`` in the order i = 0..T-1; a CUDA tile
+    is the direct f32 sums."""
+    J, N = x.shape
+    lag = [min(max(int(v), 0), N) for v in lags]
+    out = torch.zeros((J, len(lag)))
+    M = LT + T - 1
+    for t, route in enumerate(autocorr.tile_routes(lags, N, LT)):
+        l0 = t * LT
+        tile = lag[l0:l0 + LT]
+        if route == "cuda":
+            for k, p in enumerate(tile):
+                out[:, l0 + k] = (x[:, : N - p] * x[:, p:]).sum(dim=1)
+            continue
+        a0 = tile[0]
+        kb = -(-(N - a0) // T)
+        xp = torch.zeros((J, kb * T + a0 + M))
+        xp[:, :N] = x
+        b = torch.arange(kb)
+        A = xp[:, b[None, :] * T + a0 + torch.arange(M)[:, None]]
+        B = xp[:, b[:, None] * T + torch.arange(T)[None, :]]
+        G = _mm3(A, B, terms)                              # (J, M, T)
+        for d in range(len(tile)):
+            s = torch.zeros(J)
+            for i in range(T):
+                s = s + G[:, d + i, i]
+            out[:, l0 + d] = s
+    return out
+
+
+def _b2_grid(name):
+    """(N, lags) of each lag grid the tests send through B2's routes."""
+    rng = np.random.default_rng(17)
+    if name == "2..256":
+        return 512, np.arange(2, 257)
+    if name == "N=600":
+        return 600, np.arange(2, 302)
+    if name == "N=1031":
+        return 1031, np.arange(2, 516)
+    if name == "straddles N":        # the last tile's lags reach N = 300
+        return 300, np.arange(150, 301)
+    if name == "N and N+100":        # lags past N clamp to N: not consecutive
+        return 300, np.arange(240, 401)
+    if name == "negatives":          # -5..0 clamp to 0
+        return 512, np.arange(-5, 120)
+    assert name == "mixed"           # a consecutive tile, then a scattered one
+    lt = autocorr.lag_tiles(200)[1]
+    return 1031, np.concatenate([np.arange(2, 2 + lt),
+                                 rng.integers(-3, 1041, 200 - lt)])
+
+
+_B2_ROUTES = {"2..256": ["tensor"] * 3, "N=600": ["tensor"] * 3,
+              "N=1031": ["tensor"] * 5, "straddles N": ["tensor"] * 2,
+              "N and N+100": ["cuda", "cuda"],
+              "negatives": ["cuda", "tensor"], "mixed": ["tensor", "cuda"]}
+
+
+@pytest.mark.parametrize("jobs", [16384, 3])
+@pytest.mark.parametrize("name", list(_B2_ROUTES))
+def test_b2_tc_arithmetic_matches_jax_kernel_and_numpy(name, jobs):
+    """Both routes' arithmetic against the Pallas kernel (interpret mode)
+    and the f64 oracle, at the autocorrelation tolerance, in the tiles a
+    launch of ``jobs`` rows takes (large ones for many rows, 9-lag ones
+    for a few)."""
+    N, lags = _b2_grid(name)
+    lags = lags.astype(np.int32)
+    x = _randn(N + len(lags), 3, N)
+    x = x - x.mean(axis=1, keepdims=True)
+    lt = autocorr.plan(jobs, N, len(lags)).lt
+    got = _b2_tc_arithmetic(torch.as_tensor(x), lags.tolist(), autocorr.T,
+                            lt).numpy()
+    want = np.asarray(jax_autocorr(jnp.asarray(x), jnp.asarray(lags)))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(got, autocorr_score_ref(x, lags),
+                               rtol=2e-4, atol=2e-3)
+    assert np.all(got[:, np.clip(lags, 0, N) == N] == 0.0)   # lag N scores 0
+
+
+def test_b2_plain_tf32_misses_the_tolerance():
+    """One TF32 product (``terms=1``) keeps ~11 bits: over ~500 products of
+    unit rows it misses 2e-4 / 2e-3, which is why the kernel splits."""
+    N, lags = _b2_grid("2..256")
+    x = _randn(5, 3, N)
+    x = x - x.mean(axis=1, keepdims=True)
+    want = autocorr_score_ref(x, lags.astype(np.int32))
+    lt = autocorr.plan(16384, N, len(lags)).lt
+    got3 = _b2_tc_arithmetic(torch.as_tensor(x), lags.tolist(), 8, lt)
+    got1 = _b2_tc_arithmetic(torch.as_tensor(x), lags.tolist(), 8, lt,
+                             terms=1)
+    tol = 2e-4 * np.abs(want) + 2e-3
+    assert np.all(np.abs(got3.numpy() - want) <= tol)
+    assert np.any(np.abs(got1.numpy() - want) > tol)
+
+
+@pytest.mark.parametrize("name", list(_B2_ROUTES))
+def test_b2_tile_routes(name):
+    """The route of each tile a launch of many rows takes."""
+    N, lags = _b2_grid(name)
+    lt = autocorr.plan(16384, N, len(lags)).lt
+    assert autocorr.tile_routes(lags.tolist(), N, lt) == _B2_ROUTES[name]
+
+
+@pytest.mark.parametrize("L,count,want", [
+    (1, 1, (1, 9, 1)), (13, 1, (2, 25, 1)), (64, 1, (5, 73, 1)),
+    (121, 1, (8, 121, 1)), (122, 1, (5, 73, 2)), (255, 1, (6, 89, 3)),
+    (514, 1, (7, 105, 5)), (8192, 1, (8, 121, 68)), (514, 15, (2, 25, 21)),
+    (452, 66, (1, 9, 51)), (8192, 9, (8, 121, 68)), (5, 100, (1, 9, 1))])
+def test_b2_lag_tiles(L, count, want):
+    """Tiles of 16 MT - 7 lags (a 16 MT-row product less the T - 1 rows
+    the diagonals need), as few as 121-lag tiles allow, then as small as
+    they can be, then smaller until there are ``count`` of them."""
+    mt, lt, tiles = autocorr.lag_tiles(L, count)
+    assert (mt, lt, tiles) == want
+    assert lt == 16 * mt - (autocorr.T - 1) and (tiles - 1) * lt < L <= \
+        tiles * lt
+
+
+@pytest.mark.parametrize("J,N,L,rows,lt,groups", [
+    (16384, 512, 255, 4, 89, 1), (12288, 512, 119, 4, 121, 1),
+    (1024, 4096, 64, 1, 73, 1), (8, 1440, 452, 1, 9, 51),
+    (64, 16384, 8192, 1, 121, 9), (37, 1031, 514, 1, 25, 11),
+    (5000, 16384, 10, 1, 25, 1)])
+def test_b2_plan(J, N, L, rows, lt, groups):
+    """A block takes 4 rows (one a warp) only when the rows still fill the
+    card and fit 32 KB; a small J takes smaller lag tiles, spread over
+    blocks."""
+    p = autocorr.plan(J, N, L)
+    assert (p.rows, p.lt, p.groups) == (rows, lt, groups)
+    assert p.group <= autocorr.MAX_TILES and p.group * p.groups >= p.tiles
+    assert (p.group - 1) * p.groups < p.tiles
+
+
+# ---------------------------------------------------------------------------
 # dirty blocks (pre-copy)
 # ---------------------------------------------------------------------------
 _NP_TO_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
