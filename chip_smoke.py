@@ -294,7 +294,7 @@ def _autocorr_case(torch, ref, autocorr, g, J, N, lags, *,
     x = x - x.mean(dim=1, keepdim=True)
     lags = lags.to(device="cuda", dtype=torch.int32)
     L = lags.shape[0]
-    lt = autocorr.plan(J, N, L).lt
+    lt = autocorr.plan(J, N, L, autocorr.sm_count(x.device)).lt
     print(f"[kernels] autocorr J={J} N={N} L={L} lags {int(lags[0])}.."
           f"{int(lags[-1])} tiles of {lt}: routes "
           f"{_runs(autocorr.tile_routes(lags.tolist(), N, lt))}")

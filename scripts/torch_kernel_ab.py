@@ -10,11 +10,14 @@ launches
 back to back, and the kernel's mean device time over those 50 under
 ``torch.profiler`` (at small shapes the windows measure the host's
 launch); B4 at zamba2's and rwkv6's prefill shapes
-(``chip_smoke._scan_case``). Each
-checkout builds its own kernels into its own ``build/``. Run from a
-checkout on a machine with one CUDA device:
+(``chip_smoke._scan_case``). With ``--tick`` it times the 16,384-job
+surveillance tick instead (``chip_smoke.phase_tick``: cold, steady and
+full-refit seconds, and the traced refit's device time). Each checkout
+builds its own kernels into its own ``build/``. Run from a checkout on a
+machine with one CUDA device:
 
     python3 scripts/torch_kernel_ab.py --a PATH_TO_OTHER_CHECKOUT [--b .]
+        [--tick]
 """
 from __future__ import annotations
 
@@ -95,12 +98,26 @@ for name, kind, H in (("zamba2", "mamba", 80), ("rwkv6", "rwkv", 32)):
 print("RESULT " + json.dumps(out))
 '''
 
+TICK_CHILD = r'''
+import json, pathlib, sys
+tree = pathlib.Path(sys.argv[1]).resolve()
+sys.path[:0] = [str(tree), str(tree / "src")]
+import numpy as np, torch
+import chip_smoke as cs
+from repro_torch.kernels import build, ops
+build.build_all(["dft_power", "autocorr"])     # not inside the cold tick
+print("RESULT " + json.dumps(cs.phase_tick(torch, np, ops)[1]))
+'''
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", required=True, help="the checkout timed first")
     ap.add_argument("--b", default=".", help="the other checkout")
+    ap.add_argument("--tick", action="store_true",
+                    help="time the surveillance tick, not the kernels")
     args = ap.parse_args()
+    child = TICK_CHILD if args.tick else CHILD
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -108,7 +125,7 @@ def main() -> int:
     print(card)
     for label, tree in (("a", args.a), ("b", args.b), ("b", args.b),
                         ("a", args.a)):
-        run = subprocess.run([sys.executable, "-c", CHILD, tree],
+        run = subprocess.run([sys.executable, "-c", child, tree],
                              capture_output=True, text=True, timeout=900)
         lines = [ln for ln in run.stdout.splitlines()
                  if ln.startswith("RESULT ")]

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded through ``ctypes``. Nothing
 includes PyTorch's headers, so a build takes seconds. Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout, named by the
-hash of their source, so an edited source is rebuilt on first use and an
-unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
-source at once and waits for all of them.
+hash of their source and the shared headers (``csrc/*.cuh``), so an
+edited source is rebuilt on first use and an unchanged one is loaded as it
+is. ``build_all`` starts one ``nvcc`` per source at once and waits for all
+of them.
 
 Nothing here runs at import: the CPU tests import every module, and a
 host without a card may have no ``nvcc`` at all.
@@ -34,7 +35,8 @@ SIGNATURES = {
     "dft_power": {"dft_power_launch": ([_P, _P, _I, _I, _I, _P], _I),
                   "dft_power_fft_launch": ([_P, _P, _P, _I, _I, _I, _P, _I,
                                             _P], _I)},
-    "autocorr": {"autocorr_launch": ([_P, _P, _P] + [_I] * 6 + [_P], _I)},
+    "autocorr": {"autocorr_launch": ([_P, _P, _P] + [_I] * 6 + [_P], _I),
+                 "autocorr_constants": ([_P], _I)},
     "dirty_delta": {"dirty_delta_launch": ([_P, _I, _P, _L, _P], _I)},
     "ssm_scan": {"ssm_scan_launch": ([_P] * 12, _I)},
     "flash_attention": {"flash_attention_launch": ([_P] * 6 + [_I, _I, _P],
@@ -58,8 +60,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):       # shared headers
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -15,8 +15,9 @@
 // the tensor cores wherever the lag grid allows it.
 //
 // The lags are cut into tiles of LT = 16 MT - 7 (MT <= 8, chosen by the
-// launcher from L so the tiles come out even). Each block picks each
-// tile's route on the device from the lags it reads:
+// launcher from J, L and the SM count: the largest tiles that come out
+// even, smaller until every warp has one). Each block picks each tile's
+// route on the device from the lags it reads:
 //
 // - TENSOR, a tile whose clamped lags are consecutive (a0, a0 + 1, ...:
 //   every grid the cycle fit sends). With t = 8b + i (i < 8) and the row
@@ -44,24 +45,28 @@
 //   keeps it small at N = 16,384. The diagonal sums read G from shared
 //   memory (stride 9: conflict-free) in the order i = 0..7.
 // - CUDA, any other tile (scattered lags, or lags that clamp to one value:
-//   negatives, N and above): a warp scores 4 lags of one row at once with
-//   a lane-strided sum, one load of x[t] for the 4 products, each lag's
-//   terms in the order of a one-lag sum and reduced by warp shuffles, so
-//   each score equals the one-lag kernel's bit for bit.
+//   negatives, N and above): a warp scores 4 lags of one row at once (5
+//   for a tile's last 5: tiles are 4k + 1 lags) with a lane-strided sum,
+//   one load of x[t] for the products, each lag's terms in the order of a
+//   one-lag sum and reduced by warp shuffles, so each score equals the
+//   one-lag kernel's bit for bit.
 //
 // Design: 4 warps a block (128 registers a thread, 4 blocks an SM), one
-// block per RB rows and TG tiles (the launcher's choice: a row a warp when
-// J fills the card, several blocks a row's tiles when it does not). The
-// block stages its rows once (asynchronous 16-byte copies where the rows
-// allow, all in flight while it reads the tiles' lags) and cuts the tensor
-// route's k-steps of all its rows and tiles into 4 contiguous ranges, one
-// a warp. A (row, tile) one warp covers whole writes its scores directly;
-// one cut between warps leaves each warp's part in a slot, summed in warp
-// order after a barrier. No atomics and fixed orders throughout, so a
-// second launch is bit-equal to the first. Rows must be finite: a product
-// in the tensor route's padding is 0 * x[t].
+// block per RB rows and TG tiles (the launcher's choice: several rows a
+// block when J fills the card, smaller tiles when it does not, so every
+// warp has work). The block stages its rows once (asynchronous 16-byte
+// copies where the rows allow, all in flight while it reads the tiles'
+// lags and picks their routes), then takes its units in (row, tile) order,
+// round robin over the warps: a tensor tile is one unit, a CUDA tile one
+// unit per 4 lags (the last up to 5). A warp writes each unit's scores
+// itself, so the block has one barrier. No atomics and fixed orders
+// throughout, so a second launch is bit-equal to the first. Rows must be
+// finite: a tensor tile's products take the zeros past N, and 0 * inf is
+// NaN, so a non-finite value reaches every lag of its tile, not only the
+// lags whose sums hold it.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "tf32.cuh"
 
 namespace {
 
@@ -76,8 +81,9 @@ constexpr int CHUNK = 4;              // 5-k-step rounds an accumulator takes
 constexpr int MAX_MT = 8;
 constexpr int MAX_RB = WARPS;
 constexpr int MAX_TG = 64;            // tiles a block
-constexpr int CC = 4;                 // lags a warp scores at once (CUDA route)
-constexpr int INFO = 4;               // ints a tile: a0, n, nk (-1: CUDA), off
+constexpr int CC = 4;                 // lags a CUDA-route unit takes
+constexpr int CMAX = CC + 1;          // ... its tile's last, at most
+constexpr int INFO = 2;               // ints a tile: a0, k-steps (-1: CUDA)
 
 __host__ __device__ constexpr int lag_tile(int mt) { return 16 * mt - (T - 1); }
 __host__ __device__ constexpr int row_stride(int n) {
@@ -86,25 +92,11 @@ __host__ __device__ constexpr int row_stride(int n) {
 
 size_t smem_bytes(int mt, int n, int rb, int tg) {
   return sizeof(float) * ((size_t)rb * row_stride(n) +
-                          (size_t)WARPS * 16 * mt * GS +
-                          (size_t)WARPS * 2 * lag_tile(mt)) +
+                          (size_t)WARPS * 16 * mt * GS) +
          sizeof(int) * (size_t)INFO * tg;
 }
 
-// --- tensor-core helpers (as in ssm_scan.cu) -------------------------------
-// x to TF32, rounded to nearest with ties away from zero (cvt.rna's rule)
-// by integer operations on the bits
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact),
-// so the split keeps ~2^-23 of x
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(__float_as_uint(x));
-  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
-}
-
+// --- tensor route ------------------------------------------------------------
 // volatile: the products issue in the order written
 __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t b) {
@@ -115,15 +107,14 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(b));
 }
 
-// --- tensor route ------------------------------------------------------------
 // Lane (g = lane / 4, r = lane % 4) reads y[s] = x[a0 + g + 8r + 8s]
 // (yb = row + a0 + g + 8r). At k-step ks its A fragment of m-tile mt is
 // A[16mt + g (+8)][4ks + r] = (y[4ks + 2mt], y[4ks + 2mt + 1]): the window
 // y[4ks .. 4ks + 2 MT - 1], held in ring slots (4P + j) % RING at phase
-// P = (ks - k0) % 5, every pair in an even slot and the next. Its B
-// fragment is B[4ks + r][g] = x[32ks + 8r + g] (bb = row + g + 8r), held
-// in slot P of a ring of 5. Each k-step loads and splits the next one's
-// new window values and B.
+// P = ks % 5, every pair in an even slot and the next. Its B fragment is
+// B[4ks + r][g] = x[32ks + 8r + g] (bb = row + g + 8r), held in slot P of a
+// ring of 5. Each k-step loads and splits the next one's new window values
+// and B.
 template <int MT, int P>
 __device__ __forceinline__ void kstep(const float* yb, const float* bb,
                                       int ks, uint32_t (&yh)[RING],
@@ -135,8 +126,8 @@ __device__ __forceinline__ void kstep(const float* yb, const float* bb,
   const float* yk = yb + KSTEP * ks;
 #pragma unroll
   for (int jn = J0; jn < WS + 4; ++jn)
-    split(yk[8 * jn], yh[(4 * P + jn) % RING], yl[(4 * P + jn) % RING]);
-  split(bb[KSTEP * (ks + 1)], bh[Q], bl[Q]);
+    split_tf32(yk[8 * jn], yh[(4 * P + jn) % RING], yl[(4 * P + jn) % RING]);
+  split_tf32(bb[KSTEP * (ks + 1)], bh[Q], bl[Q]);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
     mma_tf32(acc[mt], yl[(4 * P + 2 * mt) % RING],
@@ -169,11 +160,11 @@ __device__ __forceinline__ void flush(float* gs, int lane,
   }
 }
 
-// G of one staged row over k-steps [k0, k1) of the tile at a0, into the
+// G of one staged row over the nk > 0 k-steps of the tile at a0, into the
 // warp's scratch gs
 template <int MT>
-__device__ __forceinline__ void hankel(const float* row, int a0, int k0,
-                                       int k1, int lane, float* gs) {
+__device__ __forceinline__ void hankel(const float* row, int a0, int nk,
+                                       int lane, float* gs) {
   constexpr int WS = 2 * MT;
   const int g = lane >> 2, r = lane & 3;
   const float* yb = row + a0 + g + 8 * r;
@@ -185,12 +176,12 @@ __device__ __forceinline__ void hankel(const float* row, int a0, int k0,
     for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
   uint32_t yh[RING], yl[RING], bh[5], bl[5];
 #pragma unroll
-  for (int j = 0; j < WS; ++j) split(yb[KSTEP * k0 + 8 * j], yh[j], yl[j]);
-  split(bb[KSTEP * k0], bh[0], bl[0]);
+  for (int j = 0; j < WS; ++j) split_tf32(yb[8 * j], yh[j], yl[j]);
+  split_tf32(bb[0], bh[0], bl[0]);
   bool first = true;
   int rounds = 0;
-  int ks = k0;
-  for (; ks + 5 <= k1; ks += 5) {
+  int ks = 0;
+  for (; ks + 5 <= nk; ks += 5) {
     kstep<MT, 0>(yb, bb, ks, yh, yl, bh, bl, acc);
     kstep<MT, 1>(yb, bb, ks + 1, yh, yl, bh, bl, acc);
     kstep<MT, 2>(yb, bb, ks + 2, yh, yl, bh, bl, acc);
@@ -202,7 +193,7 @@ __device__ __forceinline__ void hankel(const float* row, int a0, int k0,
       rounds = 0;
     }
   }
-  const int rem = k1 - ks;
+  const int rem = nk - ks;
   if (rem > 0) {
     kstep<MT, 0>(yb, bb, ks, yh, yl, bh, bl, acc);
     if (rem > 1) kstep<MT, 1>(yb, bb, ks + 1, yh, yl, bh, bl, acc);
@@ -242,22 +233,27 @@ __device__ __forceinline__ int clamp_lag(int lag, int n) {
   return min(max(lag, 0), n);
 }
 
-// --- CUDA route: lags l .. l + cnt - 1 of one staged row --------------------
-__device__ __forceinline__ void direct4(const float* row, const int* lags,
-                                        int l, int cnt, int N, int lane,
-                                        float* dst) {
-  int lg[CC], at[CC];
+// CUDA-route units of a tile of n lags: CC lags each, the last up to CC + 1
+__device__ __forceinline__ int cuda_units(int n) {
+  return max(1, (n + 2) / CC);
+}
+
+// --- CUDA route: lags l .. l + cnt - 1 (cnt <= CMAX) of one staged row -------
+__device__ __forceinline__ void direct(const float* row, const int* lags,
+                                       int l, int cnt, int N, int lane,
+                                       float* dst) {
+  int lg[CMAX], at[CMAX];
 #pragma unroll
-  for (int k = 0; k < CC; ++k) {
+  for (int k = 0; k < CMAX; ++k) {
     lg[k] = k < cnt ? clamp_lag(__ldg(lags + l + k), N) : N;
     at[k] = k;
   }
   // sort by lag (a fixed network), so the sum runs in ranges of t where
-  // 4, 3, 2, then 1 lags still have terms
+  // 5, 4, 3, 2, then 1 lags still have terms
 #pragma unroll
-  for (int i = 0; i < CC - 1; ++i)
+  for (int i = 0; i < CMAX - 1; ++i)
 #pragma unroll
-    for (int k = 0; k < CC - 1 - i; ++k)
+    for (int k = 0; k < CMAX - 1 - i; ++k)
       if (lg[k] > lg[k + 1]) {
         const int a = lg[k], b = at[k];
         lg[k] = lg[k + 1];
@@ -265,11 +261,12 @@ __device__ __forceinline__ void direct4(const float* row, const int* lags,
         lg[k + 1] = a;
         at[k + 1] = b;
       }
-  float acc[CC] = {0.f, 0.f, 0.f, 0.f};
+  float acc[CMAX] = {};
   int t = lane;
 #pragma unroll
-  for (int live = CC; live > 0; --live) {
+  for (int live = CMAX; live > 0; --live) {
     // lags 0 .. live - 1 (the smallest) have terms while t < N - lg[live-1]
+#pragma unroll 4
     for (; t < N - lg[live - 1]; t += 32) {
       const float a = row[t];
 #pragma unroll
@@ -277,7 +274,7 @@ __device__ __forceinline__ void direct4(const float* row, const int* lags,
     }
   }
 #pragma unroll
-  for (int k = 0; k < CC; ++k) {
+  for (int k = 0; k < CMAX; ++k) {
     float v = acc[k];
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     if (lane == 0 && at[k] < cnt) dst[at[k]] = v;
@@ -291,15 +288,13 @@ autocorr_kernel(const float* __restrict__ x, const int* __restrict__ lags,
                 int vec) {
   constexpr int LT = lag_tile(MT);
   extern __shared__ __align__(16) float smem[];
-  // tensor k-steps and CUDA lag groups (one row), tensor tiles
-  __shared__ int totals[3];
   const int NS = row_stride(N);
-  float* rows = smem;
-  float* gscratch = rows + (size_t)RB * NS;
-  float* slots = gscratch + WARPS * 16 * MT * GS;
-  int* info = reinterpret_cast<int*>(slots + WARPS * 2 * LT);
-
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* rows = smem;
+  float* gs = rows + (size_t)RB * NS + warp * 16 * MT * GS;
+  int* info = reinterpret_cast<int*>(rows + (size_t)RB * NS +
+                                     WARPS * 16 * MT * GS);
+
   const int j0 = blockIdx.x * RB, nrows = min(RB, J - j0);
   const int ntiles = (L + LT - 1) / LT;
   const int tile0 = blockIdx.y * TG, nt = min(TG, ntiles - tile0);
@@ -329,94 +324,37 @@ autocorr_kernel(const float* __restrict__ x, const int* __restrict__ lags,
     ok = __all_sync(0xffffffffu, ok);
     if (lane == 0) {
       info[INFO * t] = a0;
-      info[INFO * t + 1] = n;
-      info[INFO * t + 2] = ok ? (N - a0 + KSTEP - 1) / KSTEP : -1;
+      info[INFO * t + 1] = ok ? (N - a0 + KSTEP - 1) / KSTEP : -1;
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int kt = 0, ct = 0, tensor = 0;
-    for (int t = 0; t < nt; ++t) {
-      const int nk = info[INFO * t + 2];
-      if (nk >= 0) {
-        info[INFO * t + 3] = kt;
-        kt += nk;
-        ++tensor;
-      } else {
-        info[INFO * t + 3] = ct;
-        ct += (info[INFO * t + 1] + CC - 1) / CC;
-      }
-    }
-    totals[0] = kt;
-    totals[1] = ct;
-    totals[2] = tensor;
-  }
-  __syncthreads();
 
-  // 3. tensor route: the block's k-steps (row-major over rows, then tiles)
-  // cut into WARPS contiguous ranges
-  const int kt = totals[0], tot = nrows * kt;
-  auto start = [&](int w) { return (int)((long long)w * tot / WARPS); };
-  {
-    const int beg = start(warp), end = start(warp + 1);
-    float* gs = gscratch + warp * 16 * MT * GS;
-    for (int p = beg; p < end;) {
-      const int rr = p / kt, q = p - rr * kt;
-      int t = 0;
-      while (info[INFO * t + 2] < 0 ||
-             q >= info[INFO * t + 3] + info[INFO * t + 2])
-        ++t;
-      const int nk = info[INFO * t + 2], k0 = q - info[INFO * t + 3];
-      const int k1 = min(nk, k0 + (end - p));
-      hankel<MT>(rows + (size_t)rr * NS, info[INFO * t], k0, k1, lane, gs);
-      float* dst = (k0 == 0 && k1 == nk)
-                       ? out + (size_t)(j0 + rr) * L + (size_t)(tile0 + t) * LT
-                       : slots + (warp * 2 + (p == beg ? 0 : 1)) * LT;
-      diagonals(gs, lane, info[INFO * t + 1], dst);
-      p += k1 - k0;
-    }
-  }
-  // 4. CUDA route: groups of CC lags of each row, round robin over warps
-  const int ct = totals[1];
-  for (int it = warp; it < nrows * ct; it += WARPS) {
-    const int rr = it / ct, q = it - rr * ct;
-    int t = 0;
-    while (info[INFO * t + 2] >= 0 ||
-           q >= info[INFO * t + 3] + (info[INFO * t + 1] + CC - 1) / CC)
-      ++t;
-    const int grp = q - info[INFO * t + 3];
-    const int l = (tile0 + t) * LT + grp * CC;
-    const int cnt = min(CC, info[INFO * t + 1] - grp * CC);
-    direct4(rows + (size_t)rr * NS, lags, l, cnt, N, lane,
-            out + (size_t)(j0 + rr) * L + l);
-  }
-  if (totals[2] == 0) return;     // the same in every thread of the block
-  __syncthreads();
-  // 5. the tensor tiles cut between warps: their parts summed in warp
-  // order; a tile at lag N (no k-steps) scores 0
-  for (int u = warp; u < nrows * nt; u += WARPS) {
-    const int rr = u / nt, t = u - rr * nt;
-    const int nk = info[INFO * t + 2], n = info[INFO * t + 1];
-    if (nk < 0) continue;
-    float* o = out + (size_t)(j0 + rr) * L + (size_t)(tile0 + t) * LT;
-    if (nk == 0) {
-      for (int d = lane; d < n; d += 32) o[d] = 0.f;
-      continue;
-    }
-    const int off = rr * kt + info[INFO * t + 3];
-    int wf = 0, wl = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      if (start(w) <= off && off < start(w + 1)) wf = w;
-      if (start(w) <= off + nk - 1 && off + nk - 1 < start(w + 1)) wl = w;
-    }
-    if (wf == wl) continue;
-    for (int d = lane; d < n; d += 32) {
-      float s = 0.f;
-      for (int w = wf; w <= wl; ++w)
-        if (start(w) < start(w + 1))
-          s += slots[(w * 2 + (start(w) >= off ? 0 : 1)) * LT + d];
-      o[d] = s;
+  // 3. the units in (row, tile) order, round robin over the warps: a tensor
+  // tile whole (lag N, with no k-steps, scores 0), a CUDA tile in units of
+  // CC lags, the last up to CC + 1
+  int u = 0;
+  for (int rr = 0; rr < nrows; ++rr) {
+    const float* row = rows + (size_t)rr * NS;
+    for (int t = 0; t < nt; ++t) {
+      const int l0 = (tile0 + t) * LT, n = min(LT, L - l0);
+      const int nk = info[INFO * t + 1];
+      float* o = out + (size_t)(j0 + rr) * L + l0;
+      if (nk >= 0) {
+        if (u++ % WARPS != warp) continue;
+        if (nk == 0) {
+          for (int d = lane; d < n; d += 32) o[d] = 0.f;
+        } else {
+          hankel<MT>(row, info[INFO * t], nk, lane, gs);
+          diagonals(gs, lane, n, o);
+        }
+      } else {
+        const int nu = cuda_units(n);
+        for (int c = 0; c < nu; ++c)
+          if (u++ % WARPS == warp)
+            direct(row, lags, l0 + CC * c,
+                   c + 1 < nu ? CC : n - CC * c, N, lane, o + CC * c);
+      }
     }
   }
 }
@@ -447,6 +385,14 @@ int launch(const float* x, const int* lags, float* out, int J, int N, int L,
 }
 
 }  // namespace
+
+// The constants kernels/autocorr.py plans with: T, PAD, MAX_MT, MAX_TG,
+// WARPS, written to out[0..4]. Returns how many.
+extern "C" int autocorr_constants(int* out) {
+  const int c[] = {T, PAD, MAX_MT, MAX_TG, WARPS};
+  for (int i = 0; i < 5; ++i) out[i] = c[i];
+  return 5;
+}
 
 // x: (J, N) f32 contiguous; lags: (L,) int32; out: (J, L) f32 contiguous.
 // MT: 16-row tiles of the tensor route's product (lag tiles of 16 MT - 7);

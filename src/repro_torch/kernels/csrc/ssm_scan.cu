@@ -58,6 +58,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "tf32.cuh"
 
 namespace {
 
@@ -218,23 +219,15 @@ __device__ void stage_tile(const In& x, const CUtensorMap* map,
 }
 
 // --- tensor-core helpers ---------------------------------------------------
-// x to TF32, rounded to nearest with ties away from zero (cvt.rna's rule)
-// by integer operations on the bits
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact),
-// so the split keeps ~2^-23 of x. An EXACT operand (raw bf16) is its own
-// hi, and lo = 0.
+// x = hi + lo, both TF32 (tf32.cuh). An EXACT operand (raw bf16) is its
+// own hi, and lo = 0.
 template <bool EXACT>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   if (EXACT) {
     hi = __float_as_uint(x);
     lo = 0u;
   } else {
-    hi = tf32_rna(__float_as_uint(x));
-    lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
+    split_tf32(x, hi, lo);
   }
 }
 

@@ -10,7 +10,9 @@ layers' chunked scan and attention prefill.
                   (autocorr.cu): consecutive lag
                   tiles a 3xTF32 Hankel product
                   on the tensor cores, other
-                  tiles direct sums
+                  tiles direct sums; rows must
+                  be finite (a NaN reaches its
+                  whole tensor tile)
   dirty_blocks    dirty_delta.max_abs_delta        ref.max_abs_delta_ref
   (and _many)     (dirty_delta.cu), float dtypes;  (integer and bool dtypes:
                   _many: one launch for many pairs exact != on any device)
@@ -59,8 +61,9 @@ def power_spectrum(x: torch.Tensor, *, center: bool = False) -> torch.Tensor:
 
 
 def autocorr_score(x: torch.Tensor, lags: torch.Tensor) -> torch.Tensor:
-    """(J, N) mean-removed rows x (L,) shared candidate lags -> (J, L) f32
-    unnormalized autocorrelation scores (lags clamped to [0, N])."""
+    """(J, N) finite mean-removed rows x (L,) shared candidate lags ->
+    (J, L) f32 unnormalized autocorrelation scores (lags clamped to
+    [0, N])."""
     x = x.float()
     if _device_type(x) == "cuda":
         return _ac.autocorr_score(x, lags)

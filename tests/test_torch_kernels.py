@@ -288,6 +288,10 @@ def _b2_tc_arithmetic(x, lags, T, LT, terms=3):
     return out
 
 
+#: SMs of the H100 SXM the plans are sized for
+H100_SMS = 132
+
+
 def _b2_grid(name):
     """(N, lags) of each lag grid the tests send through B2's routes."""
     rng = np.random.default_rng(17)
@@ -326,7 +330,7 @@ def test_b2_tc_arithmetic_matches_jax_kernel_and_numpy(name, jobs):
     lags = lags.astype(np.int32)
     x = _randn(N + len(lags), 3, N)
     x = x - x.mean(axis=1, keepdims=True)
-    lt = autocorr.plan(jobs, N, len(lags)).lt
+    lt = autocorr.plan(jobs, N, len(lags), H100_SMS).lt
     got = _b2_tc_arithmetic(torch.as_tensor(x), lags.tolist(), autocorr.T,
                             lt).numpy()
     want = np.asarray(jax_autocorr(jnp.asarray(x), jnp.asarray(lags)))
@@ -343,7 +347,7 @@ def test_b2_plain_tf32_misses_the_tolerance():
     x = _randn(5, 3, N)
     x = x - x.mean(axis=1, keepdims=True)
     want = autocorr_score_ref(x, lags.astype(np.int32))
-    lt = autocorr.plan(16384, N, len(lags)).lt
+    lt = autocorr.plan(16384, N, len(lags), H100_SMS).lt
     got3 = _b2_tc_arithmetic(torch.as_tensor(x), lags.tolist(), 8, lt)
     got1 = _b2_tc_arithmetic(torch.as_tensor(x), lags.tolist(), 8, lt,
                              terms=1)
@@ -356,7 +360,7 @@ def test_b2_plain_tf32_misses_the_tolerance():
 def test_b2_tile_routes(name):
     """The route of each tile a launch of many rows takes."""
     N, lags = _b2_grid(name)
-    lt = autocorr.plan(16384, N, len(lags)).lt
+    lt = autocorr.plan(16384, N, len(lags), H100_SMS).lt
     assert autocorr.tile_routes(lags.tolist(), N, lt) == _B2_ROUTES[name]
 
 
@@ -377,17 +381,48 @@ def test_b2_lag_tiles(L, count, want):
 
 @pytest.mark.parametrize("J,N,L,rows,lt,groups", [
     (16384, 512, 255, 4, 89, 1), (12288, 512, 119, 4, 121, 1),
-    (1024, 4096, 64, 1, 73, 1), (8, 1440, 452, 1, 9, 51),
-    (64, 16384, 8192, 1, 121, 9), (37, 1031, 514, 1, 25, 11),
-    (5000, 16384, 10, 1, 25, 1)])
+    (1024, 4096, 64, 1, 9, 1), (8, 1440, 452, 1, 9, 13),
+    (64, 16384, 8192, 1, 121, 17), (37, 1031, 514, 1, 9, 15),
+    (5000, 16384, 10, 1, 9, 1)])
 def test_b2_plan(J, N, L, rows, lt, groups):
-    """A block takes 4 rows (one a warp) only when the rows still fill the
-    card and fit 32 KB; a small J takes smaller lag tiles, spread over
-    blocks."""
-    p = autocorr.plan(J, N, L)
+    """A block takes 4 rows only when the rows still fill the card and fit
+    32 KB; the tiles shrink until every warp of a full card (and of each
+    block) has a (row, tile) unit; a small J's tiles spread over blocks,
+    a unit a warp."""
+    p = autocorr.plan(J, N, L, H100_SMS)
     assert (p.rows, p.lt, p.groups) == (rows, lt, groups)
     assert p.group <= autocorr.MAX_TILES and p.group * p.groups >= p.tiles
     assert (p.group - 1) * p.groups < p.tiles
+    units = -(-J // p.rows) * p.rows * p.tiles
+    assert p.mt == 1 or units >= (autocorr.WARPS * autocorr.BLOCKS_PER_SM
+                                  * H100_SMS)
+    assert p.rows * p.group >= min(autocorr.WARPS, p.rows * p.tiles)
+
+
+def test_b2_plan_follows_the_sm_count():
+    """A card with fewer SMs needs fewer units: larger tiles."""
+    assert autocorr.plan(64, 1440, 452, 132).lt == 9
+    assert autocorr.plan(64, 1440, 452, 32).lt == 57
+    assert autocorr.plan(64, 1440, 452, 16).lt == 121
+
+
+def test_b2_non_finite_rows_reach_their_whole_tensor_tile():
+    """The kernel's contract is finite rows: a tensor tile's products take
+    the zeros past N, so a NaN reaches every lag of its tile, while the
+    plain version poisons only the lags whose sums hold it (here lags past
+    256 skip x[256] at N = 512)."""
+    N, lags = 512, np.arange(200, 400)
+    x = _randn(N, 2, N)
+    x[:, 256] = np.nan
+    lt = autocorr.plan(16384, N, len(lags), H100_SMS).lt
+    routes = autocorr.tile_routes(lags.tolist(), N, lt)
+    got = _b2_tc_arithmetic(torch.as_tensor(x), lags.tolist(), autocorr.T,
+                            lt).numpy()
+    want = autocorr_score_ref(x, lags.astype(np.int32))
+    assert routes[0] == "tensor"
+    assert np.all(np.isnan(got[:, :lt]))
+    assert np.all(np.isnan(want[:, lags <= 256]))
+    assert np.all(np.isfinite(want[:, lags > 256]))
 
 
 # ---------------------------------------------------------------------------
