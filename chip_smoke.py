@@ -3,7 +3,9 @@
 Drives the port's paths, the paper's ALMA decide loop at the fleet size
 its users run, live pre-copy of a full-width serving replica (attention
 and SSM-hybrid), serving of an RWKV model and of a full-width qwen3-8b,
-and holds every hand-written kernel against its plain PyTorch version:
+training of a full-width internlm2-1.8b and the live pre-copy of its
+training state, and holds every hand-written kernel against its plain
+PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
                ``csrc/dirty_delta.cu``, ``csrc/ssm_scan.cu`` and
@@ -90,11 +92,32 @@ and holds every hand-written kernel against its plain PyTorch version:
                second prefill, B5's first application is held against the
                oracle on the same q, k, v (the counted prefill's peak
                memory stays the model's own).
+  8. train   — after phase 7, ``internlm2_1p8b`` at full width and depth
+               (bf16 params, AdamW, block remat, 26.4 GB of state) trains
+               on 4 x 2,048-token batches of ``SyntheticCorpus``: a
+               warm-up step, 4 counted steps with telemetry (each 48 B5
+               launches, the forward twice under remat, and 1 B3 launch),
+               one step split by CUDA events (B5, the plain attention
+               backward, the optimizer, B3, the rest); then
+               ``elastic.rescale`` pre-copies that training state on the
+               card while it trains, one step a round, each scan's
+               per-leaf dirty blocks held against B3's plain version, the
+               destination bit-equal at handoff and trained one step
+               more; then one f32 AdamW step at full width of internlm2 (2
+               layers), a zamba2 group and one rwkv6 layer on the card
+               against the CPU (B5, and B4 in SSD and RWKV mode, under
+               grad); then the smoke-scale ``Trainer`` with a failure
+               injected at step 7, restored to the uninterrupted run's
+               final loss bit for bit, and an incremental checkpointer (a
+               full save and 4 deltas, B3 once a delta) whose every
+               restore is bit-exact.
 
 Every phase raises on failure. The kernels' launch counters are set to 0
 before each path (phases 3, 4, 5's prefill and migration, 6's two
-prefills and its migration, 7's prefill) and read after it: each kernel
-of the path must have run in it. The last lines are the card
+prefills and its migration, 7's prefill, 8's counted steps, its
+migration, its card-against-CPU steps, its trainers and its incremental
+checkpoints) and read after it: each kernel of the path must have run in
+it. The last lines are the card
 (``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
 "device": ...}``.
 
@@ -102,6 +125,7 @@ Run from the repository root with one CUDA device: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -1867,6 +1891,473 @@ def phase_dense_cpu_check(torch):
     return err
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training and its live migration
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "internlm2_1p8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+TRAIN_PCFG = dict(block_elems=1 << 14, max_rounds=4, stop_dirty_blocks=0,
+                  steps_per_round=1)
+# card against CPU, f32, one AdamW step: the loss within CPU_CHECK_RTOL, the
+# grad norm within 1e-4 (relative), each leaf of the first moment (0.1 x the
+# clipped gradient) within 1e-3 of its largest magnitude, and each updated
+# param within 2.5 lr (the first AdamW step is +-lr an element, and a
+# near-zero gradient may take either sign); measured on the H100: at most
+# 7.3e-7, 7.0e-5 and 0.53 lr
+TRAIN_CHECK = dict(gnorm=1e-4, moment=1e-3, lr_steps=2.5)
+# what the memory reckoning leaves free for the plain recount of a round
+TRAIN_MEM_MARGIN = 0.95
+
+
+def _train_batch(torch, corpus, step: int, batch: int = 0):
+    """``corpus.batch_at(step)`` as tensors on the card; with ``batch``
+    only its first rows (a cut batch)."""
+    import numpy as np
+    out = {}
+    for k, v in corpus.batch_at(step).items():
+        v = np.ascontiguousarray(v[:batch] if batch else v)
+        out[k] = torch.from_numpy(v).to("cuda")
+    return out
+
+
+def _train_split(torch, step_fn, state, batch):
+    """One train step with CUDA events around every B5 forward launch, the
+    plain backward of attention (the saved inputs already unpacked: a
+    block's recompute falls in the rest), the optimizer and the telemetry's
+    B3 scan. Returns (state, ms per part and the rest)."""
+    from repro_torch import optim
+    from repro_torch.kernels import vjp
+    from repro_torch.train import steps
+    pending = []
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            pending.append((key, a, b))
+            return out
+        return run
+
+    attention, apply, stats = vjp.Attention, optim.apply_updates, \
+        steps.dirty_block_stats
+
+    class TimedAttention(attention):
+        @staticmethod
+        def forward(ctx, q, k, v, window, chunk, forward):
+            return attention.forward(ctx, q, k, v, window, chunk,
+                                     timed("b5_forward", forward))
+
+        @staticmethod
+        def backward(ctx, grad_out):
+            saved = ctx.saved_tensors
+            return timed("attention_backward_plain", attention.grads)(
+                ctx, *saved, grad_out)
+
+    vjp.Attention = TimedAttention
+    optim.apply_updates = timed("optimizer", apply)
+    steps.dirty_block_stats = timed("telemetry_b3", stats)
+    try:
+        state, metrics = timed("step", step_fn)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        vjp.Attention, optim.apply_updates = attention, apply
+        steps.dirty_block_stats = stats
+    ms, counts = {}, {}
+    for key, a, b in pending:
+        ms[key] = ms.get(key, 0.0) + a.elapsed_time(b)
+        counts[key] = counts.get(key, 0) + 1
+    whole = ms.pop("step")
+    ms["rest_of_forward_and_backward"] = whole - sum(ms.values())
+    return state, whole, ms, counts
+
+
+def _scan_checked(torch, ref, box):
+    """``precopy.dirty_scan`` as the train-state pre-copy runs it, timed on
+    the host clock and by CUDA events, then each leaf's dirty count held
+    against B3's plain version on the same pair (outside both clocks)."""
+    from repro_torch import tree
+    from repro_torch.core import precopy
+    scan = precopy.dirty_scan
+
+    def run(live, shadow, block):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t = time.perf_counter()
+        masks, n_dirty, n_bytes = scan(live, shadow, block)
+        box["scan_host_ms"].append(1e3 * (time.perf_counter() - t))
+        e1.record()
+        torch.cuda.synchronize()
+        box["scan_event_ms"].append(e0.elapsed_time(e1))
+        got = [int(m.sum()) for m in masks]
+        want = _plain_dirty_counts(torch, ref, live, shadow, block)
+        if got != want:
+            raise AssertionError(f"train-state scan: per-leaf dirty blocks "
+                                 f"{got} against B3's plain version {want}")
+        box["dirty_blocks"].append(n_dirty)
+        box["leaves"] = len(tree.leaves(live))
+        return masks, n_dirty, n_bytes
+
+    return scan, run
+
+
+def phase_train(torch, ops_mod, ref):
+    """A full-width, full-depth internlm2-1.8b trainer (bf16 params, AdamW
+    with f32 moments and master, block remat), batches of TRAIN_BATCH x
+    TRAIN_SEQ from ``SyntheticCorpus``: one warm-up step, TRAIN_STEPS
+    steps with telemetry (B5 in every attention layer's forward, twice a
+    step under remat; B3 once for the dirty profile), one event-timed
+    split step; then ``elastic.rescale`` pre-copies that training state on
+    the card while it keeps training, one step a round, each scan held
+    against B3's plain version, the destination bit-equal at handoff, and
+    the destination trains on. Returns (launches of the counted steps,
+    launches of the migration, numbers to keep)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import precopy
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.runtime.elastic import rescale
+    from repro_torch.train import init_train_state, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    n = cfg.param_count()
+    V, tokens = cfg.vocab_size, TRAIN_BATCH * TRAIN_SEQ
+    props = torch.cuda.get_device_properties(0)
+    print(f"[train] {TRAIN_ARCH} full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads, kv "
+          f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {V}), {cfg.param_dtype}, {cfg.optimizer}, remat "
+          f"{cfg.remat}: {n} params; reckoned: params {2 * n / 1e9:.4f} GB,"
+          f" f32 m, v and master {12 * n / 1e9:.4f} GB, state "
+          f"{14 * n / 1e9:.4f} GB (a pre-copy holds two); logits "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} x {V}: {2 * tokens * V / 1e9:.4f} GB"
+          f" bf16, {4 * tokens * V / 1e9:.4f} GB f32, plus their gradient; "
+          f"card {props.total_memory / 1e9:.4f} GB")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    v_mem = precopy.total_bytes(state)
+    corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    step_fn = make_train_step(cfg, telemetry=True)
+    t0 = time.perf_counter()
+    state, m = step_fn(state, _train_batch(torch, corpus, 0))  # warm-up
+    torch.cuda.synchronize()
+    print(f"[train] init {t_init:.4f} s, state {v_mem / 1e9:.4f} GB; "
+          f"warm-up step {time.perf_counter() - t0:.4f} s, loss "
+          f"{float(m['loss']):.6f}")
+
+    steps, total_launches = [], {}
+    for _ in range(TRAIN_STEPS):
+        i = int(state["step"])
+        batch = _train_batch(torch, corpus, i)
+        ops_mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step_fn(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        launches = ops_mod.launch_counts()
+        for k, v in launches.items():
+            total_launches[k] = total_launches.get(k, 0) + v
+        row = {"step": i, "host_ms": 1e3 * host,
+               "event_ms": a.elapsed_time(b), "tokens_per_s": tokens / host,
+               **{k: float(m[k]) for k in ("loss", "grad_norm", "lr",
+                                           "dirty_fraction", "dirty_bytes")},
+               "b5_launches": launches["flash_attention"],
+               "b3_launches": launches["dirty_blocks"],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+        steps.append(row)
+        print(f"[train] step {i}: host {row['host_ms']:.4f} ms, events "
+              f"{row['event_ms']:.4f} ms, {row['tokens_per_s']:.1f} tokens/s,"
+              f" loss {row['loss']:.6f}, grad norm {row['grad_norm']:.6f}, "
+              f"lr {row['lr']:.6g}, dirty fraction "
+              f"{row['dirty_fraction']:.6f}, dirty bytes "
+              f"{row['dirty_bytes']:.0f}, B5 {row['b5_launches']}, B3 "
+              f"{row['b3_launches']}, peak {row['peak_gb']:.4f} GB "
+              f"(reserved {row['reserved_gb']:.4f} GB)")
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"train step {i}: loss {row['loss']}, grad "
+                                 f"norm {row['grad_norm']}")
+        want_b5 = 2 * cfg.num_layers if cfg.remat in ("block", "full") \
+            else cfg.num_layers
+        if launches["flash_attention"] != want_b5 or \
+                launches["dirty_blocks"] != _scan_launches(
+                    len(tree.leaves(state["params"]))):
+            raise AssertionError(f"train step {i} launched {launches}, want "
+                                 f"{want_b5} flash_attention and one "
+                                 f"dirty_blocks")
+
+    state, whole, split, counts = _train_split(
+        torch, step_fn, state, _train_batch(torch, corpus,
+                                            int(state["step"])))
+    print(f"[train] event-timed split of step {int(state['step']) - 1}: "
+          f"{whole:.4f} ms: " + ", ".join(
+              f"{k}{' x' + str(counts[k]) if k in counts else ''} "
+              f"{v:.4f} ms ({v / whole:.4f})" for k, v in split.items()))
+
+    # -- the pre-copy of the training state while it trains -----------------
+    peak = max(r["peak_gb"] for r in steps) * 1e9
+    biggest = max(t.numel() for t in tree.leaves(state))
+    need = 2 * v_mem + (peak - v_mem) + 3 * 4 * biggest
+    limit = TRAIN_MEM_MARGIN * props.total_memory
+    mig_batch = TRAIN_BATCH
+    while mig_batch > 1 and 2 * v_mem + (peak - v_mem) * mig_batch \
+            / TRAIN_BATCH + 12 * biggest > limit:
+        mig_batch //= 2
+    print(f"[train] pre-copy reckoning: state {v_mem / 1e9:.4f} GB twice, "
+          f"step transient {(peak - v_mem) / 1e9:.4f} GB, plain recount "
+          f"{12 * biggest / 1e9:.4f} GB: {need / 1e9:.4f} GB against "
+          f"{limit / 1e9:.4f} GB; batch of the migration's steps "
+          f"{mig_batch}" + ("" if mig_batch == TRAIN_BATCH
+                            else f" (cut from {TRAIN_BATCH})"))
+    live = {"state": state}
+    del state
+    # two copies of the state leave ~31 GB for a step's 16 GB of
+    # transients: without the steps' cached segments, and with segments
+    # that grow in place, the caching allocator cannot strand that room in
+    # split blocks (it did, and ran out, with neither)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+
+    def step_once(s):
+        s, mm = step_fn(s, _train_batch(torch, corpus, int(s["step"]),
+                                        mig_batch))
+        if not math.isfinite(float(mm["loss"])):
+            raise AssertionError("loss not finite during the migration")
+        live["state"] = s
+        return s
+
+    box = {"scan_host_ms": [], "scan_event_ms": [], "dirty_blocks": []}
+    scan, checked = _scan_checked(torch, ref, box)
+    start = int(live["state"]["step"])
+    ops_mod.reset_launch_counts()
+    precopy.dirty_scan = checked
+    try:
+        t0 = time.perf_counter()
+        dest, rep = rescale(cfg, live["state"], step_once, "cuda",
+                            pcfg=precopy.PrecopyConfig(**TRAIN_PCFG))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        precopy.dirty_scan = scan
+    mig_launches = ops_mod.launch_counts()
+    out = rep.precopy.outcome
+    src = live.pop("state")
+    if not all(_same_bytes(torch, a, b) for a, b in
+               zip(tree.leaves(dest), tree.leaves(src))):
+        raise AssertionError("train-state destination differs from the "
+                             "source at handoff")
+    n_steps = int(src["step"]) - start
+    n_float = sum(t.is_floating_point() for t in tree.leaves(src))
+    want_b3 = _scan_launches(n_float) * len(box["scan_host_ms"]) + n_steps * \
+        _scan_launches(len(tree.leaves(src["params"])))
+    if n_steps != out.rounds or mig_launches["dirty_blocks"] != want_b3:
+        raise AssertionError(f"train-state pre-copy: {n_steps} steps in "
+                             f"{out.rounds} rounds, launches {mig_launches} "
+                             f"(want {want_b3} dirty_blocks)")
+    blocks = sum(-(-t.numel() // TRAIN_PCFG["block_elems"])
+                 for t in tree.leaves(src))
+    scan_bound, _ = _bound_ms(0.0, 2.0 * rep.precopy.v_mem + 4.0 * blocks)
+    del src
+    torch.cuda.empty_cache()
+    print(f"[train] pre-copy of the training state ({rep.precopy.v_mem / 1e9:.4f}"
+          f" GB, {box['leaves']} leaves) on the card while training: "
+          f"{out.rounds} rounds, stop {out.stop_reason}, bytes sent / v_mem "
+          f"{out.bytes_sent / rep.precopy.v_mem:.6f}, per-round bytes "
+          f"{rep.precopy.per_round_dirty_bytes}, dirty blocks per scan "
+          f"{box['dirty_blocks']} equal B3's plain version leaf by leaf; "
+          f"destination bit-equal; wall {wall:.4f} s (with the plain "
+          f"recounts); launches {mig_launches}")
+    print(f"[train] scan ms, host clock "
+          f"{[round(t, 4) for t in box['scan_host_ms']]}, CUDA events "
+          f"{[round(t, 4) for t in box['scan_event_ms']]}, against a bound "
+          f"of {scan_bound:.4f} ms (bytes)")
+    dest, m = step_fn(dest, _train_batch(torch, corpus, int(dest["step"]),
+                                         mig_batch))
+    torch.cuda.synchronize()
+    if int(dest["step"]) != start + n_steps + 1 or \
+            not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"destination step {int(dest['step'])}, loss "
+                             f"{float(m['loss'])}")
+    print(f"[train] the destination trains on: step {int(dest['step'])}, "
+          f"loss {float(m['loss']):.6f}")
+    del dest, m, live
+    torch.cuda.empty_cache()
+    return total_launches, mig_launches, {
+        "params": n, "state_gb": v_mem / 1e9, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": steps, "split_ms": split,
+        "split_step_ms": whole, "migration_batch": mig_batch,
+        "rounds": out.rounds, "stop_reason": out.stop_reason,
+        "bytes_sent_over_v_mem": out.bytes_sent / rep.precopy.v_mem,
+        "scan_host_ms": box["scan_host_ms"],
+        "scan_event_ms": box["scan_event_ms"], "scan_bound_ms": scan_bound,
+        "migrate_wall_s": wall}
+
+
+def _train_card_and_cpu(torch, cfg, batch: int = 2, seq: int = 128):
+    """One AdamW step of ``cfg`` on the card and on the CPU from the same
+    seeded state and batch. Returns per device (metrics, new state on the
+    host)."""
+    from repro_torch import tree
+    from repro_torch.data import make_batch
+    from repro_torch.train import init_train_state, make_train_step
+
+    s_card = init_train_state(cfg, SEED, device="cuda")
+    runs = {}
+    for dev, state in (("cuda", s_card),
+                       ("cpu", tree.map(lambda t: t.to("cpu", copy=True),
+                                        s_card))):
+        b = make_batch(cfg, batch, seq, device=dev)
+        state, m = make_train_step(cfg)(state, b)
+        runs[dev] = ({k: float(v) for k, v in m.items()},
+                     tree.map(lambda t: t.to("cpu", copy=True), state))
+        del state
+    return runs["cuda"], runs["cpu"]
+
+
+def phase_train_cpu_check(torch, ops_mod):
+    """Full width, shallow, f32, one AdamW step on the card and on the CPU:
+    internlm2 2 layers, a zamba2 group (5 Mamba2 layers and the shared
+    attention block) and one rwkv6 layer. Holds B5 (f32) and B4 (SSD and
+    RWKV) under grad, and the plain backward, against the CPU path within
+    TRAIN_CHECK. Returns (launches on the card, max errors)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+
+    errs, launches = {}, {}
+    for arch, layers in ((TRAIN_ARCH, 2), (SSM_ARCH, 6), (RWKV_ARCH, 1)):
+        cfg = get_config(arch).replace(num_layers=layers,
+                                       param_dtype="float32")
+        ops_mod.reset_launch_counts()
+        (mg, sg), (mc, sc) = _train_card_and_cpu(torch, cfg)
+        launches[arch] = ops_mod.launch_counts()
+        lr = mc["lr"]
+        e_loss = abs(mg["loss"] - mc["loss"])
+        e_gn = abs(mg["grad_norm"] - mc["grad_norm"])
+        e_m = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                  for a, b in zip(tree.leaves(sg["opt"]["m"]),
+                                  tree.leaves(sc["opt"]["m"])))
+        e_p = max(float((a - b).abs().max()) for a, b in
+                  zip(tree.leaves(sg["params"]), tree.leaves(sc["params"])))
+        ok = (e_loss <= CPU_CHECK_RTOL * abs(mc["loss"])
+              and e_gn <= TRAIN_CHECK["gnorm"] * mc["grad_norm"]
+              and e_m <= TRAIN_CHECK["moment"]
+              and e_p <= TRAIN_CHECK["lr_steps"] * lr
+              and int(sg["step"]) == int(sc["step"]) == 1)
+        print(f"[train] {arch} full width, {layers} layers, f32, one AdamW "
+              f"step, card against CPU: loss {mg['loss']:.6f} err "
+              f"{e_loss:.6g} (limit {CPU_CHECK_RTOL} x loss), grad norm "
+              f"{mg['grad_norm']:.6f} err {e_gn:.6g} (limit "
+              f"{TRAIN_CHECK['gnorm']} x norm), first moment err {e_m:.6g} "
+              f"of its leaf's peak (limit {TRAIN_CHECK['moment']}), params "
+              f"err {e_p:.6g} (limit {TRAIN_CHECK['lr_steps']} x lr "
+              f"{lr:.6g}); launches {launches[arch]}")
+        if not ok:
+            raise AssertionError(f"{arch}: the train step on the card and on "
+                                 f"the CPU differ beyond the limits")
+        errs[arch] = {"loss": e_loss, "grad_norm": e_gn, "moment": e_m,
+                      "params": e_p}
+        del sg, sc
+        torch.cuda.empty_cache()
+    for arch, op in ((TRAIN_ARCH, "flash_attention"), (SSM_ARCH, "ssm_scan"),
+                     (SSM_ARCH, "flash_attention"), (RWKV_ARCH, "ssm_scan")):
+        if launches[arch][op] < 1:
+            raise AssertionError(f"{arch}'s train step launched no {op}")
+    return launches, errs
+
+
+def phase_train_runtime(torch, ops_mod):
+    """The trainer at smoke scale on the card (checkpoint every 5 steps, a
+    failure injected at step 7, restore and replay to step 12, against an
+    uninterrupted run's final loss bit for bit), and an incremental
+    checkpointer (a full save, then deltas after each of 4 steps) whose
+    every restore is bit-exact, its B3 launches counted."""
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import IncrementalCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH).smoke().replace(num_layers=2)
+    failed = {"done": False}
+
+    def failure_hook(step):
+        if step == 7 and not failed["done"]:
+            failed["done"] = True
+            return True
+        return False
+
+    with tempfile.TemporaryDirectory() as d:
+        ops_mod.reset_launch_counts()
+        runs = {}
+        for name, hook in (("restored", failure_hook), ("uninterrupted", None)):
+            tr = Trainer(cfg, TrainerConfig(ckpt_dir=f"{d}/{name}",
+                                            ckpt_every=5),
+                         batch=2, seq=128, failure_hook=hook, device="cuda")
+            runs[name] = tr.run(12)
+        trainer_launches = ops_mod.launch_counts()
+        a, b = runs["restored"], runs["uninterrupted"]
+        if (a["restarts"], a["final_step"], b["restarts"]) != (1, 12, 0) or \
+                a["loss"] != b["loss"] or not math.isfinite(a["loss"]):
+            raise AssertionError(f"trainer restore: restarts {a['restarts']}"
+                                 f", final step {a['final_step']}, loss "
+                                 f"{a['loss']!r} against {b['loss']!r}")
+        print(f"[train] trainer at smoke scale on the card: failure at step "
+              f"7, restored from step 5, final step 12, loss {a['loss']!r} "
+              f"equal to the uninterrupted run's; step ms "
+              f"{[round(1e3 * h['step_time'], 4) for h in b['history']]}; "
+              f"launches {trainer_launches}")
+
+        state = init_train_state(cfg, SEED, device="cuda")
+        step_fn = make_train_step(cfg)
+        inc = IncrementalCheckpointer(f"{d}/inc", block_elems=1 << 12,
+                                      full_every=10)
+        kept, stats = [], []
+        ops_mod.reset_launch_counts()
+        for i in range(5):
+            if i:
+                state, _ = step_fn(state, make_batch(cfg, 2, 128, step=i,
+                                                     device="cuda"))
+            stats.append(inc.save(i, state))
+            kept.append(tree.map(lambda t: t.to("cpu", copy=True), state))
+        inc_launches = ops_mod.launch_counts()
+        like = init_train_state(cfg, SEED, device="meta")
+        for i, want in enumerate(kept):
+            got = inc.restore(i, like, device="cuda")
+            if not all(_same_bytes(torch, x.cpu(), y) for x, y in
+                       zip(tree.leaves(got), tree.leaves(want))):
+                raise AssertionError(f"incremental restore of step {i} is "
+                                     f"not bit-exact")
+        n_float = sum(t.is_floating_point() for t in tree.leaves(state))
+        if inc_launches["dirty_blocks"] != 4 * _scan_launches(n_float):
+            raise AssertionError(f"incremental saves launched "
+                                 f"{inc_launches}")
+        print(f"[train] incremental checkpoints on the card: "
+              f"{[s['kind'] for s in stats]}, bytes "
+              f"{[s['bytes'] for s in stats]}, every restore bit-exact; "
+              f"launches {inc_launches}")
+    return trainer_launches, inc_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1913,6 +2404,13 @@ def main() -> int:
     ssm_times["card_vs_cpu_max_abs_err"] = phase_ssm_cpu_check(torch)
     dense_launches, dense_times = phase_dense_serve(torch, ops)
     dense_times["card_vs_cpu_max_abs_err"] = phase_dense_cpu_check(torch)
+    gc.collect()                       # every replica freed before training
+    torch.cuda.empty_cache()
+    train_launches, train_mig_launches, train_times = phase_train(
+        torch, ops, ref)
+    check_launches, train_times["card_vs_cpu"] = phase_train_cpu_check(
+        torch, ops)
+    trainer_launches, inc_launches = phase_train_runtime(torch, ops)
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -1930,7 +2428,9 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:82",
                    "flash_attention")}
     paths = (tick_launches, fleet_launches, serve_prefill, serve_launches,
-             ssm_prefill, ssm_migrate, rwkv_launches, dense_launches)
+             ssm_prefill, ssm_migrate, rwkv_launches, dense_launches,
+             train_launches, train_mig_launches, *check_launches.values(),
+             trainer_launches, inc_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
         launches = sum(path[op] for path in paths)
@@ -1943,6 +2443,7 @@ def main() -> int:
     print("[serve] " + json.dumps(serve_times))
     print("[ssm] " + json.dumps(ssm_times))
     print("[dense] " + json.dumps(dense_times))
+    print("[train] " + json.dumps(train_times))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,16 @@ back to back, and the kernel's mean device time over those 50 under
 launch); B4 at zamba2's and rwkv6's prefill shapes
 (``chip_smoke._scan_case``). With ``--tick`` it times the 16,384-job
 surveillance tick instead (``chip_smoke.phase_tick``: cold, steady and
-full-refit seconds, and the traced refit's device time). Each checkout
-builds its own kernels into its own ``build/``. Run from a checkout on a
-machine with one CUDA device:
+full-refit seconds, and the traced refit's device time). With
+``--prefill`` it times serving instead: each of the four full-width
+replicas ``chip_smoke.py`` serves (danube3, zamba2, rwkv6, qwen3)
+prefills 16 x 4,096 tokens three times on the host clock (the first
+also CUDA-event timed, and its peak memory read), then decodes 8 steps.
+Each checkout builds its own kernels into its own ``build/``. Run from a
+checkout on a machine with one CUDA device:
 
     python3 scripts/torch_kernel_ab.py --a PATH_TO_OTHER_CHECKOUT [--b .]
-        [--tick]
+        [--tick | --prefill]
 """
 from __future__ import annotations
 
@@ -109,15 +113,61 @@ build.build_all(["dft_power", "autocorr"])     # not inside the cold tick
 print("RESULT " + json.dumps(cs.phase_tick(torch, np, ops)[1]))
 '''
 
+PREFILL_CHILD = r'''
+import json, pathlib, sys, time
+tree = pathlib.Path(sys.argv[1]).resolve()
+sys.path[:0] = [str(tree), str(tree / "src")]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import build
+from repro_torch.launch.serve import build_replica
+build.build_all(["flash_attention", "ssm_scan"])
+out = {}
+for arch in (cs.ARCH, cs.SSM_ARCH, cs.RWKV_ARCH, cs.DENSE_ARCH):
+    r = build_replica(arch, cs.SERVE_BATCH, cs.SERVE_PROMPT, 8, smoke=False,
+                      seed=cs.SEED, device="cuda")
+    host = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        logits, cache = r.prefill(r.params, r.batch)
+        b.record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t)
+        if i == 0:
+            out[f"{arch}_prefill_event_ms"] = a.elapsed_time(b)
+            out[f"{arch}_prefill_peak_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+    out[f"{arch}_prefill_s"] = host
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(8):
+        tok, logits, cache = r.decode(r.params, tok, cache)
+    torch.cuda.synchronize()
+    out[f"{arch}_decode_ms"] = 1e3 * (time.perf_counter() - t) / 8
+    del r, logits, cache, tok
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out))
+'''
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", required=True, help="the checkout timed first")
     ap.add_argument("--b", default=".", help="the other checkout")
-    ap.add_argument("--tick", action="store_true",
-                    help="time the surveillance tick, not the kernels")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--tick", action="store_true",
+                      help="time the surveillance tick, not the kernels")
+    mode.add_argument("--prefill", action="store_true",
+                      help="time the replicas' prefill and decode")
     args = ap.parse_args()
-    child = TICK_CHILD if args.tick else CHILD
+    child = (TICK_CHILD if args.tick else PREFILL_CHILD if args.prefill
+             else CHILD)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

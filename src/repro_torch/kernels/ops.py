@@ -14,8 +14,9 @@ layers' chunked scan and attention prefill.
                   be finite (a NaN reaches its
                   whole tensor tile)
   dirty_blocks    dirty_delta.max_abs_delta        ref.max_abs_delta_ref
-  (and _many)     (dirty_delta.cu), float dtypes;  (integer and bool dtypes:
-                  _many: one launch for many pairs exact != on any device)
+  (and _many,     (dirty_delta.cu), float dtypes;  (integer and bool dtypes:
+  block_deltas)   _many and block_deltas: one      exact != on any device)
+                  launch for many pairs
   ssm_scan        ssm_scan.ssm_scan (ssm_scan.cu)  models/gla.gla_chunked
   flash_attention flash_attention.flash_attention  ref.attention_chunked
                   (flash_attention.cu)
@@ -25,6 +26,13 @@ A CUDA tensor goes to the hand-written kernel, which launches or raises;
 there is no fallback to the plain version and no shape the kernel hands
 back. A CPU tensor goes to the plain version, which is where the CPU tests
 run. ``launch_counts`` reads the kernels' launch counters.
+
+Under grad (training), ``ssm_scan`` and ``flash_attention`` return through
+the ``torch.autograd.Function``s of ``kernels/vjp.py`` when an input
+requires a gradient: the same forward as above, and a plain PyTorch
+backward (the VJP of the chunked plain version, recomputed), as the JAX
+package differentiates its XLA functions and never a kernel. With grad
+off the path is the one above.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from repro_torch.kernels import dirty_delta as _dd
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ss
+from repro_torch.kernels import vjp
 from repro_torch.models import gla
 
 
@@ -49,6 +58,13 @@ def _device_type(x: torch.Tensor) -> str:
 
 def _on_card(x: torch.Tensor) -> bool:
     return x.is_cuda
+
+
+def _needs_grad(*inputs: Optional[torch.Tensor]) -> bool:
+    """Grad mode is on and an input requires a gradient: the op then
+    returns through its ``autograd.Function`` (``kernels/vjp.py``)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
 
 
 def power_spectrum(x: torch.Tensor, *, center: bool = False) -> torch.Tensor:
@@ -137,6 +153,32 @@ def dirty_blocks_many(news: Sequence[torch.Tensor],
     return masks, counts
 
 
+def block_deltas(news: Sequence[torch.Tensor], olds: Sequence[torch.Tensor],
+                 *, block: int) -> List[torch.Tensor]:
+    """Per-block ``max |f32(new) - f32(old)|`` of float pairs, read flat ->
+    one (ceil(n_i / block),) f32 tensor per pair, NaN where a block holds a
+    NaN difference. The pairs on each card go to B3 together (one launch
+    per ``dirty_delta.MAX_LEAVES`` pairs), CPU pairs to the plain
+    version."""
+    out: List[Optional[torch.Tensor]] = [None] * len(news)
+    cards: Dict[torch.device, List[int]] = {}
+    for i, new in enumerate(news):
+        if not new.dtype.is_floating_point:
+            raise ValueError(f"block_deltas takes float pairs, got "
+                             f"{new.dtype}")
+        if _on_card(new):
+            cards.setdefault(new.device, []).append(i)
+        else:
+            out[i] = ref.max_abs_delta_ref(new, olds[i], block)[:, 0]
+    for idx in cards.values():
+        d = _dd.max_abs_delta_many([news[i] for i in idx],
+                                   [olds[i] for i in idx], block)
+        sizes = [-(-news[i].numel() // block) for i in idx]
+        for i, part in zip(idx, d.split(sizes)):
+            out[i] = part
+    return out
+
+
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              log_decay: torch.Tensor, *, bonus: Optional[torch.Tensor] = None,
              initial_state: Optional[torch.Tensor] = None
@@ -145,6 +187,13 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v (B, H, S, Dv), any strides -> (y (B, H, S, Dv) f32, final state
     (B, H, Dk, Dv) f32). ``bonus`` (H, Dk) selects RWKV semantics, else
     SSD; ``initial_state`` (B, H, Dk, Dv) defaults to zeros."""
+    if _needs_grad(q, k, v, log_decay, bonus, initial_state):
+        return vjp.Scan.apply(q, k, v, log_decay, bonus, initial_state,
+                              _ssm_scan)
+    return _ssm_scan(q, k, v, log_decay, bonus, initial_state)
+
+
+def _ssm_scan(q, k, v, log_decay, bonus, initial_state):
     if _device_type(q) == "cuda":
         return _ss.ssm_scan(q, k, v, log_decay, bonus, initial_state)
     return gla.gla_chunked(q, k, v, log_decay, bonus=bonus,
@@ -159,11 +208,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     adds the sliding window. Returns (B, H, S, D) in q's dtype. The CPU
     path runs the model's chunked online softmax over kv chunks of
     ``chunk`` (default ``ref.ATTN_CHUNK``; one pass when S <= chunk)."""
-    if _device_type(q) == "cuda":
-        return _fa.flash_attention(q, k, v, window)
-    return ref.attention_chunked(q, k, v, window=window,
-                                 chunk=ref.ATTN_CHUNK if chunk is None
-                                 else chunk)
+    chunk = ref.ATTN_CHUNK if chunk is None else chunk
+
+    def forward(q, k, v):
+        if _device_type(q) == "cuda":
+            return _fa.flash_attention(q, k, v, window)
+        return ref.attention_chunked(q, k, v, window=window, chunk=chunk)
+
+    if _needs_grad(q, k, v):
+        return vjp.Attention.apply(q, k, v, window, chunk, forward)
+    return forward(q, k, v)
 
 
 KERNELS = {"power_spectrum": _dft.power_spectrum,

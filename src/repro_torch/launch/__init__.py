@@ -1,1 +1,1 @@
-"""Launchers: the serving entry point."""
+"""Launchers: the serving and training entry points."""

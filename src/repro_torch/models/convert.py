@@ -1,8 +1,9 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and train states across from the JAX package.
 
 ``repro.models.lm.init_params`` gives a nested dict of arrays; handed over
 as numpy (``jax.tree.map(np.asarray, params)``), it maps onto the port's
-tensors key for key, since both packages use the same tree. bfloat16
+tensors key for key, since both packages use the same tree; so does
+``repro.train.init_train_state``'s state (``train_state_from_numpy``). bfloat16
 arrives as ``float32`` (exact: every bf16 value is an f32 value), as
 ``uint16`` bit patterns, or as an array whose dtype is named ``bfloat16``
 (read through its bits, so this module needs no package that defines it).
@@ -52,3 +53,33 @@ def params_from_numpy(cfg: ArchConfig, params: Dict[str, Any], *,
         return _tensor(arr, w.dtype).to(dev)
 
     return walk(want, params, "")
+
+
+def train_state_from_numpy(cfg: ArchConfig, state: Dict[str, Any], *,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state from the JAX package's
+    (``repro.train.init_train_state`` after any number of steps), as numpy:
+    ``{"params", "opt": {"m", "v", "master", "count"} (AdamW) or
+    {"v": {"vr", "vc"} or {"v"} per leaf, "count"} (Adafactor), "step"}``.
+    Params take ``params_from_numpy``'s dtypes, moments and master f32,
+    ``count`` and ``step`` int32 0-dim, leaf for leaf."""
+    dev = resolve_device(device)
+    params = params_from_numpy(cfg, state["params"], device=dev)
+    opt = state["opt"]
+    if set(opt) != ({"v", "count"} if cfg.optimizer == "adafactor"
+                    else {"m", "v", "master", "count"}):
+        raise ValueError(f"opt keys {sorted(opt)} do not fit "
+                         f"{cfg.optimizer!r}")
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return _tensor(np.asarray(tree), torch.float32).to(dev)
+
+    def int32(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=dev)
+
+    moments = {k: f32(v) for k, v in opt.items() if k != "count"}
+    return {"params": params, "opt": {**moments, "count": int32(opt["count"])},
+            "step": int32(state["step"])}

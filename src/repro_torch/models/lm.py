@@ -25,17 +25,25 @@ Prefill's attention layers (``attn``, ``shared_attn``) go through
 ``ops.flash_attention``: kernel B5 on the card, the chunked plain version
 on the CPU; decode attention is plain torch.
 
+Training: ``lm_loss`` runs the same layers with grad on (``_forward``),
+each layer of a uniform stack or each hybrid group under
+``torch.utils.checkpoint`` when ``cfg.remat`` is ``block`` or ``full``.
+B5 and B4 run forward there; their backward is plain PyTorch
+(``kernels/vjp.py``). ``forward`` (prefill) and ``decode_step`` stay under
+``torch.no_grad()``, which their in-place cache writes need.
+
 Not ported yet: the ``prefix_dense`` (kimi-k2) wiring and the ``moe`` kind
-(slice 4 of the port, with the MoE layer), and ``lm_loss`` with training
-(slice 3); each raises ``NotImplementedError``.
+(slice 4 of the port, with the MoE layer); each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
@@ -185,7 +193,9 @@ def _positions(cfg: ArchConfig, batch: Batch, Bsz: int, S: int,
 
 
 def _embed(cfg: ArchConfig, params: Params, batch: Batch) -> torch.Tensor:
-    x = params["embed"][batch["tokens"].long()]
+    # F.embedding, not indexing: on the card its backward is deterministic,
+    # an indexed gather's (index_put_ with accumulate) is not
+    x = F.embedding(batch["tokens"].long(), params["embed"])
     if cfg.frontend_prefix and "prefix_embeds" in batch:
         pe = batch["prefix_embeds"].to(x.dtype)   # (B, P, d) stub frontend
         x = x.clone()
@@ -199,23 +209,43 @@ def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def _layer(stack: Params, i: int) -> Params:
-    return tree.map(lambda a: a[i], stack)
+def _unstack(stack: Any, n: int) -> List[Any]:
+    """The ``n`` layers of a stacked tree as views along dim 0 (``unbind``:
+    in backward, one stacked gradient per leaf)."""
+    if isinstance(stack, torch.Tensor):
+        return list(stack.unbind(0))
+    parts = {k: _unstack(v, n) for k, v in stack.items()}
+    return [{k: parts[k][i] for k in stack} for i in range(n)]
+
+
+def _units(cfg: ArchConfig, params: Params):
+    """The layers in order, grouped as the reference scans (and remats)
+    them: each layer of a uniform stack, each group of the hybrid (its
+    Mamba2 layers, then the shared attention block). A unit is a list of
+    (kind, layer params, cache key, index in that cache)."""
+    if wiring_mode(cfg) == "uniform":
+        kind = cfg.block_pattern[0]
+        for i, lp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
+            yield [(kind, lp, kind, i)]
+        return
+    n_groups, per = _group_shape(cfg)
+    for g, group in enumerate(_unstack(params["mamba"], n_groups)):
+        yield ([("mamba", lp, "mamba", g * per + j)
+                for j, lp in enumerate(_unstack(group, per))]
+               + [("shared_attn", params["shared_attn"], "shared_attn", g)])
 
 
 def _layers(cfg: ArchConfig, params: Params):
     """(kind, layer params, cache key, index in that cache) in order."""
-    if wiring_mode(cfg) == "uniform":
-        kind = cfg.block_pattern[0]
-        for i in range(cfg.num_layers):
-            yield kind, _layer(params["blocks"], i), kind, i
-        return
-    n_groups, per = _group_shape(cfg)
-    for g in range(n_groups):
-        group = _layer(params["mamba"], g)
-        for j in range(per):
-            yield "mamba", _layer(group, j), "mamba", g * per + j
-        yield "shared_attn", params["shared_attn"], "shared_attn", g
+    for unit in _units(cfg, params):
+        yield from unit
+
+
+def _apply_unit(unit, cfg: ArchConfig, x: torch.Tensor,
+                angles: Optional[torch.Tensor]) -> torch.Tensor:
+    for kind, lp, _, _ in unit:
+        x, _ = apply_block(kind, lp, cfg, x, angles, None, None)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -243,25 +273,41 @@ def _angles(cfg: ArchConfig, positions: torch.Tensor):
 @torch.no_grad()
 def forward(params: Params, cfg: ArchConfig, batch: Batch, *,
             want_cache: bool = False, cache_len: int = 0):
-    """Full-sequence forward. Returns (hidden, aux_loss, cache-or-None).
+    """Full-sequence forward without grad (prefill). Returns (hidden,
+    aux_loss, cache-or-None).
 
     ``want_cache`` (prefill): also build the decode cache with capacity
     ``cache_len`` (>= S; SWA archs use min(cache_len, window)), each layer's
     K/V or state written into it as the layer runs."""
+    return _forward(params, cfg, batch, want_cache=want_cache,
+                    cache_len=cache_len)
+
+
+def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
+             want_cache: bool = False, cache_len: int = 0,
+             remat: bool = False):
+    """``forward`` in the caller's grad mode. Training (no cache) runs each
+    unit of ``_units`` under ``torch.utils.checkpoint`` when ``remat``, as
+    the reference's ``jax.checkpoint`` wraps its scanned body: the unit's
+    activations are recomputed in backward, its kernels launched again."""
     _require_ported(cfg)
     Bsz, S = batch["tokens"].shape
     x = _embed(cfg, params, batch)
     angles = _angles(cfg, _positions(cfg, batch, Bsz, S))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    cache = None
-    if want_cache:
-        cache = init_cache(cfg, Bsz, cache_len, device=x.device)
-        cache["pos"].fill_(S)
-        src = _ring_src(S, _kv_window(cfg, cache_len), x.device)
+    if not want_cache:
+        for unit in _units(cfg, params):
+            if remat:
+                x = checkpoint(_apply_unit, unit, cfg, x, angles,
+                               use_reentrant=False)
+            else:
+                x = _apply_unit(unit, cfg, x, angles)
+        return x, aux_total, None
+    cache = init_cache(cfg, Bsz, cache_len, device=x.device)
+    cache["pos"].fill_(S)
+    src = _ring_src(S, _kv_window(cfg, cache_len), x.device)
     for kind, lp, key, i in _layers(cfg, params):
         x, c = apply_block(kind, lp, cfg, x, angles, None, None)
-        if not want_cache:
-            continue
         if kind in ATTN_KINDS:
             rings = cache[key]
             for name, t in zip(("k", "v"), c):
@@ -341,6 +387,28 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     return cache
 
 
-def lm_loss(*_args, **_kwargs):
-    raise NotImplementedError("training (lm_loss, train steps) is ported in "
-                              "slice 3 of the port (ROADMAP Queue A)")
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def lm_loss(params: Params, cfg: ArchConfig, batch: Batch):
+    """Next-token cross entropy plus z-loss (and the MoE aux loss, 0 for
+    every wiring ported) in the caller's grad mode, with ``cfg.remat``'s
+    recomputation. Targets < 0 are masked; the logits go to logsumexp in
+    f32. Returns (loss, {ce, z_loss, aux_loss, tokens}), the metrics
+    detached."""
+    x, aux, _ = _forward(params, cfg, batch,
+                         remat=cfg.remat in ("block", "full"))
+    logits = _head(cfg, params, x).float()                # (B, S, V)
+    targets = batch["targets"]
+    mask = (targets >= 0).float()
+    tgt = targets.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    tokens = torch.sum(mask)
+    denom = torch.clamp(tokens, min=1.0)
+    ce = torch.sum(nll) / denom
+    zl = cfg.z_loss * torch.sum(torch.square(logz) * mask) / denom
+    loss = ce + zl + aux
+    return loss, {"ce": ce.detach(), "z_loss": zl.detach(),
+                  "aux_loss": aux.detach(), "tokens": tokens}
