@@ -17,16 +17,23 @@ full-refit seconds, and the traced refit's device time). With
 replicas ``chip_smoke.py`` serves (danube3, zamba2, rwkv6, qwen3)
 prefills 16 x 4,096 tokens three times on the host clock (the first
 also CUDA-event timed, and its peak memory read), then decodes 8 steps.
-Each checkout builds its own kernels into its own ``build/``. Run from a
-checkout on a machine with one CUDA device:
+With ``--train`` it times training instead: ``chip_smoke.phase_train``'s
+full-width internlm2-1.8b on 4 x 2,048 tokens, a warm-up and 6 steps with
+telemetry, each on the host clock and by CUDA events, with its peak
+allocated and reserved memory. ``--alloc-b CONF`` runs b's processes with
+``PYTORCH_CUDA_ALLOC_CONF=CONF`` and a's without it (the same checkout on
+both sides compares two allocator settings). Each checkout builds its own
+kernels into its own ``build/``. Run from a checkout on a machine with
+one CUDA device:
 
     python3 scripts/torch_kernel_ab.py --a PATH_TO_OTHER_CHECKOUT [--b .]
-        [--tick | --prefill]
+        [--tick | --prefill | --train] [--alloc-b CONF]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -155,6 +162,41 @@ for arch in (cs.ARCH, cs.SSM_ARCH, cs.RWKV_ARCH, cs.DENSE_ARCH):
 print("RESULT " + json.dumps(out))
 '''
 
+TRAIN_CHILD = r'''
+import json, pathlib, sys, time
+tree = pathlib.Path(sys.argv[1]).resolve()
+sys.path[:0] = [str(tree), str(tree / "src")]
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticCorpus
+from repro_torch.kernels import build
+from repro_torch.train import init_train_state, make_train_step
+build.build_all(["flash_attention", "dirty_delta"])
+cfg = get_config(cs.TRAIN_ARCH)
+state = init_train_state(cfg, cs.SEED, device="cuda")
+corpus = SyntheticCorpus(cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, seed=cs.SEED)
+step = make_train_step(cfg, telemetry=True)
+out = {k: [] for k in ("host_ms", "event_ms", "peak_gb", "reserved_gb")}
+for i in range(7):
+    batch = cs._train_batch(torch, corpus, i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    a.record()
+    state, m = step(state, batch)
+    b.record()
+    torch.cuda.synchronize()
+    out["host_ms"].append(1e3 * (time.perf_counter() - t))
+    out["event_ms"].append(a.elapsed_time(b))
+    out["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+    out["reserved_gb"].append(torch.cuda.max_memory_reserved() / 1e9)
+out["loss"] = float(m["loss"])
+print("RESULT " + json.dumps(out))
+'''
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -165,9 +207,20 @@ def main() -> int:
                       help="time the surveillance tick, not the kernels")
     mode.add_argument("--prefill", action="store_true",
                       help="time the replicas' prefill and decode")
+    mode.add_argument("--train", action="store_true",
+                      help="time full-width internlm2 train steps")
+    ap.add_argument("--alloc-b", default=None, metavar="CONF",
+                    help="PYTORCH_CUDA_ALLOC_CONF of b's processes (a's "
+                         "run without it)")
     args = ap.parse_args()
     child = (TICK_CHILD if args.tick else PREFILL_CHILD if args.prefill
-             else CHILD)
+             else TRAIN_CHILD if args.train else CHILD)
+    envs = {"a": {k: v for k, v in os.environ.items()
+                  if k != "PYTORCH_CUDA_ALLOC_CONF"}, "b": dict(os.environ)}
+    if args.alloc_b is not None:
+        envs["b"]["PYTORCH_CUDA_ALLOC_CONF"] = args.alloc_b
+    else:
+        envs["a"] = envs["b"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -176,13 +229,15 @@ def main() -> int:
     for label, tree in (("a", args.a), ("b", args.b), ("b", args.b),
                         ("a", args.a)):
         run = subprocess.run([sys.executable, "-c", child, tree],
-                             capture_output=True, text=True, timeout=900)
+                             capture_output=True, text=True, timeout=900,
+                             env=envs[label])
         lines = [ln for ln in run.stdout.splitlines()
                  if ln.startswith("RESULT ")]
         if run.returncode or not lines:
             print(run.stderr[-4000:], file=sys.stderr)
             return 1
         print(label, pathlib.Path(tree).resolve().name,
+              envs[label].get("PYTORCH_CUDA_ALLOC_CONF", "-"),
               json.dumps(json.loads(lines[0][7:])), flush=True)
     return 0
 

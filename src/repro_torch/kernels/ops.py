@@ -109,25 +109,34 @@ def dirty_blocks(new: torch.Tensor, old: torch.Tensor,
     return d[:, 0] > threshold
 
 
+def _card_deltas(news: Sequence[torch.Tensor],
+                 olds: Sequence[torch.Tensor], block: int
+                 ) -> List[Tuple[List[int], torch.Tensor, List[int]]]:
+    """B3 on the float pairs that lie on a card, those of each card
+    together in one launch per ``dirty_delta.MAX_LEAVES`` pairs -> per
+    card (the pairs' indices, their per-block maxima end to end, each
+    pair's ``ceil(n_i / block)``)."""
+    cards: Dict[torch.device, List[int]] = {}
+    for i, new in enumerate(news):
+        if new.dtype.is_floating_point and _on_card(new):
+            cards.setdefault(new.device, []).append(i)
+    return [(idx, _dd.max_abs_delta_many([news[i] for i in idx],
+                                         [olds[i] for i in idx], block),
+             [-(-news[i].numel() // block) for i in idx])
+            for idx in cards.values()]
+
+
 def dirty_blocks_many(news: Sequence[torch.Tensor],
                       olds: Sequence[torch.Tensor], threshold: float = 0.0,
                       *, block: int) -> Tuple[List[torch.Tensor], List[int]]:
     """``dirty_blocks`` of each pair, read flat -> (one (ceil(n_i / block),)
     bool mask per pair, each pair's number of dirty blocks). The float
-    pairs on each card go to B3 together, in one launch per
-    ``dirty_delta.MAX_LEAVES`` pairs, before the rest; the counts come
-    back in one transfer per device."""
+    pairs on each card go to B3 together (``_card_deltas``) before the
+    rest; the counts come back in one transfer per device."""
     masks: List[Optional[torch.Tensor]] = [None] * len(news)
     parts = []                       # (pairs, their counts on a device)
-    cards: Dict[torch.device, List[int]] = {}
-    for i, new in enumerate(news):
-        if new.dtype.is_floating_point and _on_card(new):
-            cards.setdefault(new.device, []).append(i)
-    for idx in cards.values():
-        d = _dd.max_abs_delta_many([news[i] for i in idx],
-                                   [olds[i] for i in idx], block)
+    for idx, d, sizes in _card_deltas(news, olds, block):
         dirty = d > threshold
-        sizes = [-(-news[i].numel() // block) for i in idx]
         run = torch.zeros(d.numel() + 1, dtype=torch.int64, device=d.device)
         torch.cumsum(dirty, 0, out=run[1:])
         ends, e = [run[0]], 0
@@ -157,23 +166,16 @@ def block_deltas(news: Sequence[torch.Tensor], olds: Sequence[torch.Tensor],
                  *, block: int) -> List[torch.Tensor]:
     """Per-block ``max |f32(new) - f32(old)|`` of float pairs, read flat ->
     one (ceil(n_i / block),) f32 tensor per pair, NaN where a block holds a
-    NaN difference. The pairs on each card go to B3 together (one launch
-    per ``dirty_delta.MAX_LEAVES`` pairs), CPU pairs to the plain
-    version."""
+    NaN difference. The pairs on each card go to B3 together
+    (``_card_deltas``), CPU pairs to the plain version."""
     out: List[Optional[torch.Tensor]] = [None] * len(news)
-    cards: Dict[torch.device, List[int]] = {}
     for i, new in enumerate(news):
         if not new.dtype.is_floating_point:
             raise ValueError(f"block_deltas takes float pairs, got "
                              f"{new.dtype}")
-        if _on_card(new):
-            cards.setdefault(new.device, []).append(i)
-        else:
+        if not _on_card(new):
             out[i] = ref.max_abs_delta_ref(new, olds[i], block)[:, 0]
-    for idx in cards.values():
-        d = _dd.max_abs_delta_many([news[i] for i in idx],
-                                   [olds[i] for i in idx], block)
-        sizes = [-(-news[i].numel() // block) for i in idx]
+    for idx, d, sizes in _card_deltas(news, olds, block):
         for i, part in zip(idx, d.split(sizes)):
             out[i] = part
     return out

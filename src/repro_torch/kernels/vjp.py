@@ -10,7 +10,10 @@ kernel on a CUDA tensor, the plain version on the CPU), saves its inputs,
 and in backward takes the VJP of the plain chunked function
 (``ref.attention_chunked``, ``gla.gla_chunked``), recomputed under
 ``torch.enable_grad()``. That backward is plain PyTorch on every device;
-it replaces no kernel.
+it replaces no kernel. It runs the plain forward again, graph and all,
+before it differentiates it: the kernel's output is not reused. A backward
+that starts from the saved output and a per-row logsumexp (which B5 does
+not emit yet) would not run the plain forward.
 
 The scan's gradient flows to ``y`` only; its final state is not
 differentiated (training never reads it). Inputs given as stride-0 views

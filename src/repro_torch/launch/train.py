@@ -5,6 +5,11 @@ default) through the fault-tolerant ``Trainer``: checkpoints and restart,
 per-step ALMA telemetry. ``--device`` defaults to the card and raises
 without one.
 
+The launcher sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
+(unless the caller sets its own) before torch is imported: a full-size
+state pre-copied on its own card (``runtime/elastic.rescale``) fits only
+in segments that grow in place.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2_1p8b \\
       --steps 20 [--full] [--device cpu]
 """
@@ -15,8 +20,10 @@ import json
 import os
 import tempfile
 
-from repro_torch.configs import get_config
-from repro_torch.runtime.trainer import Trainer, TrainerConfig
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 
 
 def main(argv=None):

@@ -42,7 +42,15 @@ def rescale(cfg: ArchConfig, state, step_once: Callable[[Any], Any],
 
     ``step_once(state) -> state`` advances training on the source (keeps
     the job live during the copy rounds). Returns (the destination's state,
-    bit-equal to the source's at the stop-and-copy, and the report)."""
+    bit-equal to the source's at the stop-and-copy, and the report).
+
+    Memory: ``dst`` holds a second copy of the state beside the source and
+    a step's transients. With ``dst`` the source's own card, internlm2-1.8b
+    at full size (26.5 GB of state, a 16 GB step) fits an 80 GB card only
+    when the caching allocator's segments grow in place: the caller sets
+    ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` before torch
+    starts CUDA, as ``launch/train.py`` and ``chip_smoke.py`` do. Without
+    it the free room strands in split blocks and the round runs out."""
     pcfg = pcfg or precopy.PrecopyConfig()
     dst = torch.device(dst)
     box = {"state": state}

@@ -631,3 +631,41 @@ def test_dirty_blocks_many_card_branch_counts(monkeypatch):
         np.testing.assert_array_equal(g.numpy(), want.numpy())
         assert c == int(want.sum())
     assert counts[1] == 0 and counts[-1] == 1 and sum(counts) > 3
+
+
+def test_block_deltas_card_branch_splits_one_launch(monkeypatch):
+    """The card branch of ``block_deltas`` (B3's maxima for a tree, as
+    the train step's telemetry reads them), with B3 replaced by its plain
+    version so it runs here: pairs of several lengths and dtypes, an empty
+    one and a NaN block go out in one call and come back per pair equal to
+    the plain maxima, NaN kept; an integer pair is refused."""
+    block = 64
+    news, olds = [], []
+    for i, (n, dtype) in enumerate([(5 * block + 3, "float32"),
+                                    (0, "float32"), (block, "bfloat16"),
+                                    (7 * block, "float32"), (2, "float16")]):
+        new, old = _leaf_pair(70 + i, max(n, 1), block, dtype,
+                              nan_block=1 if i == 3 else None)
+        news.append(_as_torch(new, dtype)[:n])
+        olds.append(_as_torch(old, dtype)[:n])
+    calls = []
+
+    def plain_many(ns, os_, blk):
+        calls.append(len(ns))
+        return torch.cat([ref.max_abs_delta_ref(a.reshape(-1), b.reshape(-1),
+                                                blk)[:, 0]
+                          for a, b in zip(ns, os_)])
+
+    monkeypatch.setattr(ops, "_on_card", lambda x: True)
+    monkeypatch.setattr(ops._dd, "max_abs_delta_many", plain_many)
+    got = ops.block_deltas(news, olds, block=block)
+    with pytest.raises(ValueError):
+        ops.block_deltas([torch.zeros(3, dtype=torch.int32)],
+                         [torch.ones(3, dtype=torch.int32)], block=block)
+    monkeypatch.undo()
+    assert calls == [5]
+    for g, n, o in zip(got, news, olds):
+        want = ref.max_abs_delta_ref(n, o, block)[:, 0]
+        assert g.shape == (-(-n.numel() // block),)
+        torch.testing.assert_close(g, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got[3][1])) and got[1].numel() == 0

@@ -470,3 +470,76 @@ def test_ops_without_grad_take_the_plain_path():
     assert ops.ssm_scan(k, k, k, -k.abs())[0].grad_fn is None
     assert issubclass(vjp.Attention, torch.autograd.Function)
     assert issubclass(vjp.Scan, torch.autograd.Function)
+
+
+def _smoke_check_module():
+    """``chip_smoke.py`` (the repository root's card smoke) as a module:
+    its train-check limits are tested here, on CPU-only runs."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_ATTENTION = vjp.Attention
+
+
+class _OffAttention(_ATTENTION):
+    """A forward kernel whose output is 1% off; the backward stays plain."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, chunk, forward):
+        return _ATTENTION.forward(ctx, q, k, v, window, chunk,
+                                  lambda *a: 1.01 * forward(*a))
+
+
+@pytest.mark.parametrize("fault", ["none", "update x0.9", "update sign",
+                                   "attention forward 1% off"])
+def test_smoke_train_check_fails_a_faulty_step(fault, monkeypatch):
+    """The smoke's card-against-CPU train check (``_train_errors``) on two
+    CPU runs of one f32 AdamW step of the internlm2 smoke config, one of
+    them faulty: an optimizer whose update is 0.9 of the true one (reads
+    ~0.1 lr, within the 2.5 lr a sign-blind limit allows), one whose update
+    has the wrong sign (~2 lr), and a forward attention 1% off (the first
+    moment's limit). Without a fault every error is 0."""
+    smoke = _smoke_check_module()
+    cfg = get_config("internlm2_1p8b").smoke().replace(param_dtype="float32")
+
+    def run(faulty):
+        state = init_train_state(cfg, 0, device="cpu")
+        if faulty:
+            monkeypatch.setattr(vjp, "Attention", _OffAttention)
+        state, m = make_train_step(cfg)(state, make_batch(cfg, 2, 32,
+                                                          device="cpu"))
+        monkeypatch.undo()
+        return {k: float(v) for k, v in m.items()}, state
+
+    p0 = tree.leaves(init_train_state(cfg, 0, device="cpu")["params"])
+    want = run(False)
+    mg, sg = run(fault == "attention forward 1% off")
+    if fault.startswith("update"):
+        f = 0.9 if fault == "update x0.9" else -1.0
+        start = {id(b): a for a, b in zip(p0, tree.leaves(sg["params"]))}
+        sg = dict(sg, params=tree.map(
+            lambda b: start[id(b)] + f * (b - start[id(b)]), sg["params"]))
+    errs, ok = smoke._train_errors(torch, (mg, sg), want)
+    print(f"{fault}: {errs}, within the limits: {ok}")
+    lim = smoke.TRAIN_CHECK
+    if fault == "none":
+        assert ok and errs["share"] > 0.5
+        assert all(errs[k] == 0 for k in ("loss", "grad_norm", "moment",
+                                          "update_lr"))
+        return
+    assert not ok
+    if fault == "update x0.9":
+        assert 0.05 < errs["update_lr"] < 0.2 and errs["moment"] == 0
+        shift = max(float((a - b).abs().max()) for a, b in zip(
+            tree.leaves(sg["params"]), tree.leaves(want[1]["params"])))
+        assert shift < 2.5 * want[0]["lr"]          # a sign-blind limit
+    elif fault == "update sign":
+        assert errs["update_lr"] > 1.5
+    else:
+        assert errs["moment"] > lim["moment"] and errs["grad_norm"] > 0
