@@ -1,11 +1,13 @@
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
 Drives the port's paths, the paper's ALMA decide loop at the fleet size
-its users run, live pre-copy of a full-width serving replica (attention
-and SSM-hybrid), serving of an RWKV model and of a full-width qwen3-8b,
-training of a full-width internlm2-1.8b and the live pre-copy of its
-training state, and holds every hand-written kernel against its plain
-PyTorch version:
+its users run (also under the adaptive concurrency controller and in a
+host-failure scenario), live pre-copy of a full-width serving replica
+(attention and SSM-hybrid), serving of an RWKV model, of a full-width
+qwen3-8b and of the MoE models (qwen3-moe-30b-a3b at full width and
+depth, kimi-k2's prefix-dense wiring at full width), training of a
+full-width internlm2-1.8b and the live pre-copy of its training state,
+and holds every hand-written kernel against its plain PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
                ``csrc/dirty_delta.cu``, ``csrc/ssm_scan.cu`` and
@@ -35,8 +37,14 @@ PyTorch version:
                against a CPU engine on 1,024 jobs; prints the (J, N, L)
                of each lag-score call it made;
   4. fleet   — quickstart steps 2-3 and an 8-job ``run_with_plan``,
-               ``alma-paper`` against ``immediate``, checked against the
-               same runs on the CPU;
+               ``alma-paper`` against ``immediate``, then ``alma-paper``
+               with ``adaptive_concurrency=True`` and with ``horizon=True``
+               and the suite's ``node_failure`` scenario, each checked
+               against the same run on the CPU (selections,
+               ``scheduled_at``, ``SimResult``) and each launching both
+               cycle-fit kernels; every (B, N) of the spectrum and (J, N,
+               lags) of the lag scores these card runs sent is then held
+               against the plain version as in phase 2;
   5. serve   — the dirty-block kernel against its plain version, bit for
                bit (the 1.89 GB bf16 ``w_gate`` stack, f32, f16 and f64
                leaves, a ragged tail, an unaligned view, a NaN block); then
@@ -86,7 +94,11 @@ PyTorch version:
                times of B5, the plain version and
                ``scaled_dot_product_attention`` at zamba2's, qwen3's and
                danube's prefill shapes, B5 there held against the oracle
-               too. After phase 6, ``qwen3_8b`` at full width and depth
+               too; the same at the MoE prefills' head shapes (qwen3-moe's
+               (8, 32, 4, 4,096, 128); the reference's kimi-k2, whose GQA
+               at D = 112 stands in for Kimi-K2's MLA, (4, 64, 8, 4,096,
+               112)), each bit-equal on a second launch. After phase 6,
+               ``qwen3_8b`` at full width and depth
                (bf16, 8.19e9 params) prefills 16 x 4,096 tokens (36 B5
                launches), decodes 8 steps and prefills again with CUDA
                events; then 2 layers deep in f32, prompt 1,024, on the
@@ -112,13 +124,31 @@ PyTorch version:
                injected at step 7, restored to the uninterrupted run's
                final loss bit for bit, and an incremental checkpointer (a
                full save and 4 deltas, B3 once a delta) whose every
-               restore is bit-exact.
+               restore is bit-exact;
+  9. moe     — after phase 8's memory is released, ``qwen3_moe_30b_a3b``
+               at full width and depth (bf16, 30.5e9 seeded params, 61.06
+               GB) prefills 8 x 4,096 tokens (48 B5 launches; 16 x 4,096
+               does not fit beside the weights), decodes 8 steps and
+               prefills again with CUDA events around attention, B5,
+               routing, dispatch, the expert products and the combine,
+               counting each layer's capacity drops, then once more at a
+               routing within capacity (``_balance_routers``); one MoE
+               layer is relaunched bit-equal; ``kimi_k2_1t_a32b`` at full
+               width (its attention the reference's GQA), 2
+               layers deep (its dense layer and one MoE layer of 384
+               experts; 39.87 GB), prefills 4 x 4,096 (2 B5 launches at D
+               = 112) and decodes 4 steps; then card against CPU in f32
+               (qwen3-moe 2 layers at full width, kimi-k2's smoke
+               config): every MoE call's routing, drops and output judged
+               on the card's input (``_judge_routing``: near ties counted,
+               outputs held where the routing agrees).
 
 Every phase raises on failure. The kernels' launch counters are set to 0
-before each path (phases 3, 4, 5's prefill and migration, 6's two
-prefills and its migration, 7's prefill, 8's counted steps, its
-migration, its card-against-CPU steps, its trainers and its incremental
-checkpoints) and read after it: each kernel of the path must have run in
+before each path (phases 3, 4 and each of its controller and scenario
+runs, 5's prefill and migration, 6's two prefills and its migration, 7's
+prefill, 8's counted steps, its migration, its card-against-CPU steps,
+its trainers and its incremental checkpoints, 9's two counted prefills)
+and read after it: each kernel of the path must have run in
 it. The last lines are the card
 (``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
 "device": ...}``.
@@ -127,6 +157,7 @@ Run from the repository root with one CUDA device: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -244,17 +275,7 @@ def phase_kernels(torch, ops_mod, ref, dft, autocorr):
     for B, N in [(FLEET, WINDOW), (1024, 4096), (37, 600), (8, 1440),
                  (8, 2880), (64, 2), (64, 3), (64, 7), (16, 16384),
                  (37, 1031)]:
-        x = torch.randn(B, N, device="cuda", generator=g) + 3.0
-        got = dft.power_spectrum(x, center=True)
-        want = ref.power_spectrum_ref(x, center=True)
-        torch.cuda.synchronize()
-        atol = 2e-2 if N <= 2048 else 1e-5 * float(want.max())
-        err = (got - want).abs()
-        if not bool((err <= 2e-4 * want.abs() + atol).all()):
-            raise AssertionError(f"dft_power disagrees at {(B, N)}: max abs "
-                                 f"err {float(err.max())}")
-        if not torch.equal(got, dft.power_spectrum(x, center=True)):
-            raise AssertionError(f"dft_power not deterministic at {(B, N)}")
+        x, err, atol = _dft_case(torch, ref, dft, g, B, N)
         ms = _median_ms(lambda: dft.power_spectrum(x, center=True))
         plain = _median_ms(lambda: ref.power_spectrum_ref(x, center=True), 5)
         lib = _median_ms(lambda: torch.fft.rfft(
@@ -300,6 +321,25 @@ def phase_kernels(torch, ops_mod, ref, dft, autocorr):
         if (J, N) == (FLEET, WINDOW):
             records["autocorr"] = rec
     return records
+
+
+def _dft_case(torch, ref, dft, g, B, N):
+    """B1 against its plain version on B seeded rows of N (offset 3, so
+    ``center`` matters): rtol 2e-4, atol 2e-2 up to N = 2048 and 1e-5 of
+    the spectrum's peak above, a second launch bit-equal. Returns (x, the
+    element-wise error, atol)."""
+    x = torch.randn(B, N, device="cuda", generator=g) + 3.0
+    got = dft.power_spectrum(x, center=True)
+    want = ref.power_spectrum_ref(x, center=True)
+    torch.cuda.synchronize()
+    atol = 2e-2 if N <= 2048 else 1e-5 * float(want.max())
+    err = (got - want).abs()
+    if not bool((err <= 2e-4 * want.abs() + atol).all()):
+        raise AssertionError(f"dft_power disagrees at {(B, N)}: max abs "
+                             f"err {float(err.max())}")
+    if not torch.equal(got, dft.power_spectrum(x, center=True)):
+        raise AssertionError(f"dft_power not deterministic at {(B, N)}")
+    return x, err, atol
 
 
 def _runs(routes) -> str:
@@ -526,31 +566,83 @@ def _traced(torch, fn, tag: str):
     return wall_us, busy_us
 
 
-def _fleet_run(policy, device):
+def _fleet_run(policy, device, **kw):
     from repro_torch.core import fleetsim as fs
     from repro_torch.core.orchestrator import MigrationRequest
     traces = fs.table3_traces(phase_s=60.0, replicas=2)
     jobs = [fs.SimJob(j, tr, 1e9 + 1e8 * i)
             for i, (j, tr) in enumerate(traces.items())]
     sim = fs.FleetSim(jobs, policy=policy, warmup_s=1200.0, seed=3,
-                      device=device)
+                      device=device, **kw)
     plan = [MigrationRequest(j.job_id, sim.now + 37.0 * i, j.v_bytes)
             for i, j in enumerate(jobs)]
     return sim.run_with_plan(plan, horizon_s=3600.0)
 
 
+@contextlib.contextmanager
+def _capturing(ops_mod, seen):
+    """Record the shape of every B1 call, (B, N), and every B2 call,
+    (J, N, lags), that the cycle fit makes through ``ops`` while the block
+    runs, into ``seen["dft_power"]`` and ``seen["autocorr"]``. The launch
+    counters stay on the kernels' wrappers."""
+    spectrum, scores = ops_mod.power_spectrum, ops_mod.autocorr_score
+
+    def spectrum_rec(x, **kw):
+        seen["dft_power"].add(tuple(x.shape))
+        return spectrum(x, **kw)
+
+    def scores_rec(x, lags):
+        seen["autocorr"].add((*x.shape, tuple(lags.tolist())))
+        return scores(x, lags)
+
+    ops_mod.power_spectrum, ops_mod.autocorr_score = spectrum_rec, scores_rec
+    try:
+        yield
+    finally:
+        ops_mod.power_spectrum, ops_mod.autocorr_score = spectrum, scores
+
+
+def _hold_captured(torch, seen):
+    """Phase 2's B1 and B2 checks, at phase 2's tolerances, on seeded
+    inputs at each distinct shape in ``seen`` (from ``_capturing``)."""
+    from repro_torch.kernels import autocorr, dft, ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst, routes = 0.0, {}
+    for B, N in sorted(seen["dft_power"]):
+        _, err, _ = _dft_case(torch, ref, dft, g, B, N)
+        worst = max(worst, float(err.max()))
+        routes[dft.route(N)] = routes.get(dft.route(N), 0) + 1
+    print(f"[fleet] B1 received {len(seen['dft_power'])} distinct (B, N): "
+          + ", ".join(f"({B}, {N})" for B, N in sorted(seen["dft_power"])))
+    print(f"[fleet] B1 held at each (phase 2's tolerance, bit-equal "
+          f"relaunch): routes {routes}, max_abs_err {worst:.6g}")
+    print(f"[fleet] B2 received {len(seen['autocorr'])} distinct "
+          "(J, N, L, lags): " + ", ".join(
+              f"({J}, {N}, {len(lags)}, {lags[0]}..{lags[-1]})"
+              for J, N, lags in sorted(seen["autocorr"])))
+    for J, N, lags in sorted(seen["autocorr"]):
+        _autocorr_case(torch, ref, autocorr, g, J, N,
+                       torch.tensor(lags, dtype=torch.int32))
+
+
 def phase_fleet(torch, ops_mod):
+    """The quickstart and the 8-job fleet under ``alma-paper`` and
+    ``immediate`` on the card against CPU runs, then the controller's runs
+    (``phase_controller``); every B1 and B2 shape the card runs sent is
+    then held against its plain version. Returns the launches of both."""
     from repro_torch.core import fleetsim as fs
     from repro_torch.core.orchestrator import MigrationRequest
 
+    seen = {"dft_power": set(), "autocorr": set()}
     ops_mod.reset_launch_counts()
     t0 = time.perf_counter()
     trace = fs.WorkloadTrace([("MEM", 30), ("CPU", 60), ("IDLE", 30)], 3600)
-    sim = fs.FleetSim([fs.SimJob("job0", trace, v_bytes=1e9)],
-                      policy="alma-paper", warmup_s=600.0, device="cuda")
-    model = sim.lmcm.refresh_job("job0")
-    req = sim.run_with_plan([MigrationRequest("job0", sim.now, 1e9)],
-                            horizon_s=600.0).migrations[0]
+    with _capturing(ops_mod, seen):
+        sim = fs.FleetSim([fs.SimJob("job0", trace, v_bytes=1e9)],
+                          policy="alma-paper", warmup_s=600.0, device="cuda")
+        model = sim.lmcm.refresh_job("job0")
+        req = sim.run_with_plan([MigrationRequest("job0", sim.now, 1e9)],
+                                horizon_s=600.0).migrations[0]
     print(f"[fleet] quickstart: period {model.period} (truth 120), "
           f"confidence {model.confidence:.4f}, requested t={req.created_at:.0f}"
           f" ({trace.phase_at(req.created_at)}), fired t={req.scheduled_at:.0f}"
@@ -560,7 +652,8 @@ def phase_fleet(torch, ops_mod):
     results = {}
     for policy in ("alma-paper", "immediate"):
         t1 = time.perf_counter()
-        res = _fleet_run(policy, "cuda")
+        with _capturing(ops_mod, seen):
+            res = _fleet_run(policy, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         ref = _fleet_run(policy, "cpu")
@@ -584,7 +677,97 @@ def phase_fleet(torch, ops_mod):
     if results["alma-paper"].total_bytes >= \
             results["immediate"].total_bytes:
         raise AssertionError("alma-paper moved no fewer bytes than immediate")
-    return launches
+    controller = phase_controller(torch, ops_mod, seen)
+    _hold_captured(torch, seen)
+    return launches, controller
+
+
+def _same_within(a, b, rtol: float = 1e-9) -> bool:
+    """Equal nested values: floats within ``rtol`` (NaN equal to NaN),
+    everything else exactly."""
+    if isinstance(a, float) and isinstance(b, float):
+        return (math.isnan(a) and math.isnan(b)) or a == b or \
+            abs(a - b) <= rtol * max(abs(a), abs(b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same_within(a[k], b[k], rtol)
+                                            for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_same_within(x, y, rtol)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def _sim_record(res):
+    """A ``SimResult`` as plain values: per migration its decision,
+    schedule, path and outcome, then the totals and per-link bytes."""
+    return {"migrations": [
+        (r.job_id, r.created_at, r.scheduled_at, r.decision,
+         tuple(r.path or ()), r.outcome.stop_reason, r.outcome.rounds,
+         float(r.outcome.bytes_sent), float(r.outcome.total_time),
+         float(r.outcome.downtime)) for r in res.migrations],
+        "total_bytes": float(res.total_bytes),
+        "total_time": float(res.total_time),
+        "makespan": float(res.makespan),
+        "lm_hit_rate": float(res.lm_hit_rate),
+        "link_bytes": {k: float(v) for k, v in res.link_bytes.items()},
+        "n_aborts": res.n_aborts, "n_retries": res.n_retries}
+
+
+def phase_controller(torch, ops_mod, seen):
+    """The admission controller on the card: the 8-job fleet under
+    ``alma-paper`` with ``adaptive_concurrency=True``, then with
+    ``horizon=True`` (trough-priced admission through the surveillance
+    engine's fits), and the suite's ``node_failure`` scenario (a host dies
+    mid-drain; aborts, retries, recovery). Each run's selections,
+    ``scheduled_at`` and ``SimResult`` (or report) equal its CPU run's
+    (floats within 1e-9), and each launches both cycle-fit kernels. The
+    card runs' B1 and B2 shapes go into ``seen`` (``_capturing``).
+    Returns the launches of the three runs."""
+    from repro_torch.scenarios import suite
+    runs = {
+        "adaptive_concurrency": lambda dev: _sim_record(_fleet_run(
+            "alma-paper", dev, adaptive_concurrency=True)),
+        "horizon": lambda dev: _sim_record(_fleet_run(
+            "alma-paper", dev, horizon=True)),
+        "node_failure": lambda dev: suite.node_failure(
+            policy="alma-paper", seed=SEED, device=dev),
+    }
+    total = {op: 0 for op in ops_mod.launch_counts()}
+    for name, run in runs.items():
+        ops_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _capturing(ops_mod, seen):
+            got = run("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops_mod.launch_counts()
+        want = run("cpu")
+        if not _same_within(got, want):
+            raise AssertionError(f"[fleet] {name}: the card's run differs "
+                                 f"from the CPU run")
+        if min(launches[op] for op in CYCLE_OPS) < 1:
+            raise AssertionError(f"[fleet] {name} did not run both "
+                                 f"cycle-fit kernels: {launches}")
+        if name == "node_failure":
+            if not (got["n_aborts"] > 0 and math.isfinite(got["rto_s"])
+                    and not got["failed_jobs"]):
+                raise AssertionError(f"node_failure did not fail and "
+                                     f"recover: {got}")
+            what = (f"{got['completed']} of {got['requested']} recovered, "
+                    f"{got['n_aborts']} aborts, {got['n_retries']} retries, "
+                    f"aborted {got['aborted_bytes'] / 1e9:.4f} GB, RTO "
+                    f"{got['rto_s']:.4f} s, makespan "
+                    f"{got['makespan_s']:.4f} s")
+        else:
+            what = (f"{len(got['migrations'])} migrations, "
+                    f"{got['total_bytes'] / 1e9:.4f} GB, makespan "
+                    f"{got['makespan']:.4f} s, lm_hit_rate "
+                    f"{got['lm_hit_rate']:.4f}")
+        print(f"[fleet] {name}: {what}, wall {wall:.4f} s (equal to the CPU "
+              f"run); launches {launches}")
+        for op, n in launches.items():
+            total[op] += n
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1243,11 +1426,14 @@ def _conv_dirty_blocks(conv_shape, seq_tokens, pos: int, block: int):
     return total - clean - unknown, total - clean
 
 
-def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str):
+def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str,
+                   parts=(), what: str = "prefill"):
     """Prefill once more with CUDA events around every layer, every B4
     launch and every B5 launch (``ops.flash_attention``: causal attention
-    over the prompt); print and return ms per part and its share of the
-    whole. The first B5 application's q, k, v and output are kept, and
+    over the prompt), and around each call of the functions ``parts``
+    names ((module, attribute, key) each); print and return ms per part
+    and its share of the whole (``what`` names the call timed, a decode
+    step too). The first B5 application's q, k, v and output are kept, and
     after the prefill B5 is held against ``ref.attention_ref`` on them
     (``_attn_check``): the real activations at batch 16. Launch counts and
     peak memory are not read here."""
@@ -1279,12 +1465,17 @@ def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str):
         f"{kind}_layers", apply_block)(kind, *a, **kw)
     ops_mod.ssm_scan = timed("b4_ssm_scan", scan)
     ops_mod.flash_attention = timed("b5_flash_attention", keep_first)
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in parts]
+    for mod, name, key in parts:
+        setattr(mod, name, timed(key, getattr(mod, name)))
     try:
         out = timed("prefill", prefill)(params, batch)
         torch.cuda.synchronize()
     finally:
         lm.apply_block, ops_mod.ssm_scan = apply_block, scan
         ops_mod.flash_attention = attention
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     del out
     ms, counts = {}, {}
     for key, a, b in pending:
@@ -1294,8 +1485,9 @@ def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str):
     counts.pop("prefill")
     parts = ", ".join(f"{k} x{counts[k]} {v:.4f} ms ({v / whole:.4f})"
                       for k, v in ms.items())
-    print(f"[{tag}] event-timed second prefill {whole:.4f} ms: {parts}")
-    split = {"prefill_event_ms": whole,
+    print(f"[{tag}] event-timed {'second prefill' if what == 'prefill' else what}"
+          f" {whole:.4f} ms: {parts}")
+    split = {f"{what.replace(' ', '_')}_event_ms": whole,
              **{f"{k}_ms": v for k, v in ms.items()}}
     if seen:
         q, k, v, window, got = seen.pop()
@@ -1689,7 +1881,10 @@ def phase_attention_kernel(torch, ref, fa):
     window at full width (S = 16,384) in f32 and bf16 against the chunked
     plain version, with its time against the causal one; times of B5, the
     plain version and the library call at zamba2's, qwen3's and danube's
-    prefill shapes. Returns the record at zamba2's shape."""
+    prefill shapes and at the MoE prefills' (qwen3-moe's G = 8; D = 112 of
+    the reference's kimi-k2, GQA standing in for Kimi-K2's MLA), those
+    also bit-equal on a second launch. Returns (the record
+    at zamba2's shape, the records at every prefill shape)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1791,15 +1986,23 @@ def phase_attention_kernel(torch, ref, fa):
         del q, k, v, got
         torch.cuda.empty_cache()
 
-    # times at the prefills' shapes (batch 16, bf16); danube's window of
-    # 4,096 covers its whole prompt, so SDPA runs it as plain causal
-    record = None
-    for name, (H, Hkv, D), window in (("zamba2", (32, 32, 80), 0),
-                                      ("qwen3", (32, 8, 128), 0),
-                                      ("danube3", (32, 8, 120), 4096)):
-        q, k, v = _attn_inputs(torch, g, SERVE_BATCH, H, Hkv, SERVE_PROMPT,
-                               D, bf16)
+    # times at the prefills' shapes (bf16: batch 16, the MoE models' 8 and
+    # 4); danube's window of 4,096 covers its whole prompt, so SDPA runs it
+    # as plain causal. The MoE shapes' G = 8 and kimi-k2's D = 112 (B5's
+    # D tiles zero-padded to 128) are also held bit-equal on a second
+    # launch.
+    record, times = None, {}
+    for name, (B, H, Hkv, D), window in (
+            ("zamba2", (SERVE_BATCH, 32, 32, 80), 0),
+            ("qwen3", (SERVE_BATCH, 32, 8, 128), 0),
+            ("danube3", (SERVE_BATCH, 32, 8, 120), 4096),
+            ("qwen3-moe", (MOE_BATCH, 32, 4, 128), 0),
+            ("kimi-k2", (PREFIX_BATCH, 64, 8, 112), 0)):
+        q, k, v = _attn_inputs(torch, g, B, H, Hkv, SERVE_PROMPT, D, bf16)
         got = fa.flash_attention(q, k, v, window)
+        if not torch.equal(got, fa.flash_attention(q, k, v, window)):
+            raise AssertionError(f"flash_attention not deterministic at "
+                                 f"{name}'s prefill shape")
         err, use = _attn_check(torch, ref, got, q, k, v, window,
                                f"{name}'s prefill shape")
         ms = _median_ms(lambda: fa.flash_attention(q, k, v, window))
@@ -1808,21 +2011,22 @@ def phase_attention_kernel(torch, ref, fa):
         lib = _median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
         bound, by = _attention_bound(q, k, window)
-        flops = 4.0 * SERVE_BATCH * H * \
-            _attention_pairs(SERVE_PROMPT, window) * D
+        flops = 4.0 * B * H * _attention_pairs(SERVE_PROMPT, window) * D
         print(f"[attn] flash_attention {name} prefill "
-              f"{(SERVE_BATCH, H, Hkv, SERVE_PROMPT, D)} bf16 window "
+              f"{(B, H, Hkv, SERVE_PROMPT, D)} bf16 window "
               f"{window}: max_abs_err {err:.6g} against attention_ref "
-              f"({use:.4f} of the limit); kernel {ms:.4f} ms "
+              f"({use:.4f} of the limit), bit-equal on a second launch; "
+              f"kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.4f} of the "
               f"bound) plain {plain:.4f} ms sdpa {lib:.4f} ms (kernel / sdpa "
               f"{ms / lib:.4f}) bound {bound:.6g} ms ({by})")
+        times[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bound, bound_by=by, library_ms=lib)
         if record is None:
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bound, bound_by=by, library_ms=lib)
+            record = times[name]
         del q, k, v, got
         torch.cuda.empty_cache()
-    return record
+    return record, times
 
 
 def phase_dense_serve(torch, ops_mod):
@@ -2399,6 +2603,389 @@ def phase_train_runtime(torch, ops_mod):
     return trainer_launches, inc_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: MoE serving: qwen3-moe at full width and depth, kimi-k2's
+# prefix-dense wiring at full width
+# ---------------------------------------------------------------------------
+MOE_ARCH, PREFIX_ARCH = "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b"
+# 61.06 GB of bf16 weights leave room for 8 x 4,096 prompt tokens (KV
+# 3.22 GB, ~4 GB of dispatch transients in a layer), not 16 x 4,096
+MOE_BATCH, MOE_STEPS = 8, 8
+# kimi-k2 at full width: its dense layer and one MoE layer of 384 experts
+# (39.87 GB in bf16); three layers would take 74.0 GB. Its attention is the
+# reference's GQA (64 heads, 8 KV heads, D = 112) in place of Kimi-K2's MLA
+PREFIX_LAYERS, PREFIX_BATCH, PREFIX_STEPS = 2, 4, 4
+ATTN_LAUNCHES.update({MOE_ARCH: 48, PREFIX_ARCH: PREFIX_LAYERS})
+# card against CPU in f32: a token whose top-k margin (its K-th router
+# probability less its (K+1)-th) exceeds ROUTE_MARGIN must get the same
+# experts on both; the f32 router products differ by ulps, ~1e-9 in
+# probability. Tokens at or below it are near ties, counted; at most
+# ROUTE_TIES_MAX of a call's tokens may be, and outputs are held where
+# the routing agrees.
+ROUTE_MARGIN = 1e-5
+ROUTE_TIES_MAX = 0.05
+
+
+def _moe_parts(blocks):
+    """What the event-timed MoE prefill times besides layers and B5."""
+    return ((blocks, "multihead_attention", "attention"),
+            (blocks, "_route", "moe_route"),
+            (blocks, "_fill_buffer", "moe_dispatch"),
+            (blocks, "_expert_swiglu", "moe_expert_products"),
+            (blocks, "_combine", "moe_combine"))
+
+
+def _moe_timed_prefill(torch, ops_mod, prefill, params, batch, cfg):
+    """``_timed_prefill`` with the MoE parts, counting each MoE layer's
+    (token, k) pairs dropped for capacity (a sum over the slots inside the
+    combine's events). Returns (split, drops per MoE layer)."""
+    from repro_torch.models import blocks
+    drops, combine = [], blocks._combine
+
+    def counted(y, slot, gate, T):
+        drops.append((slot >= y.shape[0] * y.shape[1]).sum())
+        return combine(y, slot, gate, T)
+
+    blocks._combine = counted
+    try:
+        split = _timed_prefill(torch, ops_mod, prefill, params, batch, "moe",
+                               parts=_moe_parts(blocks))
+    finally:
+        blocks._combine = combine
+    drops = [int(d) for d in drops]
+    if len(drops) != cfg.num_layers - cfg.first_k_dense:
+        raise AssertionError(f"{cfg.name}: {len(drops)} MoE layers ran")
+    return split, drops
+
+
+BALANCE_DIRECTIONS = 16
+
+
+def _balance_routers(torch, prefill, params, batch):
+    """Seeded random weights send most of a layer's tokens to the same few
+    experts: the router inputs share a few large directions (their mean
+    over the tokens first), so every token's logits share their bias. Take
+    from each MoE layer's router the BALANCE_DIRECTIONS directions of its
+    input's largest second moment over the prefill (W -= U U^T W), in
+    place; a second prefill refits them to the inputs the first changed.
+    Returns the routers as they were."""
+    from repro_torch.models import blocks
+    router = params["blocks"]["moe"]["router"]          # (L, d, E) f32
+    saved, route, spans = router.clone(), blocks._route, []
+
+    def recording(p, m, xt):
+        xf = xt.float()
+        _, vecs = torch.linalg.eigh(xf.T @ xf)          # ascending
+        spans.append(vecs[:, -BALANCE_DIRECTIONS:])
+        return route(p, m, xt)
+
+    for _ in range(2):
+        spans.clear()
+        blocks._route = recording
+        try:
+            prefill(params, batch)
+        finally:
+            blocks._route = route
+        if len(spans) != router.shape[0]:
+            raise AssertionError(f"{len(spans)} routers ran, want "
+                                 f"{router.shape[0]}")
+        for w, u in zip(router, spans):
+            w -= u @ (u.T @ w)
+    return saved
+
+
+def _serve_moe(torch, ops_mod, arch, cfg, params, batch, steps,
+               balanced=False):
+    """Counted prefill (B5 once per layer), ``steps`` greedy decode steps,
+    one more decode step and a second prefill, each event-timed by part,
+    the prefill with each MoE layer's drops; with ``balanced``, the timed
+    prefill once more at a routing within capacity (``_balance_routers``;
+    the routers are restored after)."""
+    from repro_torch import tree
+    from repro_torch.models import blocks
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    B, S = batch["tokens"].shape
+    C = blocks.moe_capacity(cfg.moe, B * S)
+    prefill = make_prefill_step(cfg, S + steps)
+    decode = make_decode_step(cfg)
+    logits, cache, t_prefill, peak, launches = _counted_prefill(
+        torch, ops_mod, prefill, params, batch)
+    if launches["flash_attention"] != ATTN_LAUNCHES[arch]:
+        raise AssertionError(f"{arch} prefill launched {launches}, want "
+                             f"{ATTN_LAUNCHES[arch]} flash_attention")
+    if logits.shape != (B, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{arch} prefill logits are not finite or "
+                             f"misshapen")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, logits, cache = decode(params, tok, cache)
+    torch.cuda.synchronize()
+    t_tok = (time.perf_counter() - t0) / steps
+    if not bool(torch.isfinite(logits.float()).all()) or \
+            int(cache["pos"]) != S + steps:
+        raise AssertionError(f"{arch} decode logits are not finite")
+    v_cache = sum(t.numel() * t.element_size() for t in tree.leaves(cache))
+    decode_split = _timed_prefill(
+        torch, ops_mod, lambda p, t: decode(p, t, cache), params, tok, "moe",
+        parts=_moe_parts(blocks), what="decode step")
+    del cache, logits
+    torch.cuda.empty_cache()
+    split, drops = _moe_timed_prefill(torch, ops_mod, prefill, params, batch,
+                                      cfg)
+    n = sum(t.numel() for t in tree.leaves(params))
+    pairs = B * S * cfg.moe.top_k
+    print(f"[moe] {arch}: {n} params ({n * 2 / 1e9:.4f} GB bf16), "
+          f"{cfg.num_layers} layers; prefill {B} x {S} in {t_prefill:.4f} s, "
+          f"peak {peak:.4f} GB; KV cache {v_cache / 1e9:.4f} GB; decode "
+          f"{1e3 * t_tok:.4f} ms per step of {B} tokens (mean of {steps}); "
+          f"launches {launches}")
+    print(f"[moe] {arch}: (token, k) pairs dropped for capacity ({C} slots "
+          f"per expert) per MoE layer, of {pairs}: {drops}")
+    rec = {"params": n, "layers": cfg.num_layers, "capacity": C,
+           "prefill_s": t_prefill, "prefill_peak_gb": peak,
+           "kv_cache_gb": v_cache / 1e9, "decode_ms_per_step": 1e3 * t_tok,
+           "dropped_pairs_per_layer": drops, "pairs_per_layer": pairs,
+           "prefill_split": split, "decode_split": decode_split}
+    if balanced:
+        saved = _balance_routers(torch, prefill, params, batch)
+        try:
+            print(f"[moe] {arch}: the timed prefill again, each router "
+                  f"without its input's {BALANCE_DIRECTIONS} largest "
+                  f"directions")
+            rec["balanced_prefill_split"], drops = _moe_timed_prefill(
+                torch, ops_mod, prefill, params, batch, cfg)
+        finally:
+            params["blocks"]["moe"]["router"].copy_(saved)
+        share = sum(drops) / (pairs * len(drops))
+        print(f"[moe] {arch}: balanced routing: pairs dropped per MoE layer, "
+              f"of {pairs}: {drops} (share {share:.4f})")
+        rec["balanced_dropped_pairs_per_layer"] = drops
+    return launches, rec
+
+
+def _moe_layer_relaunch(torch, cfg, params):
+    """The first MoE layer of ``params`` twice on one seeded input at the
+    prefill's token count: outputs and aux bit-equal."""
+    from repro_torch.models import blocks, lm
+    lp = lm._unstack(params["blocks"],
+                     cfg.num_layers - cfg.first_k_dense)[0]["moe"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(MOE_BATCH, SERVE_PROMPT, cfg.d_model, device="cuda",
+                    generator=g).to(cfg.dtype)
+    out, aux = blocks.moe_ffn(lp, cfg, x)
+    again, aux2 = blocks.moe_ffn(lp, cfg, x)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again) and torch.equal(aux, aux2)):
+        raise AssertionError(f"{cfg.name}: a MoE layer relaunched on the "
+                             f"same input differs")
+    print(f"[moe] {cfg.name}: one MoE layer on {tuple(x.shape)} "
+          f"{str(x.dtype)[6:]} relaunched: output and aux bit-equal")
+
+
+def phase_moe_serve(torch, ops_mod):
+    """``qwen3_moe_30b_a3b`` at full width and depth in bf16 (seeded random
+    weights, 61.06 GB) prefills MOE_BATCH x SERVE_PROMPT (48 B5
+    launches), decodes MOE_STEPS steps (every expert's products over its C
+    = 8 slots each step, as the reference runs them) and prefills again
+    with CUDA events around attention, B5, routing, dispatch, the expert
+    products and the combine, counting each layer's capacity drops, then
+    once more at a routing within capacity (``_balance_routers``); one
+    MoE layer is relaunched bit-equal. Then ``kimi_k2_1t_a32b`` at full
+    width, PREFIX_LAYERS deep (the dense layer, one MoE layer of 384
+    experts and a shared expert), prefills PREFIX_BATCH x SERVE_PROMPT
+    (B5 at D = 112) and decodes PREFIX_STEPS steps. Returns (launches of
+    the two counted prefills, numbers to keep)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.serve import build_replica
+    from repro_torch.models import lm
+
+    out, launches = {}, []
+    t0 = time.perf_counter()
+    r = build_replica(MOE_ARCH, MOE_BATCH, SERVE_PROMPT, MOE_STEPS,
+                      smoke=False, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    counts, rec = _serve_moe(torch, ops_mod, MOE_ARCH, r.cfg, r.params,
+                             r.batch, MOE_STEPS, balanced=True)
+    launches.append(counts)
+    rec["init_s"] = t_init
+    print(f"[moe] {MOE_ARCH}: init {t_init:.4f} s")
+    _moe_layer_relaunch(torch, r.cfg, r.params)
+    out[MOE_ARCH] = rec
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(PREFIX_ARCH).replace(num_layers=PREFIX_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    batch = make_batch(cfg, PREFIX_BATCH, SERVE_PROMPT, device="cuda")
+    batch.pop("targets")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    counts, rec = _serve_moe(torch, ops_mod, PREFIX_ARCH, cfg, params, batch,
+                             PREFIX_STEPS)
+    launches.append(counts)
+    rec["init_s"] = t_init
+    print(f"[moe] {PREFIX_ARCH} ({PREFIX_LAYERS} of 61 layers): init "
+          f"{t_init:.4f} s")
+    out[PREFIX_ARCH] = rec
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _judge_routing(torch, cfg, lp_card, lp_cpu, x, out, stats, what: str):
+    """One MoE call of the card's run (input ``x`` on the card, its output
+    ``out``) against the same layer on the CPU on the same input, in f32.
+    Raises when a token whose top-k margin exceeds ROUTE_MARGIN gets other
+    experts, when a drop differs in an expert no such near-tie moved, when
+    over ROUTE_TIES_MAX of the tokens are near ties, or when an output
+    where the routing agrees lies beyond CPU_CHECK_RTOL of the peak."""
+    from repro_torch.models import blocks
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    B, S, d = x.shape
+    T = B * S
+    C = blocks.moe_capacity(m, T)
+    xt = x.reshape(T, d)
+    _, exp_card, _, _ = blocks._route(lp_card, m, xt)
+    _, slot_card = blocks._fill_buffer(xt, exp_card, E, C)
+    xh = xt.cpu()
+    _, exp_cpu, _, _ = blocks._route(lp_cpu, m, xh)
+    _, slot_cpu = blocks._fill_buffer(xh, exp_cpu, E, C)
+    probs = torch.softmax(xh.float() @ lp_cpu["router"], dim=-1)
+    top = torch.topk(probs, K + 1, dim=-1).values
+    tie = (top[:, K - 1] - top[:, K]) <= ROUTE_MARGIN
+    exp_card = exp_card.cpu()
+    oc, oh = exp_card.argsort(1), exp_cpu.argsort(1)
+    set_card, set_cpu = exp_card.gather(1, oc), exp_cpu.gather(1, oh)
+    same = (set_card == set_cpu).all(1)
+    if bool((~same & ~tie).any()):
+        bad = int((~same & ~tie).sum())
+        raise AssertionError(f"{what}: {bad} tokens with a top-k margin over "
+                             f"{ROUTE_MARGIN} got other experts on the card")
+    if float(tie.float().mean()) > ROUTE_TIES_MAX:
+        raise AssertionError(f"{what}: {int(tie.sum())} of {T} tokens are "
+                             f"near ties")
+    kept_card = (slot_card.cpu() < E * C).reshape(T, K).gather(1, oc)
+    kept_cpu = (slot_cpu < E * C).reshape(T, K).gather(1, oh)
+    moved = torch.zeros(E, dtype=torch.bool)
+    moved[set_card[~same].reshape(-1)] = True
+    moved[set_cpu[~same].reshape(-1)] = True
+    kept_diff = same[:, None] & (kept_card != kept_cpu)
+    if bool((kept_diff & ~moved[set_cpu]).any()):
+        raise AssertionError(f"{what}: a drop differs in an expert that no "
+                             f"near tie moved")
+    agree = same & ~kept_diff.any(1)
+    want, _ = blocks.moe_ffn(lp_cpu, cfg, x.cpu())
+    want, got = want.reshape(T, d)[agree], out.reshape(T, d).cpu()[agree]
+    err, size = float((got - want).abs().max()), float(want.abs().max())
+    if err > CPU_CHECK_RTOL * size or int(agree.sum()) < T // 2:
+        raise AssertionError(f"{what}: outputs where the routing agrees "
+                             f"({int(agree.sum())} of {T} tokens): max abs "
+                             f"err {err} on a peak of {size}")
+    stats["tokens"] += T
+    stats["near_ties"] += int(tie.sum())
+    stats["other_experts"] += int((~same).sum())
+    stats["compared"] += int(agree.sum())
+    stats["dropped_pairs"] += int((slot_cpu >= E * C).sum())
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    stats["peak"] = max(stats["peak"], size)
+
+
+def _moe_card_and_cpu(torch, cfg, batch: int, prompt: int, steps: int,
+                      name: str):
+    """``cfg`` (f32) prefilled and decoded ``steps`` greedy tokens on the
+    card; every MoE call's input captured and its routing, drops and
+    output judged against the CPU on that input (``_judge_routing``);
+    then the whole run on the CPU, fed the card's tokens, its logits
+    within CPU_CHECK_RTOL of their peak when no token took other experts.
+    Returns the counts and errors."""
+    from repro_torch import tree
+    from repro_torch.data import make_batch
+    from repro_torch.models import blocks, lm
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    p_card = lm.init_params(cfg, SEED, device="cuda")
+    calls, moe_ffn = [], blocks.moe_ffn
+
+    def capture(params, cfg_, x):
+        out, aux = moe_ffn(params, cfg_, x)
+        calls.append((x, out))
+        return out, aux
+
+    runs = {}
+    for where, params in (("card", p_card),
+                          ("cpu", tree.map(lambda t: t.cpu(), p_card))):
+        dev = tree.leaves(params)[0].device
+        b = make_batch(cfg, batch, prompt, device=dev)
+        b.pop("targets")
+        blocks.moe_ffn = capture if where == "card" else moe_ffn
+        try:
+            logits, cache = make_prefill_step(cfg, prompt + steps)(params, b)
+            decode = make_decode_step(cfg)
+            rows = [logits.cpu()]
+            for i in range(steps):       # the CPU is fed the card's tokens
+                tok = (logits.argmax(-1)[:, None].to(torch.int32)
+                       if where == "card" else runs["card"][1][i].to(dev))
+                _, logits, cache = decode(params, tok, cache)
+                rows.append(logits.cpu())
+        finally:
+            blocks.moe_ffn = moe_ffn
+        toks = [r.argmax(-1)[:, None].to(torch.int32) for r in rows[:-1]]
+        runs[where] = (torch.stack(rows), toks, params)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    layers = {where: lm._unstack(runs[where][2]["blocks"], n_moe)
+              for where in runs}
+    stats = dict(calls=len(calls), tokens=0, near_ties=0, other_experts=0,
+                 compared=0, dropped_pairs=0, max_abs_err=0.0, peak=0.0)
+    for i, (x, out) in enumerate(calls):
+        _judge_routing(torch, cfg, layers["card"][i % n_moe]["moe"],
+                       layers["cpu"][i % n_moe]["moe"], x, out, stats,
+                       f"{name} MoE call {i}")
+    lg, lc = runs["card"][0], runs["cpu"][0]
+    err, size = float((lg - lc).abs().max()), float(lc.abs().max())
+    stats.update(logits_max_abs_err=err, logits_peak=size)
+    if stats["other_experts"] == 0 and err > CPU_CHECK_RTOL * size:
+        raise AssertionError(f"{name}: card and CPU logits differ by {err} "
+                             f"on a peak of {size} with the same routing")
+    held = ("held" if stats["other_experts"] == 0 else
+            "not held: near ties took other experts")
+    print(f"[moe] {name} f32, {batch} x {prompt} and {steps} decode steps, "
+          f"card against CPU: {stats['calls']} MoE calls, "
+          f"{stats['tokens']} tokens, {stats['near_ties']} near ties "
+          f"(margin <= {ROUTE_MARGIN}), {stats['other_experts']} took other "
+          f"experts, {stats['dropped_pairs']} pairs dropped; outputs of "
+          f"{stats['compared']} tokens max abs err "
+          f"{stats['max_abs_err']:.6g} (peak {stats['peak']:.4f}); logits "
+          f"max abs err {err:.6g} (peak {size:.4f}, {held})")
+    return stats
+
+
+def phase_moe_cpu_check(torch):
+    """Card against CPU in f32: ``qwen3_moe_30b_a3b`` at full width, 2
+    layers (~1.87e9 params), 2 x 128 tokens and 2 decode steps; then
+    ``kimi_k2_1t_a32b``'s smoke config (its dense layer and one MoE layer
+    with a shared expert)."""
+    from repro_torch.configs import get_config
+    out = {}
+    cfg = get_config(MOE_ARCH).replace(num_layers=2, param_dtype="float32")
+    out[MOE_ARCH] = _moe_card_and_cpu(torch, cfg, 2, 128, 2,
+                                      f"{MOE_ARCH} full width, 2 layers")
+    torch.cuda.empty_cache()
+    cfg = get_config(PREFIX_ARCH).smoke().replace(param_dtype="float32")
+    out[PREFIX_ARCH] = _moe_card_and_cpu(torch, cfg, 2, 128, 4,
+                                         f"{PREFIX_ARCH} smoke config")
+    return out
+
+
 def main() -> int:
     # phase 8's pre-copy holds the 26.5 GB training state twice beside a
     # step's transients, which fits the card only in segments that grow in
@@ -2427,8 +3014,8 @@ def main() -> int:
     print(f"[build] {secs:.4f} s")
     records = phase_kernels(torch, ops, ref, dft, autocorr)
     records["ssm_scan"] = phase_ssm_kernel(torch, ref, gla, ssm_scan)
-    records["flash_attention"] = phase_attention_kernel(torch, ref,
-                                                        flash_attention)
+    records["flash_attention"], attn_times = phase_attention_kernel(
+        torch, ref, flash_attention)
     tick_launches, tick_times, tick_b2 = phase_tick(torch, np, ops)
     # phase 2's B2 check at each shape the tick sent (captured in phase 3)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -2439,7 +3026,7 @@ def main() -> int:
             seen.add(key)
             _autocorr_case(torch, ref, autocorr, g, J, N, lags,
                            back_to_back=True)
-    fleet_launches = phase_fleet(torch, ops)
+    fleet_launches, controller_launches = phase_fleet(torch, ops)
     records["dirty_delta"] = phase_dirty_delta(torch, ref, dirty_delta)
     phase_placement(torch)
     serve_prefill, serve_launches, serve_times = phase_serve(
@@ -2457,6 +3044,10 @@ def main() -> int:
     check_launches, train_times["card_vs_cpu"] = phase_train_cpu_check(
         torch, ops)
     trainer_launches, inc_launches = phase_train_runtime(torch, ops)
+    gc.collect()                       # the trainers freed before phase 9
+    torch.cuda.empty_cache()
+    moe_launches, moe_times = phase_moe_serve(torch, ops)
+    moe_times["card_vs_cpu"] = phase_moe_cpu_check(torch)
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -2473,10 +3064,11 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:82",
                    "flash_attention")}
-    paths = (tick_launches, fleet_launches, serve_prefill, serve_launches,
+    paths = (tick_launches, fleet_launches, controller_launches,
+             serve_prefill, serve_launches,
              ssm_prefill, ssm_migrate, rwkv_launches, dense_launches,
              train_launches, train_mig_launches, *check_launches.values(),
-             trainer_launches, inc_launches)
+             trainer_launches, inc_launches, *moe_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
         launches = sum(path[op] for path in paths)
@@ -2485,11 +3077,13 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, **records[name]))
+    print("[attn] " + json.dumps(attn_times))
     print("[tick] " + json.dumps(tick_times))
     print("[serve] " + json.dumps(serve_times))
     print("[ssm] " + json.dumps(ssm_times))
     print("[dense] " + json.dumps(dense_times))
     print("[train] " + json.dumps(train_times))
+    print("[moe] " + json.dumps(moe_times))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,8 @@
 
 [arXiv:2501.kimi2; unverified]  61L d_model=7168 64H (GQA kv=8) expert
 d_ff=2048 vocab=163840, MoE 384e top-8 + 1 shared expert, first layer dense.
+The widths match hf:moonshotai/Kimi-K2-Instruct (config.json); its attention
+is MLA, for which GQA at d_head 112 (7168 / 64) stands in here.
 ~1.03T total / ~32B active. Trained with Adafactor + bf16 state and
 sequence-sharded activations so the 512-chip dry-run fits HBM (see
 EXPERIMENTS.md §Dry-run).

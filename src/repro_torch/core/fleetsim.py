@@ -220,10 +220,6 @@ class FleetSim:
                  retry_jitter: float = 0.0, retry_jitter_seed: int = 0,
                  guard: Optional[MigrationGuard] = None,
                  device: DeviceLike = None):
-        if adaptive_concurrency or horizon:
-            raise NotImplementedError(
-                "the adaptive concurrency controller (adaptive_concurrency, "
-                "horizon) is not ported yet")
         self.device = resolve_device(device)
         self.jobs = {j.job_id: j for j in jobs}
         self.rng = np.random.default_rng(seed)
@@ -294,6 +290,31 @@ class FleetSim:
         # while nothing is down, so wiring it unconditionally preserves
         # the no-fault paths bit-for-bit
         self.lmcm.retarget = self._retarget_request
+        if adaptive_concurrency or horizon:
+            # replace the static share-floor gate with the adaptive
+            # concurrency controller: defer-k sweeps per migration domain
+            # over the fabric's what-if probes (min_share_frac remains the
+            # fallback policy when the controller is off). ``horizon``
+            # upgrades the sweep to receding-horizon admission: the
+            # controller also prices "launch at the predicted cycle
+            # trough" columns read from the surveillance engine's fits,
+            # reprices already-in-flight lanes, and publishes per-request
+            # wake times that LMCM._defer_wake turns into exact heap
+            # boundaries (so event-skip never jumps a re-admission).
+            from repro_torch.core.controller import AdaptiveConcurrencyController
+            self.lmcm.controller = AdaptiveConcurrencyController(
+                self.plane,
+                rate_of=lambda req: (
+                    self.jobs[req.job_id].trace.rate_table
+                    if req.job_id in self.jobs else None),
+                defer_s=sample_period,
+                horizon=horizon,
+                trough_of=self._trough_of if horizon else None)
+            if horizon:
+                # horizon admission reads cycle fits even under
+                # policy="immediate" — keep the engine ticking and its
+                # refresh boundaries visible to the event-skip paths
+                self.lmcm.force_surveillance = True
         self.dt = sample_period
         self.now = 0.0
         # adopt jobs constructed with a default (empty) buffer into the
@@ -647,6 +668,26 @@ class FleetSim:
         if self.placement is not None and not req.src:
             req.src = self.placement.host_of(req.job_id) or ""
         req.path = self.topology.path(req.src, req.dst)
+
+    def _trough_of(self, req: MigrationRequest,
+                   now: float) -> Optional[float]:
+        """Controller ``trough_of`` hook: Alg. 2 RemainTime to the job's
+        next predicted cycle trough, in seconds (None when the job has no
+        cyclic fit — the controller then prices the plain one-period
+        defer instead). With a guard wired, a fit whose
+        ``confidence x trust`` falls below the guard's gate is treated
+        as no fit at all: guard aborts burned the model's credibility,
+        so the controller falls back to myopic pricing until refits
+        re-earn it."""
+        if self._guard is not None:
+            sj = self.lmcm.engine.jobs.get(req.job_id)
+            if (sj is not None and sj.model is not None
+                    and not self._guard.trusts(sj.model.confidence,
+                                               sj.trust)):
+                return None
+        remain = self.lmcm.engine.next_trough(
+            [req.job_id], int(now / self.dt)).get(req.job_id)
+        return None if remain is None else float(remain) * self.dt
 
     def _skip_idle_steps(self, pending: Sequence[MigrationRequest],
                          t_end: float) -> None:

@@ -4,11 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o_danube3_4b \
       --tokens 32 [--no-smoke] [--device cpu]
 
-Any config of the dense, SSM and hybrid families runs (``qwen3_8b``,
-``zamba2_2p7b``, ``rwkv6_1p6b`` too); the MoE ones raise. ``--device``
-defaults to the card and raises without one. On the card, attention
-prefill runs kernel B5 (``kernels/csrc/flash_attention.cu``) and the SSM
-layers kernel B4; on the CPU both run their plain versions.
+Every config runs: the dense, SSM and hybrid families (``qwen3_8b``,
+``zamba2_2p7b``, ``rwkv6_1p6b``) and the MoE ones (``qwen3_moe_30b_a3b``,
+``kimi_k2_1t_a32b``). ``--device`` defaults to the card and raises without
+one. On the card, attention prefill runs kernel B5
+(``kernels/csrc/flash_attention.cu``) and the SSM layers kernel B4; on the
+CPU both run their plain versions.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Dense transformer building blocks on torch: RMSNorm, rotary (incl.
-M-RoPE), GQA attention (full / sliding-window / cached ring decode) and the
-SwiGLU MLP (``repro``'s ``models/blocks.py``).
+"""Transformer building blocks on torch: RMSNorm, rotary (incl. M-RoPE),
+GQA attention (full / sliding-window / cached ring decode), the SwiGLU MLP
+and the sort-based MoE layer (``repro``'s ``models/blocks.py``).
 
 All blocks are functions over nested dicts of tensors with the reference's
 keys. Matmuls run in the config dtype; norm statistics and softmax run in
@@ -17,8 +17,13 @@ Initializers take an explicit ``torch.Generator`` and a ``lead`` shape of
 stacked layers: ``dense_init(g, (d, f), lead=(L,))`` draws an (L, d, f)
 stack with the fan-in of one (d, f) layer.
 
-The MoE layer and its expert-parallel path (``moe_*``, ``models/dist.py``)
-come with slice 4 of the port (ROADMAP Queue A).
+The MoE layer is the reference's local path: router, top-k and dispatch
+are plain torch ops, as the JAX package computes them outside any Pallas
+kernel, and the three expert products are batched matmuls. Its
+expert-parallel path over a mesh (``_moe_ffn_sharded`` and
+``models/dist.py``: all-to-all between cards) waits for ROADMAP item 16,
+which needs more than one card; on one card the local path is the whole
+computation.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_FILL
 
@@ -41,15 +46,20 @@ def dense_init(gen: Optional[torch.Generator], shape, dtype: torch.dtype,
                scale: float = 1.0, *, lead=(),
                device=None) -> torch.Tensor:
     """Truncated-normal fan-in init (the LM-standard 1/sqrt(fan_in)) of a
-    ``lead + shape`` stack; fan-in is that of one ``shape``. On the meta
-    device (shapes only) nothing is drawn."""
+    ``lead + shape`` stack; fan-in is that of one ``shape``. Drawn one
+    (fan_in, fan_out) matrix at a time into the output, so the f32 scratch
+    is one matrix (a whole f32 expert stack of qwen3-moe is 38.7 GB). On
+    the meta device (shapes only) nothing is drawn."""
     fan_in = shape[0] if len(shape) <= 2 else shape[-2]
     std = scale / max(1.0, fan_in) ** 0.5
-    t = torch.empty((*lead, *shape), dtype=torch.float32, device=device)
-    if t.device.type == "meta":
-        return t.to(dtype)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (t.mul_(std)).to(dtype)
+    out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
+    for part in out.view(-1, *shape[-2:]):
+        t = torch.empty(part.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        part.copy_(t.mul_(std))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -207,12 +217,112 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts: slice 4
+# Mixture of Experts (sort-based dispatch)
 # ---------------------------------------------------------------------------
-def _moe_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "MoE blocks (moe_init, moe_ffn and the expert-parallel path of "
-        "models/dist.py) are ported in slice 4 of the port (ROADMAP Queue A)")
+def moe_init(gen: Optional[torch.Generator], cfg: ArchConfig, *, lead=(),
+             device=None) -> Params:
+    """The router stays f32 in a bf16 model, as in the reference."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    kw = dict(lead=lead, device=device)
+    p = {
+        "router": dense_init(gen, (d, E), torch.float32, **kw),
+        "w_gate": dense_init(gen, (E, d, f), cfg.dtype, **kw),
+        "w_up": dense_init(gen, (E, d, f), cfg.dtype, **kw),
+        "w_down": dense_init(gen, (E, f, d), cfg.dtype,
+                             scale=1.0 / (2 * cfg.num_layers) ** 0.5, **kw),
+    }
+    if m.num_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, d_ff=m.num_shared_experts * f, **kw)
+    return p
 
 
-moe_init = moe_ffn = moe_capacity = _moe_not_ported
+def moe_capacity(m: MoEConfig, num_tokens: int) -> int:
+    """Slots per expert for ``num_tokens`` tokens, rounded up to 8 as the
+    reference rounds it (the rounding decides which tokens drop)."""
+    cap = int(num_tokens * m.top_k * m.capacity_factor / m.num_experts) + 1
+    return max(8, -(-cap // 8) * 8)
+
+
+def _route(params: Params, m: MoEConfig, xt: torch.Tensor):
+    """Router: (T, d) -> (gate (T, K) f32, expert (T, K) int64, p_sum (E,),
+    c_sum (E,)). Top-k over the f32 softmax probabilities, gates
+    renormalised over K; p_sum and c_sum are the load-balance sums."""
+    E = m.num_experts
+    logits = xt.float() @ params["router"]                    # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert = torch.topk(probs, m.top_k, dim=-1)
+    gate = gate / gate.sum(dim=-1, keepdim=True)
+    p_sum = probs.sum(dim=0)
+    flat = expert.reshape(-1)
+    c_sum = torch.zeros(E, device=xt.device).index_add_(
+        0, flat, torch.ones(flat.shape, device=xt.device))
+    return gate, expert, p_sum, c_sum
+
+
+def _fill_buffer(xt: torch.Tensor, expert: torch.Tensor, E: int, C: int):
+    """Sort-based dispatch: rank each (token, k) within its expert by a
+    stable argsort of the flat expert ids, scatter into an (E, C, d)
+    capacity buffer; overflow goes to row E*C, which is dropped. Returns
+    (buffer, slot (T*K,))."""
+    T, d = xt.shape
+    TK = expert.numel()
+    K = TK // T
+    flat_e = expert.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=xt.device
+                         ).index_add_(0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(flat_e)
+    pos[order] = (torch.arange(TK, device=xt.device)
+                  - starts[flat_e[order]])
+    slot = torch.where(pos < C, flat_e * C + pos, E * C)      # OOB -> drop
+    x_rep = xt.repeat_interleave(K, dim=0)                    # (T*K, d)
+    buf = xt.new_zeros((E * C + 1, d)).index_copy(0, slot, x_rep)
+    return buf[: E * C].reshape(E, C, d), slot
+
+
+def _expert_swiglu(h: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """(E, C, d) through each expert's SwiGLU: three batched products."""
+    a = F.silu(torch.bmm(h, wg))
+    return torch.bmm(a * torch.bmm(h, wu), wd)
+
+
+def _combine(y: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor,
+             T: int) -> torch.Tensor:
+    """Each token's K expert outputs, gated in the outputs' dtype and summed
+    over K; a dropped (token, k) adds zeros."""
+    E_C, d = y.shape[0] * y.shape[1], y.shape[-1]
+    K = slot.numel() // T
+    dropped = (slot >= E_C)[:, None]
+    gathered = y.reshape(E_C, d)[slot.clamp(max=E_C - 1)]
+    gathered = torch.where(dropped, y.new_zeros(()), gathered)
+    weighted = gathered * gate.reshape(-1, 1).to(y.dtype)
+    return weighted.reshape(T, K, d).sum(dim=1)
+
+
+def moe_ffn(params: Params, cfg: ArchConfig, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k expert layer. x: (B, S, d) -> (out, aux_loss f32 0-dim).
+
+    The capacity is taken over all B*S tokens of the call. Every expert
+    runs its products over its C slots, empty or not, as the reference
+    does."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, E = B * S, m.num_experts
+    xt = x.reshape(T, d)
+    gate, expert, p_sum, c_sum = _route(params, m, xt)
+    aux = E * torch.sum((p_sum / T) * (c_sum / (T * m.top_k))) \
+        * m.aux_loss_weight
+    C = moe_capacity(m, T)
+    buf, slot = _fill_buffer(xt, expert, E, C)
+    del expert
+    y = _expert_swiglu(buf, params["w_gate"], params["w_up"],
+                       params["w_down"])
+    del buf
+    out = _combine(y, slot, gate, T)
+    del y
+    if m.num_shared_experts:
+        out = out + mlp(params["shared"], xt)
+    return out.reshape(B, S, d), aux

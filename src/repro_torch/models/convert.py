@@ -33,10 +33,12 @@ def params_from_numpy(cfg: ArchConfig, params: Dict[str, Any], *,
                       device: DeviceLike = None) -> Dict[str, Any]:
     """The port's params for ``cfg`` from the JAX package's, as numpy.
 
-    Keys and shapes must be those of ``lm.init_params(cfg)``; each leaf
-    takes that leaf's dtype (``cfg.dtype``, or f32 for the SSM leaves the
-    reference keeps in f32: ``A_log``, ``D``, ``dt_bias``, ``decay_base``,
-    ``faaaa``) and lands on ``device`` (``None`` is the card)."""
+    Keys and shapes must be those of ``lm.init_params(cfg)`` (the MoE
+    wirings' ``moe`` and ``dense0`` trees included); each leaf takes that
+    leaf's dtype (``cfg.dtype``, or f32 for the leaves the reference keeps
+    in f32: the SSM's ``A_log``, ``D``, ``dt_bias``, ``decay_base``,
+    ``faaaa`` and the MoE ``router``) and lands on ``device`` (``None`` is
+    the card)."""
     dev = resolve_device(device)
     want = lm.init_params(cfg, device="meta")
 

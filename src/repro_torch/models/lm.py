@@ -1,29 +1,35 @@
 """Language model on torch: embedding -> layer stack -> head
-(``repro``'s ``models/lm.py``), for the ``uniform`` wiring of ``attn``,
-``mamba`` and ``rwkv`` layers and the ``hybrid_shared`` wiring (zamba2:
-groups of Mamba2 layers, one shared-weight attention block after each).
+(``repro``'s ``models/lm.py``), for its three wirings: ``uniform`` (one
+kind of layer: ``attn``, ``moe``, ``mamba`` or ``rwkv``),
+``hybrid_shared`` (zamba2: groups of Mamba2 layers, one shared-weight
+attention block after each) and ``prefix_dense`` (kimi-k2: one dense
+attention layer, then a stack of ``moe`` layers).
 
 Params are the reference's nested dict with its keys: a uniform stack on
 dim 0 of ``params["blocks"]``; the hybrid's Mamba2 layers as an
 (n_groups, per, ...) stack in ``params["mamba"]`` beside one
-``params["shared_attn"]`` block. Stacks are walked with Python loops over
-layer views (the reference scans them). Pre-copy walks this tree, and
-weights carried across from the JAX package need no renaming
-(``models/convert.py``).
+``params["shared_attn"]`` block; the prefix-dense model's dense layer in
+``params["dense0"]`` and its MoE stack in ``params["blocks"]``. Stacks
+are walked with Python loops over layer views (the reference scans
+them). Pre-copy walks this tree, and weights carried across from the JAX
+package need no renaming (``models/convert.py``).
 
 The decode cache is the reference's: ``{"pos": int32 0-dim, ...}`` with
 ``{"k", "v"}`` (L, B, W, Hkv, hd) rings under ``attn`` (W =
-min(cache_len, sliding_window) under SWA) or ``shared_attn`` (one ring per
-group), and tuples of stacked states under ``mamba`` ((L, B, W-1, C) conv,
-(L, B, H, N, P) f32 SSD) and ``rwkv`` ((L, B, d) twice, (L, B, H, P, P)
-f32). Unlike the reference, which is functional, prefill writes into a
-cache from ``init_cache`` and ``decode_step`` writes the new token's K/V
-and every layer's new state into that cache in place, returning a dict
-that holds the same tensors and a new ``pos``.
+min(cache_len, sliding_window) under SWA), ``moe``, ``dense0`` (one
+ring) or ``shared_attn`` (one ring per group), and tuples of stacked
+states under ``mamba`` ((L, B, W-1, C) conv, (L, B, H, N, P) f32 SSD)
+and ``rwkv`` ((L, B, d) twice, (L, B, H, P, P) f32). Unlike the
+reference, which is functional, prefill writes into a cache from
+``init_cache`` and ``decode_step`` writes the new token's K/V and every
+layer's new state into that cache in place, returning a dict that holds
+the same tensors and a new ``pos``.
 
-Prefill's attention layers (``attn``, ``shared_attn``) go through
-``ops.flash_attention``: kernel B5 on the card, the chunked plain version
-on the CPU; decode attention is plain torch.
+Prefill's attention layers (``attn``, ``shared_attn``, ``moe``) go
+through ``ops.flash_attention``: kernel B5 on the card, the chunked plain
+version on the CPU; decode attention is plain torch. A ``moe`` layer's
+expert FFN (``blocks.moe_ffn``) returns a load-balance aux loss, summed
+over the layers in order as the reference's scan sums it.
 
 Training: ``lm_loss`` runs the same layers with grad on (``_forward``),
 each layer of a uniform stack or each hybrid group under
@@ -31,10 +37,6 @@ each layer of a uniform stack or each hybrid group under
 B5 and B4 run forward there; their backward is plain PyTorch
 (``kernels/vjp.py``). ``forward`` (prefill) and ``decode_step`` stay under
 ``torch.no_grad()``, which their in-place cache writes need.
-
-Not ported yet: the ``prefix_dense`` (kimi-k2) wiring and the ``moe`` kind
-(slice 4 of the port, with the MoE layer); each raises
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ from repro_torch.models import mamba2, rwkv6
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
-ATTN_KINDS = ("attn", "shared_attn")
+ATTN_KINDS = ("attn", "shared_attn", "moe")      # layers with a KV ring
 
 
 # ---------------------------------------------------------------------------
@@ -64,20 +66,6 @@ def wiring_mode(cfg: ArchConfig) -> str:
         return "prefix_dense"
     assert len(set(cfg.block_pattern)) == 1, cfg.block_pattern
     return "uniform"
-
-
-def _require_ported(cfg: ArchConfig) -> str:
-    """The wiring of a config the port runs, else raise."""
-    mode = wiring_mode(cfg)
-    if mode == "prefix_dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the 'prefix_dense' wiring is ported in slice 4 of "
-            f"the port (ROADMAP Queue A)")
-    if "moe" in cfg.block_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: 'moe' layers are ported in slice 4 of the port "
-            f"(ROADMAP Queue A)")
-    return mode
 
 
 def _group_shape(cfg: ArchConfig) -> Tuple[int, int]:
@@ -100,6 +88,16 @@ def _attn_block_init(gen, cfg: ArchConfig, *, lead=(), device=None) -> Params:
     }
 
 
+def _moe_block_init(gen, cfg: ArchConfig, *, lead=(), device=None) -> Params:
+    kw = dict(lead=lead, device=device)
+    return {
+        "ln1": B.rmsnorm_init(cfg.d_model, cfg.dtype, **kw),
+        "attn": B.attention_init(gen, cfg, **kw),
+        "ln2": B.rmsnorm_init(cfg.d_model, cfg.dtype, **kw),
+        "moe": B.moe_init(gen, cfg, **kw),
+    }
+
+
 def _mamba_block_init(gen, cfg: ArchConfig, *, lead=(), device=None) -> Params:
     return {
         "ln": B.rmsnorm_init(cfg.d_model, cfg.dtype, lead=lead,
@@ -111,6 +109,7 @@ def _mamba_block_init(gen, cfg: ArchConfig, *, lead=(), device=None) -> Params:
 BLOCK_INIT = {
     "attn": _attn_block_init,
     "shared_attn": _attn_block_init,
+    "moe": _moe_block_init,
     "mamba": _mamba_block_init,
     "rwkv": rwkv6.rwkv6_init,
 }
@@ -118,26 +117,31 @@ BLOCK_INIT = {
 
 def apply_block(kind: str, params: Params, cfg: ArchConfig, x: torch.Tensor,
                 angles: Optional[torch.Tensor], cache, cache_pos):
-    """One layer. Returns (x, layer cache): an attention layer's prefill
-    K/V, or with ``cache`` its ring tensors after the in-place write; a
-    Mamba2 or RWKV6 layer's new state tuple (``cache`` is only read)."""
+    """One layer. Returns (x, layer cache, aux loss): an attention layer's
+    prefill K/V, or with ``cache`` its ring tensors after the in-place
+    write; a Mamba2 or RWKV6 layer's new state tuple (``cache`` is only
+    read). The aux loss (f32 0-dim) is a ``moe`` layer's; other layers
+    have none (None), where the reference adds a zero."""
+    aux = None
     if kind in ATTN_KINDS:
         h, new_kv = B.multihead_attention(
             params["attn"], cfg, B.rmsnorm(params["ln1"], x, cfg.norm_eps),
             angles, kv_cache=cache, cache_pos=cache_pos)
         x = x + h
-        x = x + B.mlp(params["mlp"], B.rmsnorm(params["ln2"], x,
-                                               cfg.norm_eps))
-        return x, new_kv
+        h2 = B.rmsnorm(params["ln2"], x, cfg.norm_eps)
+        if kind == "moe":
+            mo, aux = B.moe_ffn(params["moe"], cfg, h2)
+            return x + mo, new_kv, aux
+        return x + B.mlp(params["mlp"], h2), new_kv, aux
     if kind == "mamba":
         xn = B.rmsnorm(params["ln"], x, cfg.norm_eps)
         if cache is None:
             h, new_c = mamba2.mamba2_forward(params["mixer"], cfg, xn)
         else:
             h, new_c = mamba2.mamba2_decode(params["mixer"], cfg, xn, cache)
-        return x + h, new_c
+        return x + h, new_c, aux
     if kind == "rwkv":
-        return rwkv6.rwkv6_block(params, cfg, x, cache)
+        return (*rwkv6.rwkv6_block(params, cfg, x, cache), aux)
     raise ValueError(kind)
 
 
@@ -150,7 +154,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     drawn on ``device`` (``None`` is the card; ``"meta"`` gives shapes and
     dtypes only). They are not the JAX package's numbers for the same seed:
     to run its weights, use ``models.convert.params_from_numpy``."""
-    mode = _require_ported(cfg)
+    mode = wiring_mode(cfg)
     if device is not None and torch.device(device).type == "meta":
         dev, gen = torch.device("meta"), None
     else:
@@ -171,6 +175,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
         kind = cfg.block_pattern[0]
         p["blocks"] = BLOCK_INIT[kind](gen, cfg, lead=(cfg.num_layers,),
                                        device=dev)
+    elif mode == "prefix_dense":
+        p["dense0"] = _attn_block_init(gen, cfg, device=dev)
+        p["blocks"] = _moe_block_init(
+            gen, cfg, lead=(cfg.num_layers - cfg.first_k_dense,), device=dev)
     else:  # hybrid_shared
         p["mamba"] = _mamba_block_init(gen, cfg, lead=_group_shape(cfg),
                                        device=dev)
@@ -220,13 +228,21 @@ def _unstack(stack: Any, n: int) -> List[Any]:
 
 def _units(cfg: ArchConfig, params: Params):
     """The layers in order, grouped as the reference scans (and remats)
-    them: each layer of a uniform stack, each group of the hybrid (its
-    Mamba2 layers, then the shared attention block). A unit is a list of
-    (kind, layer params, cache key, index in that cache)."""
-    if wiring_mode(cfg) == "uniform":
+    them: each layer of a uniform stack, the prefix-dense model's dense
+    layer and then each MoE layer, each group of the hybrid (its Mamba2
+    layers, then the shared attention block). A unit is a list of (kind,
+    layer params, cache key, index in that cache)."""
+    mode = wiring_mode(cfg)
+    if mode == "uniform":
         kind = cfg.block_pattern[0]
         for i, lp in enumerate(_unstack(params["blocks"], cfg.num_layers)):
             yield [(kind, lp, kind, i)]
+        return
+    if mode == "prefix_dense":
+        yield [("attn", params["dense0"], "dense0", 0)]
+        n = cfg.num_layers - cfg.first_k_dense
+        for i, lp in enumerate(_unstack(params["blocks"], n)):
+            yield [("moe", lp, "moe", i)]
         return
     n_groups, per = _group_shape(cfg)
     for g, group in enumerate(_unstack(params["mamba"], n_groups)):
@@ -242,10 +258,13 @@ def _layers(cfg: ArchConfig, params: Params):
 
 
 def _apply_unit(unit, cfg: ArchConfig, x: torch.Tensor,
-                angles: Optional[torch.Tensor]) -> torch.Tensor:
+                angles: Optional[torch.Tensor], aux: torch.Tensor):
+    """The unit's layers in order; returns (x, aux plus theirs)."""
     for kind, lp, _, _ in unit:
-        x, _ = apply_block(kind, lp, cfg, x, angles, None, None)
-    return x
+        x, _, a = apply_block(kind, lp, cfg, x, angles, None, None)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +308,8 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
     """``forward`` in the caller's grad mode. Training (no cache) runs each
     unit of ``_units`` under ``torch.utils.checkpoint`` when ``remat``, as
     the reference's ``jax.checkpoint`` wraps its scanned body: the unit's
-    activations are recomputed in backward, its kernels launched again."""
-    _require_ported(cfg)
+    activations are recomputed in backward, its kernels launched again.
+    Each layer's aux loss is added in layer order."""
     Bsz, S = batch["tokens"].shape
     x = _embed(cfg, params, batch)
     angles = _angles(cfg, _positions(cfg, batch, Bsz, S))
@@ -298,16 +317,18 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
     if not want_cache:
         for unit in _units(cfg, params):
             if remat:
-                x = checkpoint(_apply_unit, unit, cfg, x, angles,
-                               use_reentrant=False)
+                x, aux_total = checkpoint(_apply_unit, unit, cfg, x, angles,
+                                          aux_total, use_reentrant=False)
             else:
-                x = _apply_unit(unit, cfg, x, angles)
+                x, aux_total = _apply_unit(unit, cfg, x, angles, aux_total)
         return x, aux_total, None
     cache = init_cache(cfg, Bsz, cache_len, device=x.device)
     cache["pos"].fill_(S)
     src = _ring_src(S, _kv_window(cfg, cache_len), x.device)
     for kind, lp, key, i in _layers(cfg, params):
-        x, c = apply_block(kind, lp, cfg, x, angles, None, None)
+        x, c, a = apply_block(kind, lp, cfg, x, angles, None, None)
+        if a is not None:
+            aux_total = aux_total + a
         if kind in ATTN_KINDS:
             rings = cache[key]
             for name, t in zip(("k", "v"), c):
@@ -330,7 +351,6 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     """token: (B, 1) int32. Returns (logits (B, V), new_cache); the rings
     and states of ``cache`` are updated in place and shared by
     ``new_cache``."""
-    _require_ported(cfg)
     Bsz = token.shape[0]
     pos = cache["pos"]
     x = params["embed"][token.long()]
@@ -340,11 +360,12 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     angles = _angles(cfg, positions)
     for kind, lp, key, i in _layers(cfg, params):
         if kind in ATTN_KINDS:
-            x, _ = apply_block(kind, lp, cfg, x, angles,
-                               (cache[key]["k"][i], cache[key]["v"][i]), pos)
+            x, _, _ = apply_block(kind, lp, cfg, x, angles,
+                                  (cache[key]["k"][i], cache[key]["v"][i]),
+                                  pos)
         else:
             state = tuple(t[i] for t in cache[key])
-            x, c = apply_block(kind, lp, cfg, x, angles, state, pos)
+            x, c, _ = apply_block(kind, lp, cfg, x, angles, state, pos)
             for dst, t in zip(state, c):
                 dst.copy_(t)
     logits = _head(cfg, params, x)[:, 0]                  # (B, V)
@@ -358,7 +379,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Empty decode cache at position 0: zero (L, B, W, Hkv, hd) rings and
     zero stacked layer states."""
-    mode = _require_ported(cfg)
+    mode = wiring_mode(cfg)
     dev = resolve_device(device)
     shape = (_kv_window(cfg, cache_len), cfg.num_kv_heads, cfg.head_dim)
 
@@ -374,10 +395,14 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                                            lead=(n_groups * per,), device=dev)
         cache["shared_attn"] = rings(n_groups)
         return cache
+    if mode == "prefix_dense":
+        cache["dense0"] = rings(1)
+        cache["moe"] = rings(cfg.num_layers - cfg.first_k_dense)
+        return cache
     kind = cfg.block_pattern[0]
     lead = (cfg.num_layers,)
-    if kind == "attn":
-        cache["attn"] = rings(cfg.num_layers)
+    if kind in ("attn", "moe"):
+        cache[kind] = rings(cfg.num_layers)
     elif kind == "mamba":
         cache["mamba"] = mamba2.init_cache(cfg, batch, cfg.dtype, lead=lead,
                                            device=dev)
@@ -391,8 +416,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
 # loss
 # ---------------------------------------------------------------------------
 def lm_loss(params: Params, cfg: ArchConfig, batch: Batch):
-    """Next-token cross entropy plus z-loss (and the MoE aux loss, 0 for
-    every wiring ported) in the caller's grad mode, with ``cfg.remat``'s
+    """Next-token cross entropy plus z-loss and the MoE aux loss (0 without
+    ``moe`` layers) in the caller's grad mode, with ``cfg.remat``'s
     recomputation. Targets < 0 are masked; the logits go to logsumexp in
     f32. Returns (loss, {ce, z_loss, aux_loss, tokens}), the metrics
     detached."""

@@ -103,6 +103,9 @@ class Trainer:
             if not math.isfinite(float(metrics["loss"])):
                 if self.restarts >= self.tcfg.max_nan_restarts:
                     raise FloatingPointError(f"NaN loss at step {step}")
+                # the pending write lands first: the restore reads finished
+                # steps only (the reference races it here)
+                self.ckpt.wait()
                 self.state = None
                 step = self.init_or_restore()
                 self.restarts += 1

@@ -236,6 +236,43 @@ def test_trainer_restores_after_failure(tmp_path):
     assert all(0.0 <= h["dirty_fraction"] <= 1.0 for h in ref["history"])
 
 
+def test_trainer_nan_restore_waits_for_the_pending_save(tmp_path,
+                                                      monkeypatch):
+    """A NaN right after a checkpoint restores only once the asynchronous
+    write has landed: with a write slowed to outlast two steps, the
+    restore neither trips over the write's ``.tmp`` directory nor misses
+    the step it is writing."""
+    import time
+
+    from repro_torch.checkpoint import store
+
+    save = store.save_checkpoint
+
+    def slow(directory, step, state):
+        (tmp_path / f"step_{step:08d}.tmp").mkdir(exist_ok=True)
+        time.sleep(0.5)
+        return save(directory, step, state)
+
+    monkeypatch.setattr(store, "save_checkpoint", slow)
+    cfg = get_config("internlm2_1p8b").smoke().replace(num_layers=1)
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path), ckpt_every=2,
+                                    telemetry=False, max_nan_restarts=1),
+                 batch=2, seq=16, device="cpu")
+    step_fn, calls = tr.step_fn, {"n": 0}
+
+    def poisoned(state, batch):
+        calls["n"] += 1
+        state, m = step_fn(state, batch)
+        if calls["n"] == 3:                  # the step after the save
+            m = dict(m, loss=torch.tensor(float("nan")))
+        return state, m
+
+    tr.step_fn = poisoned
+    out = tr.run(4)
+    assert out["restarts"] == 1 and out["final_step"] == 4
+    assert calls["n"] == 3 + 2               # replayed from step 2
+
+
 def test_trainer_restores_from_a_nan(tmp_path):
     """A NaN loss restores the last checkpoint and replays; past
     ``max_nan_restarts`` it raises."""

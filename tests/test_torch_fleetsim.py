@@ -68,9 +68,3 @@ def test_quickstart_steps_2_3():
                               horizon_s=600.0).migrations[0]
     assert req.scheduled_at == jreq.scheduled_at
 
-
-def test_controller_knobs_wait_for_their_slice():
-    jobs = [tfs.SimJob("j0", tfs.WorkloadTrace([("CPU", 10)], 100), 1e9)]
-    for kw in ({"adaptive_concurrency": True}, {"horizon": True}):
-        with pytest.raises(NotImplementedError):
-            tfs.FleetSim(jobs, policy="alma-paper", device=CPU, **kw)
