@@ -1,13 +1,15 @@
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
 Drives the port's paths, the paper's ALMA decide loop at the fleet size
-its users run (also under the adaptive concurrency controller and in a
-host-failure scenario), live pre-copy of a full-width serving replica
-(attention and SSM-hybrid), serving of an RWKV model, of a full-width
-qwen3-8b and of the MoE models (qwen3-moe-30b-a3b at full width and
-depth, kimi-k2's prefix-dense wiring at full width), training of a
-full-width internlm2-1.8b and the live pre-copy of its training state,
-and holds every hand-written kernel against its plain PyTorch version:
+its users run (also under the adaptive concurrency controller, in a
+host-failure scenario and row-sharded over four ranks sharing the
+card), live pre-copy of a full-width serving replica (attention and
+SSM-hybrid), serving of an RWKV model, of a full-width qwen3-8b and of
+the MoE models (qwen3-moe-30b-a3b at full width and depth, also through
+the expert-parallel path, kimi-k2's prefix-dense wiring at full width),
+training of a full-width internlm2-1.8b and the live pre-copy of its
+training state, and holds every hand-written kernel against its plain
+PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
                ``csrc/dirty_delta.cu``, ``csrc/ssm_scan.cu`` and
@@ -142,15 +144,40 @@ and holds every hand-written kernel against its plain PyTorch version:
                config): every MoE call's routing, drops and output judged
                on the card's input (``_judge_routing``: near ties counted,
                outputs held where the routing agrees).
+ 10. dist    — the distribution layer. (b), after phase 4 and before any
+               replica: B1 and B2 on every row against the same rows in
+               four blocks, each launched alone (B2's blocks plan other
+               lag tiles than the whole), bit-equal; then four ranks
+               spawned on the one card (``torch.multiprocessing``,
+               ``spawn``; an explicitly named gloo group, since NCCL
+               refuses two ranks on one card, with a FileStore in a
+               temporary directory), each running the 16,384-job tick of
+               phase 3 with ``shards=4``, overlap off and on, whose cold,
+               steady and full-refit decisions (LM series, periods,
+               profiles, RemainTime, ``scheduled_at``, confidences) must
+               be bit-identical to phase 3's, and its share of one
+               full-width qwen3-moe MoE layer on a (2, 2) mesh (64
+               experts a ``model`` rank, ZeRO-3 over ``data``; weights
+               from one seeded draw cut by ``blocks.moe_shard_params``):
+               in f32 at capacity E/K within 1e-5 of the local path's
+               peak (aux within 1e-6), then in bf16 (4 x 4,096 tokens,
+               the config's capacity) timed by CUDA events around each
+               part, with the pairs dropped; the parent joins every rank
+               and a failed one fails the run. (a), inside phase 9: the
+               full-depth 8 x 4,096 prefill through the expert-parallel
+               path on one NCCL rank (a (1, 1) mesh) against the local
+               prefill of the same batch: logits bit-equal, or else a
+               difference printed as a finding; either way 2 layers in
+               f32 at full width within 1e-6 of their peak.
 
 Every phase raises on failure. The kernels' launch counters are set to 0
 before each path (phases 3, 4 and each of its controller and scenario
 runs, 5's prefill and migration, 6's two prefills and its migration, 7's
 prefill, 8's counted steps, its migration, its card-against-CPU steps,
-its trainers and its incremental checkpoints, 9's two counted prefills)
-and read after it: each kernel of the path must have run in
-it. The last lines are the card
-(``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
+its trainers and its incremental checkpoints, 9's two counted prefills,
+10's sharded ticks in each rank and its one-rank prefill) and read after
+it: each kernel of the path must have run in it. The last lines are the
+card (``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
 "device": ...}``.
 
 Run from the repository root with one CUDA device: ``python3 chip_smoke.py``.
@@ -409,14 +436,11 @@ def _sample_matrix(np, trace, t0, steps, rng, phase_means):
                                    * rng.standard_normal(base.shape)))
 
 
-def phase_tick(torch, np, ops_mod):
-    """A FLEET-job surveillance fleet on Table 3 traces, one cold and one
-    steady tick on the card, checked against a CPU engine. Returns the
-    launches, the times and the (J, N, lags) of each B2 call on the card."""
-    from repro_torch.core.fleetsim import make_training_nb, phase_means, \
-        table3_traces
-    from repro_torch.core.surveillance import SurveillanceEngine
-    from repro_torch.core.telemetry import DEFAULT_FIELDS, FleetTelemetry
+def _tick_values(np):
+    """(FLEET, WINDOW + STEADY_TICKS, F) seeded Table 3 load indexes, the
+    telemetry every tick of phases 3 and 10 records."""
+    from repro_torch.core.fleetsim import phase_means, table3_traces
+    from repro_torch.core.telemetry import DEFAULT_FIELDS
 
     rng = np.random.default_rng(SEED)
     traces = list(table3_traces().values())
@@ -428,53 +452,104 @@ def phase_tick(torch, np, ops_mod):
         vals[rows] = _sample_matrix(np, tr, rng.uniform(0, tr.cycle_s,
                                                         rows.size),
                                     steps, rng, phase_means)
+    return vals
 
-    def make(device, n):
-        fleet = FleetTelemetry(n, capacity=WINDOW, device=device)
-        fleet.record_fleet_bulk(np.arange(WINDOW),
-                                vals[:n, :WINDOW].transpose(1, 0, 2))
-        eng = SurveillanceEngine(device=device)
-        nb = make_training_nb(device=device)
-        for i, view in enumerate(fleet.views()):
-            eng.register(f"job{i:05d}", view, nb, window=WINDOW)
-        return fleet, eng
 
-    def run(fleet, eng, n):
-        """Cold tick, then STEADY_TICKS x (record one sample, tick).
-        Returns (cold remain, last remain, cold s, mean steady s, refits)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cold = eng.tick(WINDOW - 1)
-        remain_cold = cold.remain
-        torch.cuda.synchronize()
-        t_cold = time.perf_counter() - t0
-        refits = [cold.refitted]
-        t0 = time.perf_counter()
-        for s in range(WINDOW, WINDOW + STEADY_TICKS):
-            fleet.record_fleet(s, vals[:n, s])
-            res = eng.tick(s)
-            remain = res.remain
-            refits.append(res.refitted)
-        torch.cuda.synchronize()
-        t_steady = (time.perf_counter() - t0) / STEADY_TICKS
-        return remain_cold, remain, t_cold, t_steady, refits
+def _tick_engine(np, vals, device, n, **kw):
+    """A fleet of the first ``n`` jobs with WINDOW samples recorded, and a
+    ``SurveillanceEngine(device=device, **kw)`` over it."""
+    from repro_torch.core.fleetsim import make_training_nb
+    from repro_torch.core.surveillance import SurveillanceEngine
+    from repro_torch.core.telemetry import FleetTelemetry
 
-    fleet, eng = make("cuda", FLEET)
+    fleet = FleetTelemetry(n, capacity=WINDOW, device=device)
+    fleet.record_fleet_bulk(np.arange(WINDOW),
+                            vals[:n, :WINDOW].transpose(1, 0, 2))
+    eng = SurveillanceEngine(device=device, **kw)
+    nb = make_training_nb(device=device)
+    for i, view in enumerate(fleet.views()):
+        eng.register(f"job{i:05d}", view, nb, window=WINDOW)
+    return fleet, eng
+
+
+def _tick_state(np, eng, now: int, remain) -> dict:
+    """What a tick decided, in job order: RemainTime, ``scheduled_at`` (the
+    step a migration asked for now is released: now + RemainTime),
+    periods, profiles, LM series, fitted and origin steps, confidences."""
+    import torch
+    ids = sorted(eng.jobs)
+    jobs = [eng.jobs[i] for i in ids]
+    r = np.asarray([remain[i] for i in ids])
+    width = max(len(j.model.profile_lm) for j in jobs)
+    prof = np.full((len(jobs), width), -2, np.int8)
+    for k, j in enumerate(jobs):
+        prof[k, :len(j.model.profile_lm)] = j.model.profile_lm
+    return {"remain": r, "scheduled_at": now + r,
+            "period": np.asarray([j.model.period for j in jobs]),
+            "profile": prof,
+            "lm_series": torch.stack([j.lm_series for j in jobs]
+                                     ).cpu().numpy(),
+            "fitted_step": np.asarray([j.fitted_step for j in jobs]),
+            "origin_step": np.asarray([j.origin_step for j in jobs]),
+            "confidence": np.asarray([j.model.confidence for j in jobs])}
+
+
+def _tick_run(torch, np, vals, fleet, eng, n, states=None):
+    """Cold tick, then STEADY_TICKS x (record one sample, tick). Returns
+    (cold remain, last remain, cold s, mean steady s, refits). With
+    ``states`` (a dict), the cold tick's and the last steady tick's
+    ``_tick_state`` and every steady tick's RemainTime go there, read
+    outside the timed spans."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = eng.tick(WINDOW - 1)
+    remain_cold = cold.remain
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    if states is not None:
+        states["cold"] = _tick_state(np, eng, WINDOW - 1, remain_cold)
+    refits, remains = [cold.refitted], []
+    t0 = time.perf_counter()
+    for s in range(WINDOW, WINDOW + STEADY_TICKS):
+        fleet.record_fleet(s, vals[:n, s])
+        res = eng.tick(s)
+        remain = res.remain
+        remains.append(remain)
+        refits.append(res.refitted)
+    torch.cuda.synchronize()
+    t_steady = (time.perf_counter() - t0) / STEADY_TICKS
+    if states is not None:
+        ids = sorted(eng.jobs)
+        states["steady_remain"] = np.asarray([[r[i] for i in ids]
+                                              for r in remains])
+        states["steady"] = _tick_state(np, eng, WINDOW + STEADY_TICKS - 1,
+                                       remain)
+    return remain_cold, remain, t_cold, t_steady, refits
+
+
+def phase_tick(torch, np, ops_mod):
+    """A FLEET-job surveillance fleet on Table 3 traces, one cold and one
+    steady tick on the card, checked against a CPU engine. Returns the
+    launches, the times, the (J, N, lags) of each B2 call on the card and
+    the ticks' decisions (``_tick_state``: cold, steady, full refit)."""
+    vals = _tick_values(np)
+    fleet, eng = _tick_engine(np, vals, "cuda", FLEET)
     # record what B2 receives: the cycle fit calls ops.autocorr_score
     # through the module; the launch counter stays on the kernel's wrapper
     scores, b2_calls = ops_mod.autocorr_score, []
 
-    def recording(x, lags):
+    def recording(x, lags, **kw):
         b2_calls.append((*x.shape, lags))
-        return scores(x, lags)
+        return scores(x, lags, **kw)
 
+    states = {}
     ops_mod.autocorr_score = recording
     try:
         ops_mod.reset_launch_counts()
-        remain_cold, remain_steady, t_cold, t_steady, refits = run(
-            fleet, eng, FLEET)
+        remain_cold, remain_steady, t_cold, t_steady, refits = _tick_run(
+            torch, np, vals, fleet, eng, FLEET, states)
         launches = ops_mod.launch_counts()
-        t_full, profile = _full_refit_profile(torch, eng)
+        t_full, profile = _full_refit_profile(torch, eng, states)
     finally:
         ops_mod.autocorr_score = scores
     print("[tick] B2 received (J, N, L, lags): " + ", ".join(
@@ -495,8 +570,9 @@ def phase_tick(torch, np, ops_mod):
             and (periods <= WINDOW // 2).all()):
         raise AssertionError("tick produced out-of-range fits")
 
-    cfleet, ceng = make("cpu", CHECK_JOBS)
-    c_cold, c_steady, _, _, _ = run(cfleet, ceng, CHECK_JOBS)
+    cfleet, ceng = _tick_engine(np, vals, "cpu", CHECK_JOBS)
+    c_cold, c_steady, _, _, _ = _tick_run(torch, np, vals, cfleet, ceng,
+                                          CHECK_JOBS)
     ids = [f"job{i:05d}" for i in range(CHECK_JOBS)]
     bad = [i for i in ids
            if (remain_cold[i], remain_steady[i],
@@ -508,13 +584,15 @@ def phase_tick(torch, np, ops_mod):
     print(f"[tick] remain and period equal the CPU engine on {CHECK_JOBS} "
           f"jobs; cyclic share {float((periods > 1).mean()):.4f}")
     return launches, {"tick_cold_s": t_cold, "tick_steady_s": t_steady,
-                      "tick_full_s": t_full, **profile}, b2_calls
+                      "tick_full_s": t_full, **profile}, b2_calls, states
 
 
-def _full_refit_profile(torch, eng):
+def _full_refit_profile(torch, eng, states=None):
     """Time a tick that refits every job (``refresh(force=True)``, the
     classify splicing the slid window), then trace one more under
-    ``torch.profiler`` and print where its device time goes."""
+    ``torch.profiler`` and print where its device time goes. With
+    ``states``, the timed tick's ``_tick_state`` goes there as "full"."""
+    import numpy as np
     now = WINDOW + STEADY_TICKS - 1
 
     def full_tick():
@@ -523,9 +601,11 @@ def _full_refit_profile(torch, eng):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    full_tick()
+    remain = full_tick()
     torch.cuda.synchronize()
     t_full = time.perf_counter() - t0
+    if states is not None:
+        states["full"] = _tick_state(np, eng, now, remain)
     wall_us, busy_us = _traced(torch, full_tick, "tick")
     print(f"[tick] full refit of {FLEET} jobs: {t_full:.4f} s untraced; "
           f"traced wall {wall_us / 1e6:.4f} s, device busy "
@@ -591,9 +671,9 @@ def _capturing(ops_mod, seen):
         seen["dft_power"].add(tuple(x.shape))
         return spectrum(x, **kw)
 
-    def scores_rec(x, lags):
+    def scores_rec(x, lags, **kw):
         seen["autocorr"].add((*x.shape, tuple(lags.tolist())))
-        return scores(x, lags)
+        return scores(x, lags, **kw)
 
     ops_mod.power_spectrum, ops_mod.autocorr_score = spectrum_rec, scores_rec
     try:
@@ -2817,6 +2897,9 @@ def phase_moe_serve(torch, ops_mod):
     print(f"[moe] {MOE_ARCH}: init {t_init:.4f} s")
     _moe_layer_relaunch(torch, r.cfg, r.params)
     out[MOE_ARCH] = rec
+    counts, out["dist_one_rank"] = phase_dist_one_rank(
+        torch, ops_mod, r.cfg, r.params, r.batch)
+    launches.append(counts)
     del r
     gc.collect()
     torch.cuda.empty_cache()
@@ -2986,6 +3069,389 @@ def phase_moe_cpu_check(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the distribution layer (``core/shard.py``, the expert-parallel
+# MoE) on one NCCL rank and on four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+DIST_RANKS = 4
+DIST_MOE_MESH = (2, 2)             # ("data", "model")
+DIST_CHECK_TOKENS = (2, 1024)      # f32, capacity factor E/K: no drops
+DIST_TIMED_TOKENS = (4, 4096)      # bf16, the config's capacity factor
+DIST_MOE_RTOL, DIST_AUX_ATOL = 1e-5, 1e-6
+TICK_KEYS = ("remain", "scheduled_at", "period", "profile", "lm_series",
+             "fitted_step", "origin_step", "confidence")
+B2_BLOCK_CHECK = (8192, WINDOW, 40)    # rows, N, consecutive lags
+
+
+def _blocks_bit_equal(torch, dft, autocorr):
+    """B1 and B2 on every row at once against the same rows cut into
+    DIST_RANKS blocks, each block launched alone (what a rank of the
+    sharded tick launches): bit-equal. B2's tiles follow (J, N, L), so the
+    blocks run another plan than the whole; a lag's sum must not follow
+    the tile. Returns the two plans."""
+    J, N, L = B2_BLOCK_CHECK
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(J, N, device="cuda", generator=g)
+    xc = x - x.mean(dim=1, keepdim=True)
+    lags = torch.arange(2, 2 + L, dtype=torch.int32, device="cuda")
+    sms = autocorr.sm_count(x.device)
+    plans = (autocorr.plan(J, N, L, sms),
+             autocorr.plan(J // DIST_RANKS, N, L, sms))
+    if plans[0].mt == plans[1].mt:
+        raise AssertionError(f"B2 block check: the blocks plan as the whole "
+                             f"({plans[0]}), nothing is checked")
+    whole_s, whole_p = autocorr.autocorr_score(xc, lags), \
+        dft.power_spectrum(x, True)
+    parts_s = torch.cat([autocorr.autocorr_score(b.contiguous(), lags)
+                         for b in xc.chunk(DIST_RANKS)])
+    parts_p = torch.cat([dft.power_spectrum(b.contiguous(), True)
+                         for b in x.chunk(DIST_RANKS)])
+    if not (_bit_equal(torch, whole_s, parts_s)
+            and _bit_equal(torch, whole_p, parts_p)):
+        raise AssertionError("B1 or B2 on row blocks differs from the whole "
+                             "launch")
+    print(f"[dist] B2 at (J, N, L) = {B2_BLOCK_CHECK} in one launch (plan "
+          f"mt {plans[0].mt}, rows {plans[0].rows}) and in {DIST_RANKS} "
+          f"blocks of {J // DIST_RANKS} (plan mt {plans[1].mt}, rows "
+          f"{plans[1].rows}): bit-equal; B1 (route {dft.route(N)}) too")
+    return plans
+
+
+def _dist_tick(torch, np, ops_mod, workdir):
+    """This rank's sharded ticks (``shards=DIST_RANKS``), overlap off and
+    on: the cold, steady and full-refit decisions against phase 3's
+    (``tick_states.npz``), bit for bit. Returns times and launches."""
+    ref = np.load(workdir / "tick_states.npz")
+    vals = _tick_values(np)
+    # warm-up: a small sharded tick takes this process's first use of
+    # every op off the timed runs
+    fleet, eng = _tick_engine(np, vals, "cuda", CHECK_JOBS,
+                              shards=DIST_RANKS)
+    _tick_run(torch, np, vals, fleet, eng, CHECK_JOBS)
+    del fleet, eng
+    out = {}
+    for overlap in (False, True):
+        fleet, eng = _tick_engine(np, vals, "cuda", FLEET, shards=DIST_RANKS,
+                                  overlap=overlap)
+        ops_mod.reset_launch_counts()
+        states = {}
+        _, _, t_cold, t_steady, refits = _tick_run(torch, np, vals, fleet,
+                                                   eng, FLEET, states)
+        now = WINDOW + STEADY_TICKS - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.refresh(force=True)
+        remain = eng.tick(now).remain
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        launches = ops_mod.launch_counts()
+        states["full"] = _tick_state(np, eng, now, remain)
+        for tick in ("cold", "steady", "full"):
+            for key in TICK_KEYS:
+                if not np.array_equal(states[tick][key],
+                                      ref[f"{tick}/{key}"]):
+                    raise AssertionError(f"sharded tick (overlap "
+                                         f"{overlap}) {tick}: {key} differs "
+                                         f"from phase 3's")
+        if not np.array_equal(states["steady_remain"], ref["steady_remain"]):
+            raise AssertionError(f"sharded tick (overlap {overlap}): a "
+                                 f"steady tick's RemainTime differs")
+        out[f"overlap_{int(overlap)}"] = {
+            "tick_cold_s": t_cold, "tick_steady_s": t_steady,
+            "tick_full_s": t_full, "refits": refits,
+            "launches": {op: launches[op] for op in CYCLE_OPS}}
+        del fleet, eng
+    return out
+
+
+def _ep_timed(torch, call):
+    """``call()`` once with CUDA events around each part of the
+    expert-parallel layer (routing, dispatch, the two all-to-alls, the
+    gathers of router, weights and outputs, the aux sums, the expert
+    products, the combine). Returns (ms per part, whole ms, drops)."""
+    from repro_torch.models import blocks, dist
+    pending, drops, a2a = [], [], []
+
+    def timed(name, fn, key=None):
+        def run(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            pending.append((key(*args, **kwargs) if key else name, a, b))
+            return out
+        return run
+
+    def gather_key(x, mesh, axis, dim):
+        return ("weight_gather" if axis == "data" else
+                "router_gather" if dim == 1 else "output_gather")
+
+    def a2a_key(*_):
+        a2a.append(1)
+        return "a2a_dispatch" if len(a2a) % 2 else "a2a_return"
+
+    combine_fn = blocks._combine
+
+    def combine(y, slot, gate, T):
+        drops.append((slot >= y.shape[0] * y.shape[1]).sum())
+        return combine_fn(y, slot, gate, T)
+
+    parts = ((blocks, "_route", "route"), (blocks, "_fill_buffer", "dispatch"),
+             (blocks, "_expert_swiglu", "experts"),
+             (dist, "all_reduce", "aux_reduce"))
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in parts] + [
+        (dist, "all_gather", dist.all_gather),
+        (dist, "all_to_all", dist.all_to_all), (blocks, "_combine", combine_fn)]
+    for mod, n, key in parts:
+        setattr(mod, n, timed(key, getattr(mod, n)))
+    dist.all_gather = timed(None, dist.all_gather, gather_key)
+    dist.all_to_all = timed(None, dist.all_to_all, a2a_key)
+    blocks._combine = timed("combine", combine)
+    try:
+        out = timed("layer", call)()
+        torch.cuda.synchronize()
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+    del out
+    ms = {}
+    for key, a, b in pending:
+        ms[key] = ms.get(key, 0.0) + a.elapsed_time(b)
+    return ms, ms.pop("layer"), [int(d) for d in drops]
+
+
+def _dist_moe(torch):
+    """This rank's share of one full-width qwen3-moe MoE layer on a
+    DIST_MOE_MESH mesh (experts over ``model``, ZeRO-3 over ``data``), the
+    weights from one seeded draw cut by ``blocks.moe_shard_params``: in f32
+    at a capacity that cannot drop against the local path, then in bf16 at
+    the config's capacity, event-timed by part."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import blocks, dist
+
+    mesh = meshlib.make_host_mesh(*DIST_MOE_MESH)
+    ctx = dist.DistContext(mesh, meshlib.batch_axes(mesh))
+    base = get_config(MOE_ARCH)
+    m = base.moe
+    cfg = base.replace(param_dtype="float32", moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    full = blocks.moe_init(g, cfg, device="cuda")
+    x = torch.randn(*DIST_CHECK_TOKENS, cfg.d_model, device="cuda",
+                    generator=g)
+    want, want_aux = blocks.moe_ffn(full, cfg, x)
+    mine = blocks.moe_shard_params(mesh, full)
+    del full
+    with dist.use(ctx):
+        got, aux = blocks.moe_ffn(mine, cfg, dist.local_tokens(ctx, x))
+    want = dist.local_tokens(ctx, want)
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    aux_err = abs(float(aux) - float(want_aux))
+    if not (err <= DIST_MOE_RTOL * peak and aux_err <= DIST_AUX_ATOL):
+        raise AssertionError(f"expert-parallel MoE layer in f32: max abs err "
+                             f"{err} on a peak of {peak}, aux err {aux_err}")
+    out = {"f32_max_abs_err": err, "f32_peak": peak, "f32_aux_err": aux_err}
+    del mine, x, want, got
+    torch.cuda.empty_cache()
+
+    cfg = base
+    full = blocks.moe_init(g, cfg, device="cuda")
+    mine = blocks.moe_shard_params(mesh, full)
+    del full
+    x = torch.randn(*DIST_TIMED_TOKENS, cfg.d_model, device="cuda",
+                    generator=g).to(cfg.dtype)
+    xl = dist.local_tokens(ctx, x)
+
+    def layer():
+        with dist.use(ctx):
+            return blocks.moe_ffn(mine, cfg, xl)
+
+    layer()                                          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, _ = layer()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    if not bool(torch.isfinite(y.float()).all()) or y.shape != xl.shape:
+        raise AssertionError("expert-parallel MoE layer in bf16: output not "
+                             "finite or misshapen")
+    split, whole, drops = _ep_timed(torch, layer)
+    T_tp = xl.shape[0] * xl.shape[1] // meshlib.axis_size(mesh, "model")
+    out.update(bf16_host_ms=host_ms, bf16_event_ms=whole,
+               bf16_split_ms=split, bf16_drops=drops,
+               bf16_pairs=T_tp * m.top_k,
+               bf16_capacity=blocks.moe_capacity(m, T_tp),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def _dist_rank(rank: int, world: int, workdir: str):
+    """One rank of phase 10(b), a spawned process on the card shared with
+    the others, in an explicitly named gloo group (NCCL refuses two ranks
+    on one card) whose FileStore lies in ``workdir``: the sharded ticks
+    (``_dist_tick``), then the expert-parallel MoE layer (``_dist_moe``).
+    Writes ``rank<r>.json``; any failure raises, and the process exits
+    non-zero."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    work = pathlib.Path(workdir)
+    tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                             rank=rank, world_size=world)
+    try:
+        out = {"tick": _dist_tick(torch, np, ops, work),
+               "moe": _dist_moe(torch)}
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_dist_ranks(torch, np, ops_mod, dft, autocorr, tick_states,
+                     tick_times):
+    """Phase 10(b): B1 and B2 bit-equal on row blocks (``_blocks_bit_equal``),
+    then DIST_RANKS ranks spawned on the one card (``_dist_rank``), each
+    running the sharded tick against phase 3's decisions and its share of
+    the expert-parallel MoE layer. The parent joins every rank (a failed
+    rank fails the run). Returns (the ranks' launches together, numbers to
+    keep)."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    plans = _blocks_bit_equal(torch, dft, autocorr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        work = pathlib.Path(tmp)
+        np.savez(work / "tick_states.npz", steady_remain=tick_states[
+            "steady_remain"], **{f"{t}/{k}": tick_states[t][k]
+                                 for t in ("cold", "steady", "full")
+                                 for k in TICK_KEYS})
+        t0 = time.perf_counter()
+        mp.start_processes(_dist_rank, args=(DIST_RANKS, tmp),
+                           nprocs=DIST_RANKS, join=True,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+    launches = {op: 0 for op in ops_mod.launch_counts()}
+    for r, rec in enumerate(ranks):
+        for o in (0, 1):
+            t = rec["tick"][f"overlap_{o}"]
+            for op, n in t["launches"].items():
+                launches[op] += n
+            print(f"[dist] rank {r} tick shards={DIST_RANKS} overlap {o}: "
+                  f"cold {t['tick_cold_s']:.4f} s, steady "
+                  f"{t['tick_steady_s']:.4f} s, full refit "
+                  f"{t['tick_full_s']:.4f} s (phase 3 unsharded: "
+                  f"{tick_times['tick_cold_s']:.4f}, "
+                  f"{tick_times['tick_steady_s']:.4f}, "
+                  f"{tick_times['tick_full_s']:.4f}); B1/B2 launches "
+                  f"{t['launches']}; cold, steady and full decisions "
+                  f"bit-identical to phase 3's")
+        mo = rec["moe"]
+        print(f"[dist] rank {r} MoE layer ({MOE_ARCH} full width, mesh "
+              f"{DIST_MOE_MESH}): f32 at capacity E/K against the local "
+              f"path max abs err {mo['f32_max_abs_err']:.6g} (peak "
+              f"{mo['f32_peak']:.4f}), aux err {mo['f32_aux_err']:.3g}; bf16 "
+              f"{DIST_TIMED_TOKENS[0]} x {DIST_TIMED_TOKENS[1]} tokens "
+              f"(gloo, through the host): host {mo['bf16_host_ms']:.4f} ms, "
+              f"events {mo['bf16_event_ms']:.4f} ms, split "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          mo["bf16_split_ms"].items())
+              + f" ms; dropped pairs {mo['bf16_drops']} of "
+              f"{mo['bf16_pairs']} (capacity {mo['bf16_capacity']}); peak "
+              f"{mo['peak_gb']:.4f} GB")
+    print(f"[dist] {DIST_RANKS} gloo ranks on one card: {wall:.4f} s "
+          f"wall, spawn included")
+    return launches, {"ranks_wall_s": wall, "ranks": ranks,
+                      "b2_plans": [p._asdict() for p in plans]}
+
+
+def phase_dist_one_rank(torch, ops_mod, cfg, params, batch):
+    """Phase 10(a): the full-depth prefill of phase 9's model and batch
+    through the expert-parallel path on one NCCL rank (a (1, 1) mesh: every
+    collective a copy, C as on the local path), against the local prefill
+    of the same batch: logits bit-equal, else (a difference to explain)
+    within 1e-6 of the peak in f32 at 2 layers, which always runs. Returns
+    (the counted prefill's launches, numbers to keep)."""
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import dist, lm
+    from repro_torch.train import make_prefill_step
+
+    B, S = batch["tokens"].shape
+    prefill = make_prefill_step(cfg, S + MOE_STEPS)
+
+    def timed(p, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, b)
+        torch.cuda.synchronize()
+        del cache
+        return logits, time.perf_counter() - t0
+
+    local, t_local = timed(params, batch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                 rank=0, world_size=1)
+        try:
+            mesh = meshlib.make_host_mesh(1, 1)
+            ctx = dist.DistContext(mesh, meshlib.batch_axes(mesh))
+            for axis in mesh.mesh_dim_names:     # NCCL sets up lazily
+                tdist.all_reduce(torch.zeros(1, device="cuda"),
+                                 group=mesh.get_group(axis))
+            torch.cuda.synchronize()
+            ops_mod.reset_launch_counts()
+            with dist.use(ctx):
+                ep, t_ep = timed(params, batch)
+            launches = ops_mod.launch_counts()
+            torch.cuda.empty_cache()
+            # f32, 2 layers at full width, prompt 1,024
+            cfg32 = cfg.replace(num_layers=2, param_dtype="float32")
+            p32 = lm.init_params(cfg32, SEED, device="cuda")
+            b32 = {"tokens": batch["tokens"][:2, :1024]}
+            pre32 = make_prefill_step(cfg32, 1024)
+            want32, _ = pre32(p32, b32)
+            with dist.use(ctx):
+                got32, _ = pre32(p32, b32)
+            del p32
+        finally:
+            tdist.destroy_process_group()
+    equal = torch.equal(local, ep)
+    err = float((local.float() - ep.float()).abs().max())
+    err32 = float((got32 - want32).abs().max())
+    peak32 = float(want32.abs().max())
+    if launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"expert-parallel prefill launched {launches}")
+    if err32 > 1e-6 * peak32 or not bool(torch.isfinite(ep.float()).all()):
+        raise AssertionError(f"expert-parallel prefill on one rank: f32 "
+                             f"logits err {err32} on a peak of {peak32}")
+    print(f"[dist] {cfg.name} prefill {B} x {S} through the expert-parallel "
+          f"path on one NCCL rank: {t_ep:.4f} s (local path {t_local:.4f} "
+          f"s); logits {'bit-equal' if equal else f'differ, max abs {err}'}"
+          f"; B5 launches {launches['flash_attention']}; f32 at 2 layers, "
+          f"prompt 1,024: max abs err {err32:.3g} (peak {peak32:.4f})")
+    if not equal:
+        print(f"[dist] finding: the one-rank expert-parallel logits differ "
+              f"from the local path's by {err}; held in f32 above")
+    return launches, {"prefill_local_s": t_local, "prefill_ep_s": t_ep,
+                      "logits_bit_equal": equal, "logits_max_abs_err": err,
+                      "f32_2layer_max_abs_err": err32,
+                      "f32_2layer_peak": peak32}
+
+
 def main() -> int:
     # phase 8's pre-copy holds the 26.5 GB training state twice beside a
     # step's transients, which fits the card only in segments that grow in
@@ -3016,7 +3482,8 @@ def main() -> int:
     records["ssm_scan"] = phase_ssm_kernel(torch, ref, gla, ssm_scan)
     records["flash_attention"], attn_times = phase_attention_kernel(
         torch, ref, flash_attention)
-    tick_launches, tick_times, tick_b2 = phase_tick(torch, np, ops)
+    tick_launches, tick_times, tick_b2, tick_states = phase_tick(
+        torch, np, ops)
     # phase 2's B2 check at each shape the tick sent (captured in phase 3)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     seen = set()
@@ -3027,6 +3494,10 @@ def main() -> int:
             _autocorr_case(torch, ref, autocorr, g, J, N, lags,
                            back_to_back=True)
     fleet_launches, controller_launches = phase_fleet(torch, ops)
+    # phase 10(b) before any replica: four ranks' contexts beside this one
+    dist_launches, dist_times = phase_dist_ranks(
+        torch, np, ops, dft, autocorr, tick_states, tick_times)
+    del tick_states
     records["dirty_delta"] = phase_dirty_delta(torch, ref, dirty_delta)
     phase_placement(torch)
     serve_prefill, serve_launches, serve_times = phase_serve(
@@ -3048,6 +3519,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches, moe_times = phase_moe_serve(torch, ops)
     moe_times["card_vs_cpu"] = phase_moe_cpu_check(torch)
+    dist_times["one_rank"] = moe_times.pop("dist_one_rank")
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -3068,7 +3540,7 @@ def main() -> int:
              serve_prefill, serve_launches,
              ssm_prefill, ssm_migrate, rwkv_launches, dense_launches,
              train_launches, train_mig_launches, *check_launches.values(),
-             trainer_launches, inc_launches, *moe_launches)
+             trainer_launches, inc_launches, *moe_launches, dist_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
         launches = sum(path[op] for path in paths)
@@ -3084,6 +3556,7 @@ def main() -> int:
     print("[dense] " + json.dumps(dense_times))
     print("[train] " + json.dumps(train_times))
     print("[moe] " + json.dumps(moe_times))
+    print("[dist] " + json.dumps(dist_times))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

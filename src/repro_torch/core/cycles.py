@@ -45,9 +45,10 @@ def _as_rows(series, device: DeviceLike) -> torch.Tensor:
     return torch.as_tensor(np.asarray(series), device=resolve_device(device))
 
 
-def _spectra(X: torch.Tensor) -> torch.Tensor:
-    """(J, n) f32 -> (J, n//2+1) one-sided power of the mean-removed rows."""
-    return kops.power_spectrum(X, center=True)
+def _spectra(X: torch.Tensor, mesh=None) -> torch.Tensor:
+    """(J, n) f32 -> (J, n//2+1) one-sided power of the mean-removed rows;
+    ``mesh`` splits the rows over its ranks (bit-identical)."""
+    return kops.power_spectrum(X, center=True, mesh=mesh)
 
 
 def power_spectrum(series, device: DeviceLike = None) -> np.ndarray:
@@ -108,7 +109,7 @@ def _lag_window(p0: np.ndarray, n: int, min_period: int, max_period: int
 
 
 def _refine_period_batch(X: torch.Tensor, p0: np.ndarray, min_period: int,
-                         max_period: int) -> np.ndarray:
+                         max_period: int, mesh=None) -> np.ndarray:
     """Sharpen FFT bin estimates with a local autocorrelation search, for
     the whole fleet at once.
 
@@ -116,7 +117,7 @@ def _refine_period_batch(X: torch.Tensor, p0: np.ndarray, min_period: int,
     within +/- one bin width. Rows are centered in f64 and cast to f32,
     and every job scores the one shared lag grid
     ``lo[ok].min() .. hi[ok].max()``; each job's argmax is masked to its
-    own window.
+    own window. ``mesh`` splits the lag scores' rows over its ranks.
     """
     J, n = X.shape
     p0 = np.asarray(p0, np.int64)
@@ -128,7 +129,7 @@ def _refine_period_batch(X: torch.Tensor, p0: np.ndarray, min_period: int,
     Xc = (X - X.mean(dim=1, keepdim=True)).to(torch.float32)
     lags = torch.arange(int(lo[ok].min()), int(hi[ok].max()) + 1,
                         device=X.device)
-    R = kops.autocorr_score(Xc, lags.to(torch.int32)).double()
+    R = kops.autocorr_score(Xc, lags.to(torch.int32), mesh=mesh).double()
     lo_t = torch.as_tensor(lo, device=X.device)
     hi_t = torch.as_tensor(hi, device=X.device)
     valid = (lags[None, :] >= lo_t[:, None]) & (lags[None, :] <= hi_t[:, None])
@@ -185,11 +186,14 @@ def _acyclic(row: np.ndarray) -> CycleModel:
 def fit_cycle_batch(classes_batch, *, min_period: int = 2,
                     max_period: Optional[int] = None,
                     folded: bool = False,
-                    device: DeviceLike = None) -> List[CycleModel]:
+                    device: DeviceLike = None,
+                    mesh=None) -> List[CycleModel]:
     """Fleet-scale cycle recognition: one batched power spectrum, one
     batched peak pick, one batched autocorrelation refinement for all
     jobs. ``classes_batch`` is a (J, n) tensor (which keeps its device) or
-    a host array (sent to ``device``)."""
+    a host array (sent to ``device``). ``mesh`` splits the kernel stages'
+    rows over its ranks (``core/shard.py``); the peak pick runs on the
+    gathered spectra, so the fits are bit-identical."""
     rows = _as_rows(classes_batch, device)
     X = rows.to(torch.float32)
     J, n = X.shape
@@ -199,14 +203,14 @@ def fit_cycle_batch(classes_batch, *, min_period: int = 2,
     max_p = min(max_period or n // 2, n // 2)
     if n < 2 * min_period:
         return [_acyclic(cls_host[j]) for j in range(J)]
-    k_star, conf, found = _peak_pick(_spectra(X), n, min_period, max_p,
-                                     total_power=_total_power(X))
+    k_star, conf, found = _peak_pick(_spectra(X, mesh), n, min_period,
+                                     max_p, total_power=_total_power(X))
     p0 = np.round(n / np.maximum(k_star, 1)).astype(np.int64)
     periods = np.where(found, p0, 1)
     if found.any():
         sel = torch.as_tensor(np.flatnonzero(found), device=X.device)
         periods[found] = _refine_period_batch(X[sel], p0[found], min_period,
-                                              max_p)
+                                              max_p, mesh)
     out: List[CycleModel] = []
     for j in range(J):
         if not found[j]:

@@ -31,8 +31,13 @@ staleness scan. ``overlap=True`` returns the ``TickResult`` before the
 decide is copied to the host: the device runs Alg. 2 while the caller goes
 on, and ``.remain`` materializes on first access (bit-identical values).
 
-One device only: the reference's ``shards=k`` row split (``core/shard.py``)
-is not ported yet, so ``shards`` must be ``None`` or 1.
+``shards=k`` splits the row stages (classify, spectrum, lag scores,
+Algorithm 2) over the first k ranks of the initialised
+``torch.distributed`` group (``core/shard.py``): every rank registers and
+records the same fleet, computes its block of rows and all-gathers, so
+every rank's tick is bit-identical to the unsharded one (``shards=None``).
+With ``overlap=True`` the decide's all-gather is issued and waited on
+when ``.remain`` is first read.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import characterize, cycles, postpone as pp
+from repro_torch.core import shard as shardlib
 from repro_torch.core.telemetry import TelemetryBuffer
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 
@@ -127,9 +133,6 @@ class SurveillanceEngine:
                  overlap: bool = False,
                  min_coverage: float = 0.5,
                  device: DeviceLike = None):
-        if shards is not None and shards != 1:
-            raise NotImplementedError(
-                "the row-sharded decide plane is not ported: use shards=None")
         self.device = resolve_device(device)
         self.folded = folded
         self.min_samples = min_samples
@@ -142,6 +145,10 @@ class SurveillanceEngine:
         # until NaNs appear.
         self.min_coverage = float(min_coverage)
         self.overlap = overlap
+        self.shards = shards
+        # every rank of the group must build its engine (the mesh's groups
+        # are made collectively)
+        self.mesh = shardlib.decide_mesh(shards, device=self.device)
         self.jobs: Dict[str, SurveilledJob] = {}
         self._decide_cache: Optional[Tuple] = None
 
@@ -263,7 +270,7 @@ class SurveillanceEngine:
             return_mask=True, device=dev)                  # (G, tail, F)
         coverage = (valid.sum(dim=1).cpu().numpy()
                     / np.maximum(counts, 1))
-        lm_tail = characterize.classify_lm_batch(jobs[0].nb, W)  # (G, tail)
+        lm_tail = shardlib.classify_lm(jobs[0].nb, W, self.mesh)  # (G, tail)
         if tail == m:
             LM = lm_tail
         else:
@@ -276,7 +283,8 @@ class SurveillanceEngine:
             t = torch.arange(m, device=dev)[None, :]
             src = torch.where(t < m - d, t + d, tail + t)
             LM = torch.gather(torch.cat([old, lm_tail], dim=1), 1, src)
-        models = cycles.fit_cycle_batch(LM, folded=self.folded)
+        models = cycles.fit_cycle_batch(LM, folded=self.folded,
+                                        mesh=self.mesh)
         for i, (job, model, ls) in enumerate(zip(jobs, models, latest)):
             if coverage[i] < self.min_coverage:
                 # blackout-starved window: a cycle fit over zero-filled
@@ -354,10 +362,13 @@ class SurveillanceEngine:
         if not ids:
             return TickResult({}, refitted, 0)
         m_now = (now_step - origins).to(torch.int32)     # one vector op
-        remain_dev = pp.postpone_batch(profiles, periods, m_now)
+        remain = shardlib.postpone_rows(profiles, periods, m_now, self.mesh,
+                                        async_op=self.overlap)
         J = len(ids)
 
-        def materialize(ids=ids, dev=remain_dev) -> Dict[str, int]:
+        def materialize(ids=ids, remain=remain,
+                        lazy=self.overlap) -> Dict[str, int]:
+            dev = remain.wait() if lazy else remain
             return dict(zip(ids, dev.tolist()))
 
         if self.overlap:

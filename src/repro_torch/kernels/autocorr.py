@@ -28,6 +28,13 @@ so the result is the same on every run. The host never reads the lags:
 ``plan`` chooses the tiles and the blocks from (J, N, L) and the card's
 SM count alone.
 
+A lag's score does not depend on the tile it falls in: every tensor
+tile's k-steps start at t = 0 in the same chunks, and the k-steps a lag
+does not need add exact zeros. So a launch over a block of the rows (a
+rank of the sharded tick, ``core/shard.py``), which ``plan`` may tile
+otherwise, gives the whole launch's bits for those rows (held on the
+card by ``chip_smoke.py``'s ``_blocks_bit_equal``).
+
 The rows must be finite. A tensor tile's products take the zeros past N,
 so a NaN or an inf reaches every lag of its tile, where the plain version
 poisons only the lags whose sums hold it.

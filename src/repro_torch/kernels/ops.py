@@ -22,6 +22,11 @@ layers' chunked scan and attention prefill.
                   (flash_attention.cu)
   ==============  ===============================  ===========================
 
+``power_spectrum`` and ``autocorr_score`` take an optional ``mesh`` (a
+1-D ``DeviceMesh``, ``core/shard.decide_mesh``): the rows are then split
+over its ranks, each rank launching the kernel on its block, and
+all-gathered -- the kernel half of the sharded decide plane.
+
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 there is no fallback to the plain version and no shape the kernel hands
 back. A CPU tensor goes to the plain version, which is where the CPU tests
@@ -67,20 +72,46 @@ def _needs_grad(*inputs: Optional[torch.Tensor]) -> bool:
         t is not None and t.requires_grad for t in inputs)
 
 
-def power_spectrum(x: torch.Tensor, *, center: bool = False) -> torch.Tensor:
+def _row_sharded(fn, mesh, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` with the rows of ``x`` split over the 1-D ``mesh``
+    (``core/shard.row_sharded``: pad to a multiple of the mesh, this rank's
+    block through ``fn``, all-gather, padding cut). Each kernel's row
+    arithmetic does not depend on the rows it is launched with, so the
+    result is bit-identical to ``fn(x)``."""
+    from repro_torch.core import shard
+    return shard.row_sharded(fn, mesh, x)
+
+
+def power_spectrum(x: torch.Tensor, *, center: bool = False,
+                   mesh=None) -> torch.Tensor:
     """(B, N) -> (B, N//2+1) f32 one-sided power spectrum; ``center``
-    removes each row's mean first."""
+    removes each row's mean first. ``mesh`` splits the rows over its
+    ranks."""
     x = x.float()
+    if mesh is not None:
+        return _row_sharded(lambda v: _power(v, center), mesh, x)
+    return _power(x, center)
+
+
+def _power(x: torch.Tensor, center: bool) -> torch.Tensor:
     if _device_type(x) == "cuda":
         return _dft.power_spectrum(x, center)
     return ref.power_spectrum_ref(x, center)
 
 
-def autocorr_score(x: torch.Tensor, lags: torch.Tensor) -> torch.Tensor:
+def autocorr_score(x: torch.Tensor, lags: torch.Tensor, *,
+                   mesh=None) -> torch.Tensor:
     """(J, N) finite mean-removed rows x (L,) shared candidate lags ->
     (J, L) f32 unnormalized autocorrelation scores (lags clamped to
-    [0, N])."""
+    [0, N]). ``mesh`` splits the rows over its ranks; every rank scores
+    the one lag grid."""
     x = x.float()
+    if mesh is not None:
+        return _row_sharded(lambda v: _scores(v, lags), mesh, x)
+    return _scores(x, lags)
+
+
+def _scores(x: torch.Tensor, lags: torch.Tensor) -> torch.Tensor:
     if _device_type(x) == "cuda":
         return _ac.autocorr_score(x, lags)
     return ref.autocorr_score_ref(x, lags)

@@ -17,13 +17,14 @@ Initializers take an explicit ``torch.Generator`` and a ``lead`` shape of
 stacked layers: ``dense_init(g, (d, f), lead=(L,))`` draws an (L, d, f)
 stack with the fan-in of one (d, f) layer.
 
-The MoE layer is the reference's local path: router, top-k and dispatch
-are plain torch ops, as the JAX package computes them outside any Pallas
-kernel, and the three expert products are batched matmuls. Its
-expert-parallel path over a mesh (``_moe_ffn_sharded`` and
-``models/dist.py``: all-to-all between cards) waits for ROADMAP item 16,
-which needs more than one card; on one card the local path is the whole
-computation.
+The MoE layer's router, top-k and dispatch are plain torch ops, as the
+JAX package computes them outside any Pallas kernel, and the three expert
+products are batched matmuls. Under a ``models/dist.DistContext`` the
+layer is the reference's expert-parallel path (``_moe_ffn_sharded``): each
+rank routes its tokens, sends them to their experts' ranks with an
+all-to-all over the ``model`` axis, gathers its experts' weights over
+``data`` (ZeRO-3), and sends the outputs back; its weights are cut by
+``moe_shard_params``.
 """
 from __future__ import annotations
 
@@ -307,7 +308,13 @@ def moe_ffn(params: Params, cfg: ArchConfig, x: torch.Tensor
 
     The capacity is taken over all B*S tokens of the call. Every expert
     runs its products over its C slots, empty or not, as the reference
-    does."""
+    does. With a ``dist.current()`` context this is the expert-parallel
+    path (``_moe_ffn_sharded``): ``x`` and ``params`` are then this rank's
+    block and shares."""
+    from repro_torch.models import dist
+    ctx = dist.current()
+    if ctx is not None:
+        return _moe_ffn_sharded(params, cfg, x, ctx)
     m = cfg.moe
     B, S, d = x.shape
     T, E = B * S, m.num_experts
@@ -326,3 +333,105 @@ def moe_ffn(params: Params, cfg: ArchConfig, x: torch.Tensor
     if m.num_shared_experts:
         out = out + mlp(params["shared"], xt)
     return out.reshape(B, S, d), aux
+
+
+def moe_shard_params(mesh, params: Params) -> Params:
+    """This rank's share of one MoE layer's full params for the
+    expert-parallel path: the router and the expert stacks cut by
+    ``launch/sharding.param_shardings`` (router (d, E/tp); w_gate, w_up
+    (E/tp, d/data, f); w_down (E/tp, f, d/data)); the shared expert whole,
+    since it runs on each rank's own tokens outside the dispatch (the
+    reference leaves it to GSPMD)."""
+    from repro_torch.launch import sharding
+    experts = {k: v for k, v in params.items() if k != "shared"}
+    out = sharding.param_shardings(mesh, {"moe": experts})["moe"]
+    if "shared" in params:
+        out["shared"] = params["shared"]
+    return out
+
+
+def _moe_ffn_sharded(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                     ctx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on this rank: tokens over the batch and
+    ``model`` axes, experts over ``model``, ZeRO-3 expert weights over
+    ``data``. ``x`` is this rank's (B_loc, S_loc, d) block
+    (``dist.local_tokens``), ``params`` its shares (``moe_shard_params``).
+
+    Route the rank's tokens (the router's (d, E/tp) shards all-gathered
+    over ``model``, then the local path's product) -> capacity buffer (E,
+    C, d), C from the tokens this rank routes -> all-to-all over ``model``
+    (tokens
+    travel to their experts' ranks) -> the expert weights all-gathered
+    over ``data`` -> expert SwiGLU -> all-to-all back -> weighted combine.
+    Token modes, as the reference's: ``seq`` (the block is a sequence
+    slice), ``slice`` (each ``model`` rank routes its share of the block
+    and the outputs are all-gathered over ``model``), ``dup`` (too few
+    tokens to split, as in decode: every ``model`` rank routes them all and
+    the load-balance sums skip ``model``). Gradients pass through every
+    collective (``dist``'s autograd-aware forms).
+
+    One deviation from the reference, a fault there (ROADMAP C-9): it
+    multiplies each ``model`` rank's tokens by that rank's router shard and
+    all-gathers the logits, which in ``slice`` and ``seq`` modes joins the
+    logits of different tokens (rank r's tokens for its experts beside rank
+    r+1's tokens for theirs). The port gathers the router's columns (d x E
+    f32, 1 MB a layer at qwen3-moe) and routes each token on its own
+    logits, as the local path does."""
+    from repro_torch.launch.mesh import axis_rank, axis_size
+    from repro_torch.models import dist
+
+    m = cfg.moe
+    mesh, bd, tp = ctx.mesh, ctx.batch_axes, ctx.tp_axis
+    tp_n, nb = axis_size(mesh, tp), dist.batch_size(ctx)
+    B, S, d = x.shape
+    E, K = m.num_experts, m.top_k
+    T_loc = B * S
+    if ctx.seq_shard:
+        sp_mode, T_tp = "seq", T_loc
+    elif T_loc % tp_n == 0:
+        sp_mode, T_tp = "slice", T_loc // tp_n
+    else:
+        sp_mode, T_tp = "dup", T_loc    # tiny-token decode: dup work, exact
+    C = moe_capacity(m, T_tp)
+    E_loc = E // tp_n
+
+    # The reference's 'expert_inner_shard' (Megatron row/col inside each
+    # expert, f over 'data') is invalid on this mesh, as it records: 'data'
+    # is also the token-shard axis, so the output sum over 'data' would mix
+    # different tokens' partial results. ZeRO-3 it is, whatever the knob.
+    xt = x.reshape(T_loc, d)
+    if sp_mode == "slice":
+        r = axis_rank(mesh, tp)
+        xt = xt[r * T_tp:(r + 1) * T_tp]
+    router = dist.all_gather(params["router"], mesh, tp, dim=1)  # (d, E)
+    gate, expert, p_sum, c_sum = _route({"router": router}, m, xt)
+    T_tot = T_tp * (1 if sp_mode == "dup" else tp_n) * nb
+    for a in bd + (() if sp_mode == "dup" else (tp,)):
+        p_sum = dist.all_reduce(p_sum, mesh, a)
+        c_sum = dist.all_reduce(c_sum, mesh, a)
+    aux = E * torch.sum((p_sum / T_tot) * (c_sum / (T_tot * K))) \
+        * m.aux_loss_weight
+
+    buf, slot = _fill_buffer(xt, expert, E, C)               # (E, C, d)
+    del expert
+    recv = dist.all_to_all(buf, mesh, tp)                    # (tp E_loc, C, d)
+    del buf
+    recv = recv.reshape(tp_n, E_loc, C, d).transpose(0, 1).reshape(
+        E_loc, tp_n * C, d)
+    wg = dist.all_gather(params["w_gate"], mesh, "data", dim=1)
+    wu = dist.all_gather(params["w_up"], mesh, "data", dim=1)
+    wd = dist.all_gather(params["w_down"], mesh, "data", dim=2)
+    h = _expert_swiglu(recv, wg, wu, wd)                     # (E_loc, tp C, d)
+    del recv, wg, wu, wd
+    h = h.reshape(E_loc, tp_n, C, d).transpose(0, 1)
+    back = dist.all_to_all(h, mesh, tp).reshape(E, C, d)
+    del h
+    y = _combine(back, slot, gate, T_tp)                     # (T_tp, d)
+    del back
+    if sp_mode == "slice":
+        y = dist.all_gather(y, mesh, tp, dim=0)
+    out = y.reshape(B, S, d).to(x.dtype)
+    if m.num_shared_experts:
+        out = out + mlp(params["shared"], x.reshape(T_loc, d)
+                        ).reshape(B, S, d)
+    return out, aux

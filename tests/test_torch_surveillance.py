@@ -136,6 +136,9 @@ def test_fleet_bulk_record_matches_reference(setup):
                                   jfleet.latest_steps())
 
 
-def test_shards_are_refused():
-    with pytest.raises(NotImplementedError):
+def test_shards_beyond_the_world_size_are_refused():
+    """Without a process group there is one rank: two shards are refused
+    (``core/shard.decide_mesh``); one shard is the unsharded path."""
+    with pytest.raises(ValueError):
         SurveillanceEngine(shards=2, device=CPU)
+    assert SurveillanceEngine(shards=1, device=CPU).mesh is None

@@ -1,0 +1,324 @@
+"""Ranks of the port's sharded paths on the CPU, for the tests.
+
+``launch([(suite, world), ...], workdir)`` starts, for each group,
+``world`` processes of this script, each one rank of a ``gloo`` group
+whose ``FileStore`` lies in ``workdir`` (no port, so test files run in
+parallel), and waits for them all. Each rank reads its inputs from
+``workdir/inputs.npz`` (written by the test), runs every case of its suite
+and writes what it computed to ``workdir/<suite><world>_rank<r>.npz``
+(``load``); the tests compare those files. A rank that fails exits
+non-zero and ``launch`` raises with its output.
+
+Suites:
+  ``shard`` -- the decide plane (``core/shard.py``, ``kernels.ops`` with a
+               mesh, ``SurveillanceEngine(shards=k)``), sharded and not;
+  ``moe``   -- the expert-parallel MoE layer on a (2, 2) mesh against the
+               port's local path, and at the config's capacity for the
+               comparison with the JAX package.
+
+Run by hand: ``python tests/torch_dist_worker.py SUITE RANK WORLD WORKDIR``.
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+LAUNCH_TIMEOUT = 240
+
+
+def launch(groups, workdir) -> None:
+    """Start every (suite, world) group of ``groups`` at once, ``world``
+    processes each, and wait for all of them."""
+    workdir = pathlib.Path(workdir)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [((suite, world, r), subprocess.Popen(
+        [sys.executable, __file__, suite, str(r), str(world), str(workdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True))
+        for suite, world in groups for r in range(world)]
+    outs = []
+    try:
+        for _, p in procs:
+            outs.append(p.communicate(timeout=LAUNCH_TIMEOUT)[0])
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(who, p.returncode, out[-4000:])
+           for (who, p), out in zip(procs, outs) if p.returncode]
+    if bad:
+        raise RuntimeError(f"ranks failed: {bad}")
+
+
+def load(suite: str, world: int, rank: int, workdir):
+    return np.load(pathlib.Path(workdir) / f"{suite}{world}_rank{rank}.npz")
+
+
+# ---------------------------------------------------------------------------
+# suite "shard"
+# ---------------------------------------------------------------------------
+SHARD_J, SHARD_WINDOW = 29, 128
+#: samples recorded before each tick: first fit, slid windows, a blackout
+#: of jobs 0..5 over steps 150..229, recovery
+SHARD_RECORDS = (SHARD_WINDOW, 7, 23, 40, 70, 30)
+SHARD_STEPS = sum(SHARD_RECORDS)
+BLACKOUT_JOBS, BLACKOUT_STEPS = 6, (150, 230)
+
+
+def tick_record(eng, now: int, res) -> dict:
+    """Everything a tick decided, as arrays in job order."""
+    ids = sorted(eng.jobs)
+    pending = res.pending
+    remain = res.remain
+    out = {"pending": np.asarray(pending),
+           "remain": np.asarray([remain.get(i, -1) for i in ids]),
+           "scheduled_at": np.asarray([now + remain.get(i, 0) for i in ids]),
+           "refitted": np.asarray(res.refitted),
+           "fleet": np.asarray(res.fleet),
+           "confidence": np.asarray([res.confidence.get(i, -1.0)
+                                     for i in ids])}
+    jobs = [eng.jobs[i] for i in ids]
+    out["period"] = np.asarray([j.model.period if j.model else -1
+                                for j in jobs])
+    width = max([len(j.model.profile_lm) for j in jobs if j.model] + [1])
+    prof = np.full((len(jobs), width), -2, np.int8)
+    for k, j in enumerate(jobs):
+        if j.model is not None:
+            prof[k, :len(j.model.profile_lm)] = j.model.profile_lm
+    out["profile"] = prof
+    out["lm_series"] = np.stack([np.asarray(j.lm_series, np.int8)
+                                 for j in jobs])
+    out["fitted_step"] = np.asarray([j.fitted_step for j in jobs])
+    out["origin_step"] = np.asarray([j.origin_step for j in jobs])
+    return out
+
+
+def run_ticks(make_engine, make_fleet, vals: np.ndarray, nb) -> list:
+    """The tick sequence of ``SHARD_RECORDS`` on a new engine, then a full
+    refit and ``next_refresh_step`` at three steps. Returns one record per
+    tick (the last is the full refit's, with ``next_refresh``)."""
+    fleet = make_fleet(SHARD_J, capacity=2 * SHARD_WINDOW)
+    eng = make_engine()
+    for i in range(SHARD_J):
+        eng.register(f"j{i:02d}", fleet.view(i), nb, window=SHARD_WINDOW)
+    recs, step = [], 0
+    for n in SHARD_RECORDS:
+        for _ in range(n):
+            v = vals[step].copy()
+            if BLACKOUT_STEPS[0] <= step < BLACKOUT_STEPS[1]:
+                v[:BLACKOUT_JOBS] = np.nan
+            fleet.record_fleet(step, v)
+            step += 1
+        recs.append(tick_record(eng, step - 1, eng.tick(step - 1)))
+    eng.refresh(force=True)
+    rec = tick_record(eng, step - 1, eng.tick(step - 1))
+    rec["next_refresh"] = np.asarray(
+        [eng.next_refresh_step(s) for s in (step, step + 3, step + 50)])
+    recs.append(rec)
+    return recs
+
+
+def _shard_suite(rank: int, world: int, inp) -> dict:
+    import torch
+    from repro_torch.core import characterize, postpone as pp, shard
+    from repro_torch.core.surveillance import SurveillanceEngine
+    from repro_torch.core.telemetry import FleetTelemetry
+    from repro_torch.kernels import ops
+
+    def fleet(n, capacity):
+        return FleetTelemetry(n, capacity=capacity, device="cpu")
+
+    nb = characterize.naive_bayes_from_arrays(
+        inp["nb_edges"], inp["nb_ll"], inp["nb_prior"], device="cpu")
+    out = {"device_count": np.asarray(shard.device_count())}
+    for k in sorted({2, world}):
+        mesh = shard.decide_mesh(k, device="cpu")
+        for J in (4, 7):
+            W = torch.as_tensor(inp[f"windows{J}"])
+            out[f"k{k}_classify{J}"] = shard.classify_lm(nb, W, mesh).numpy()
+            out[f"k{k}_classify{J}_ref"] = \
+                characterize.classify_lm_batch(nb, W).numpy()
+        for J in (6, 9):
+            args = [torch.as_tensor(inp[f"{n}{J}"])
+                    for n in ("profiles", "periods", "m_now")]
+            out[f"k{k}_postpone{J}"] = \
+                shard.postpone_rows(*args, mesh).numpy()
+            out[f"k{k}_postpone{J}_async"] = shard.postpone_rows(
+                *args, mesh, async_op=True).wait().numpy()
+            out[f"k{k}_postpone{J}_ref"] = pp.postpone_batch(*args).numpy()
+        x = torch.as_tensor(inp["rows"])
+        lags = torch.arange(3, 40, dtype=torch.int32)
+        out[f"k{k}_spectrum"] = ops.power_spectrum(x, center=True,
+                                                   mesh=mesh).numpy()
+        out[f"k{k}_spectrum_ref"] = ops.power_spectrum(x, center=True).numpy()
+        out[f"k{k}_scores"] = ops.autocorr_score(x, lags, mesh=mesh).numpy()
+        out[f"k{k}_scores_ref"] = ops.autocorr_score(x, lags).numpy()
+        for overlap in (False, True):
+            recs = run_ticks(lambda: SurveillanceEngine(
+                shards=k, overlap=overlap, device="cpu"), fleet, inp["vals"],
+                nb)
+            for t, rec in enumerate(recs):
+                for name, v in rec.items():
+                    out[f"k{k}_o{int(overlap)}_t{t}_{name}"] = v
+    recs = run_ticks(lambda: SurveillanceEngine(device="cpu"), fleet,
+                     inp["vals"], nb)
+    for t, rec in enumerate(recs):
+        for name, v in rec.items():
+            out[f"ref_t{t}_{name}"] = v
+    try:
+        shard.decide_mesh(world + 1, device="cpu")
+    except ValueError:
+        out["too_many_refused"] = np.asarray(True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# suite "moe"
+# ---------------------------------------------------------------------------
+#: (name, arch, mode, dtype, capacity factor, x shape); "local" cases are
+#: held to the port's local path, "jax" cases to the JAX package's
+#: ``_moe_ffn_sharded``
+MOE_CASES = (
+    ("local_bf16", "qwen3_moe_30b_a3b", "slice", "bfloat16", 8.0, (4, 32)),
+    ("local_f32", "qwen3_moe_30b_a3b", "slice", "float32", 8.0, (4, 32)),
+    ("jax_qwen3_slice", "qwen3_moe_30b_a3b", "slice", "float32", None,
+     (4, 32)),
+    ("jax_qwen3_dup", "qwen3_moe_30b_a3b", "dup", "float32", None, (2, 1)),
+    ("jax_qwen3_seq", "qwen3_moe_30b_a3b", "seq", "float32", None, (4, 32)),
+    ("jax_kimi_slice", "kimi_k2_1t_a32b", "slice", "float32", None, (4, 32)),
+    ("jax_kimi_dup", "kimi_k2_1t_a32b", "dup", "float32", None, (2, 1)),
+    ("jax_kimi_seq", "kimi_k2_1t_a32b", "seq", "float32", None, (4, 32)),
+)
+MOE_MESH = (2, 2)
+#: the gradient check's case (no drops, f32)
+GRAD_CASE = "local_f32"
+
+
+def moe_config(arch: str, dtype: str, cf, pkg):
+    """The smoke config of ``arch`` in ``pkg`` (the JAX package's or the
+    port's ``get_config``) with 8 experts, top-2 and the given capacity
+    factor; ``None`` takes the full config's (drops happen there)."""
+    import dataclasses
+    full = pkg(arch)
+    cfg = full.smoke().replace(param_dtype=dtype)
+    cf = full.moe.capacity_factor if cf is None else cf
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def _moe_layer(torch, cfg, flat, prefix):
+    """The first MoE layer of the params saved under ``prefix``, through
+    ``convert.params_from_numpy``."""
+    from repro_torch.models import convert, lm
+    tree: dict = {}
+    for key in flat.files:
+        if not key.startswith(prefix + "/"):
+            continue
+        node, parts = tree, key[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = flat[key]
+    params = convert.params_from_numpy(cfg, tree, device="cpu")
+    n = cfg.num_layers - cfg.first_k_dense
+    return lm._unstack(params["blocks"], n)[0]["moe"]
+
+
+def _moe_suite(rank: int, world: int, inp) -> dict:
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import blocks, dist
+
+    mesh = meshlib.make_host_mesh(*MOE_MESH, device="cpu")
+    out = {"coord": np.asarray(mesh.get_coordinate())}
+    drops, combine = [], blocks._combine
+
+    def counted(y, slot, gate, T):
+        drops.append(int((slot >= y.shape[0] * y.shape[1]).sum()))
+        return combine(y, slot, gate, T)
+
+    blocks._combine = counted
+    for name, arch, mode, dtype, cf, (B, S) in MOE_CASES:
+        cfg = moe_config(arch, dtype, cf, get_config)
+        full = _moe_layer(torch, cfg, inp, f"{name}/params")
+        x = torch.as_tensor(inp[f"{name}/x"]).to(cfg.dtype)
+        ctx = dist.DistContext(mesh, ("data",), seq_shard=mode == "seq")
+        mine = blocks.moe_shard_params(mesh, full)
+        xl = dist.local_tokens(ctx, x)
+        drops.clear()
+        with dist.use(ctx):
+            y, aux = blocks.moe_ffn(mine, cfg, xl)
+        out[f"{name}/out"] = y.float().numpy()
+        out[f"{name}/aux"] = aux.detach().numpy()
+        out[f"{name}/drops"] = np.asarray(drops)
+        drops.clear()
+        want, want_aux = blocks.moe_ffn(full, cfg, x)
+        out[f"{name}/local_out"] = dist.local_tokens(ctx, want).float().numpy()
+        out[f"{name}/local_aux"] = want_aux.numpy()
+        if name == GRAD_CASE:
+            out.update(_moe_grads(torch, tdist, blocks, dist, mesh, ctx, cfg,
+                                  full, x, name))
+    blocks._combine = combine
+    return out
+
+
+def _moe_grads(torch, tdist, blocks, dist, mesh, ctx, cfg, full, x, name):
+    """Gradients of sum(out) + aux through the expert-parallel path (every
+    rank's loss scaled so that the ranks' losses sum to the local path's)
+    against the local path's. A leaf replicated over an axis gets the sum
+    of its replicas' gradients (what data parallelism all-reduces): the
+    router over ``data``, the token block over ``model``."""
+    keys = ("router", "w_gate", "w_up", "w_down")
+    mine = {k: v.clone().requires_grad_(True)
+            for k, v in blocks.moe_shard_params(mesh, full).items()}
+    xl = dist.local_tokens(ctx, x).clone().requires_grad_(True)
+    tp_n = mesh.size(1)
+    with dist.use(ctx):
+        y, aux = blocks.moe_ffn(mine, cfg, xl)
+    (y.sum() / tp_n + aux / mesh.size()).backward()
+    tdist.all_reduce(mine["router"].grad, group=mesh.get_group("data"))
+    tdist.all_reduce(xl.grad, group=mesh.get_group("model"))
+    ref = {k: v.clone().requires_grad_(True) for k, v in full.items()}
+    xr = x.clone().requires_grad_(True)
+    yr, auxr = blocks.moe_ffn(ref, cfg, xr)
+    (yr.sum() + auxr).backward()
+    want = blocks.moe_shard_params(mesh, {k: ref[k].grad for k in keys})
+    out = {f"{name}/grad_x": xl.grad.numpy(),
+           f"{name}/grad_x_ref": dist.local_tokens(ctx, xr.grad).numpy()}
+    for k in keys:
+        out[f"{name}/grad_{k}"] = mine[k].grad.numpy()
+        out[f"{name}/grad_{k}_ref"] = want[k].numpy()
+    return out
+
+
+def main(argv) -> int:
+    suite, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), \
+        pathlib.Path(argv[3])
+    import torch
+    import torch.distributed as tdist
+    torch.set_num_threads(1)
+    store = workdir / f"store_{suite}_{world}"
+    tdist.init_process_group("gloo", init_method=f"file://{store}",
+                             rank=rank, world_size=world)
+    try:
+        inp = np.load(workdir / "inputs.npz")
+        out = {"shard": _shard_suite, "moe": _moe_suite}[suite](
+            rank, world, inp)
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    np.savez(workdir / f"{suite}{world}_rank{rank}.npz", **out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
