@@ -160,10 +160,18 @@ PyTorch version:
                experts a ``model`` rank, ZeRO-3 over ``data``; weights
                from one seeded draw cut by ``blocks.moe_shard_params``):
                in f32 at capacity E/K within 1e-5 of the local path's
-               peak (aux within 1e-6), then in bf16 (4 x 4,096 tokens,
-               the config's capacity) timed by CUDA events around each
-               part, with the pairs dropped; the parent joins every rank
-               and a failed one fails the run. (a), inside phase 9: the
+               peak (aux within 1e-6); in f32 at the config's capacity on
+               tokens that share a direction (pairs drop), each rank's
+               drops equal and its output within 1e-5 of the peak of the
+               local path run on each ``model`` rank's own slice (C from
+               that slice's tokens), aux within 1e-6; then in bf16 (4 x
+               4,096 tokens, the config's capacity) timed by CUDA events
+               around each part, with the pairs dropped. Each rank
+               asserts that its ticks launched B1 and B2 and records the
+               shapes of the row blocks it launched them on; the parent
+               joins every rank, a failed one failing the run, and holds
+               B1 and B2 to their plain versions at each of those shapes
+               (phase 2's checks). (a), inside phase 9: the
                full-depth 8 x 4,096 prefill through the expert-parallel
                path on one NCCL rank (a (1, 1) mesh) against the local
                prefill of the same batch: logits bit-equal, or else a
@@ -660,29 +668,37 @@ def _fleet_run(policy, device, **kw):
 
 
 @contextlib.contextmanager
-def _capturing(ops_mod, seen):
+def _capturing(ops_mod, seen, names=("power_spectrum", "autocorr_score")):
     """Record the shape of every B1 call, (B, N), and every B2 call,
-    (J, N, lags), that the cycle fit makes through ``ops`` while the block
-    runs, into ``seen["dft_power"]`` and ``seen["autocorr"]``. The launch
-    counters stay on the kernels' wrappers."""
-    spectrum, scores = ops_mod.power_spectrum, ops_mod.autocorr_score
+    (J, N, lags), made through ``ops`` while the block runs, into
+    ``seen["dft_power"]`` and ``seen["autocorr"]``. ``names`` are the two
+    functions of ``ops`` to wrap: the public ones (the cycle fit's calls)
+    or ``("_power", "_scores")``, which see each launch, a rank's row
+    block under ``mesh=``. The lag grids are read on the host after the
+    block. The launch counters stay on the kernels' wrappers."""
+    spectrum, scores = (getattr(ops_mod, n) for n in names)
+    grids = []
 
-    def spectrum_rec(x, **kw):
+    def spectrum_rec(x, *args, **kw):
         seen["dft_power"].add(tuple(x.shape))
-        return spectrum(x, **kw)
+        return spectrum(x, *args, **kw)
 
-    def scores_rec(x, lags, **kw):
-        seen["autocorr"].add((*x.shape, tuple(lags.tolist())))
-        return scores(x, lags, **kw)
+    def scores_rec(x, lags, *args, **kw):
+        grids.append((*x.shape, lags))
+        return scores(x, lags, *args, **kw)
 
-    ops_mod.power_spectrum, ops_mod.autocorr_score = spectrum_rec, scores_rec
+    setattr(ops_mod, names[0], spectrum_rec)
+    setattr(ops_mod, names[1], scores_rec)
     try:
         yield
     finally:
-        ops_mod.power_spectrum, ops_mod.autocorr_score = spectrum, scores
+        setattr(ops_mod, names[0], spectrum)
+        setattr(ops_mod, names[1], scores)
+        for J, N, lags in grids:
+            seen["autocorr"].add((J, N, tuple(lags.tolist())))
 
 
-def _hold_captured(torch, seen):
+def _hold_captured(torch, seen, tag: str = "fleet"):
     """Phase 2's B1 and B2 checks, at phase 2's tolerances, on seeded
     inputs at each distinct shape in ``seen`` (from ``_capturing``)."""
     from repro_torch.kernels import autocorr, dft, ref
@@ -692,11 +708,11 @@ def _hold_captured(torch, seen):
         _, err, _ = _dft_case(torch, ref, dft, g, B, N)
         worst = max(worst, float(err.max()))
         routes[dft.route(N)] = routes.get(dft.route(N), 0) + 1
-    print(f"[fleet] B1 received {len(seen['dft_power'])} distinct (B, N): "
+    print(f"[{tag}] B1 received {len(seen['dft_power'])} distinct (B, N): "
           + ", ".join(f"({B}, {N})" for B, N in sorted(seen["dft_power"])))
-    print(f"[fleet] B1 held at each (phase 2's tolerance, bit-equal "
+    print(f"[{tag}] B1 held at each (phase 2's tolerance, bit-equal "
           f"relaunch): routes {routes}, max_abs_err {worst:.6g}")
-    print(f"[fleet] B2 received {len(seen['autocorr'])} distinct "
+    print(f"[{tag}] B2 received {len(seen['autocorr'])} distinct "
           "(J, N, L, lags): " + ", ".join(
               f"({J}, {N}, {len(lags)}, {lags[0]}..{lags[-1]})"
               for J, N, lags in sorted(seen["autocorr"])))
@@ -3075,7 +3091,12 @@ def phase_moe_cpu_check(torch):
 # ---------------------------------------------------------------------------
 DIST_RANKS = 4
 DIST_MOE_MESH = (2, 2)             # ("data", "model")
-DIST_CHECK_TOKENS = (2, 1024)      # f32, capacity factor E/K: no drops
+DIST_CHECK_TOKENS = (2, 1024)      # f32, capacity factor E/K: no drops,
+                                   # then the config's on DIST_DROP_X tokens
+# tokens that share a direction crowd a few experts, so that the config's
+# capacity drops pairs: DIST_DROP_X[0] x noise + DIST_DROP_X[1] x one
+# common vector, each a standard normal draw (as the CPU tests build them)
+DIST_DROP_X = (0.1, 0.2)
 DIST_TIMED_TOKENS = (4, 4096)      # bf16, the config's capacity factor
 DIST_MOE_RTOL, DIST_AUX_ATOL = 1e-5, 1e-6
 TICK_KEYS = ("remain", "scheduled_at", "period", "profile", "lm_series",
@@ -3120,7 +3141,17 @@ def _blocks_bit_equal(torch, dft, autocorr):
 def _dist_tick(torch, np, ops_mod, workdir):
     """This rank's sharded ticks (``shards=DIST_RANKS``), overlap off and
     on: the cold, steady and full-refit decisions against phase 3's
-    (``tick_states.npz``), bit for bit. Returns times and launches."""
+    (``tick_states.npz``), bit for bit, with B1 and B2 launched in each
+    run. Returns (times and launches, the shapes of the row blocks this
+    rank launched B1 and B2 on, as ``_capturing`` records them)."""
+    seen = {"dft_power": set(), "autocorr": set()}
+    with _capturing(ops_mod, seen, ("_power", "_scores")):
+        out = _dist_ticks(torch, np, ops_mod, workdir)
+    return out, {"dft_power": sorted(seen["dft_power"]),
+                 "autocorr": sorted(seen["autocorr"])}
+
+
+def _dist_ticks(torch, np, ops_mod, workdir):
     ref = np.load(workdir / "tick_states.npz")
     vals = _tick_values(np)
     # warm-up: a small sharded tick takes this process's first use of
@@ -3145,6 +3176,10 @@ def _dist_tick(torch, np, ops_mod, workdir):
         torch.cuda.synchronize()
         t_full = time.perf_counter() - t0
         launches = ops_mod.launch_counts()
+        missing = [op for op in CYCLE_OPS if not launches[op]]
+        if missing:
+            raise AssertionError(f"sharded tick (overlap {overlap}): this "
+                                 f"rank never launched {missing}")
         states["full"] = _tick_state(np, eng, now, remain)
         for tick in ("cold", "steady", "full"):
             for key in TICK_KEYS:
@@ -3221,12 +3256,75 @@ def _ep_timed(torch, call):
     return ms, ms.pop("layer"), [int(d) for d in drops]
 
 
+def _with_drops(call):
+    """``call()`` with the pairs each ``blocks._combine`` drops counted:
+    (its result, the drops of each combine it ran)."""
+    from repro_torch.models import blocks
+    combine, drops = blocks._combine, []
+
+    def counted(y, slot, gate, T):
+        drops.append(int((slot >= y.shape[0] * y.shape[1]).sum()))
+        return combine(y, slot, gate, T)
+
+    blocks._combine = counted
+    try:
+        return call(), drops
+    finally:
+        blocks._combine = combine
+
+
+def _dist_moe_drops(torch, mesh, ctx, cfg, full, mine, g):
+    """The f32 layer at the config's capacity on tokens that share a
+    direction (DIST_DROP_X), so that pairs drop: in ``slice`` mode each
+    ``model`` rank routes its own slice of the rank's tokens, with C from
+    that slice, so its drops must equal the local path's on that slice
+    and the rank's output the local path's on each slice, end to end; aux
+    (taken before capacity) the local path's on every token. The parent
+    requires a drop on some rank."""
+    from repro_torch.launch.mesh import axis_rank, axis_size
+    from repro_torch.models import blocks, dist
+    d, dev = cfg.d_model, full["router"].device
+    noise = torch.randn(*DIST_CHECK_TOKENS, d, device=dev, generator=g)
+    common = torch.randn(d, device=dev, generator=g)
+    x = DIST_DROP_X[0] * noise + DIST_DROP_X[1] * common
+    xl = dist.local_tokens(ctx, x)
+    with dist.use(ctx):
+        (got, aux), drops = _with_drops(
+            lambda: blocks.moe_ffn(mine, cfg, xl))
+    tp_n, r = axis_size(mesh, "model"), axis_rank(mesh, "model")
+    flat = xl.reshape(-1, d)
+    T_tp = flat.shape[0] // tp_n
+    parts, own = [], None
+    for j in range(tp_n):
+        (y, _), dr = _with_drops(lambda: blocks.moe_ffn(
+            full, cfg, flat[j * T_tp:(j + 1) * T_tp][None]))
+        parts.append(y.reshape(T_tp, d))
+        own = dr if j == r else own
+    want = torch.cat(parts).reshape(xl.shape)
+    _, want_aux = blocks.moe_ffn(full, cfg, x)
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    aux_err = abs(float(aux) - float(want_aux))
+    if drops != own:
+        raise AssertionError(f"expert-parallel MoE layer in f32 at the "
+                             f"config's capacity: dropped {drops}, the local "
+                             f"path on this rank's slice {own}")
+    if not (err <= DIST_MOE_RTOL * peak and aux_err <= DIST_AUX_ATOL):
+        raise AssertionError(f"expert-parallel MoE layer in f32 at the "
+                             f"config's capacity: max abs err {err} on a "
+                             f"peak of {peak}, aux err {aux_err}")
+    return {"drop_max_abs_err": err, "drop_peak": peak,
+            "drop_aux_err": aux_err, "drops": drops, "local_drops": own,
+            "drop_pairs": T_tp * cfg.moe.top_k,
+            "drop_capacity": blocks.moe_capacity(cfg.moe, T_tp)}
+
+
 def _dist_moe(torch):
     """This rank's share of one full-width qwen3-moe MoE layer on a
     DIST_MOE_MESH mesh (experts over ``model``, ZeRO-3 over ``data``), the
     weights from one seeded draw cut by ``blocks.moe_shard_params``: in f32
-    at a capacity that cannot drop against the local path, then in bf16 at
-    the config's capacity, event-timed by part."""
+    at a capacity that cannot drop against the local path, in f32 at the
+    config's capacity where pairs drop (``_dist_moe_drops``), then in bf16
+    at the config's capacity, event-timed by part."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as meshlib
@@ -3244,7 +3342,6 @@ def _dist_moe(torch):
                     generator=g)
     want, want_aux = blocks.moe_ffn(full, cfg, x)
     mine = blocks.moe_shard_params(mesh, full)
-    del full
     with dist.use(ctx):
         got, aux = blocks.moe_ffn(mine, cfg, dist.local_tokens(ctx, x))
     want = dist.local_tokens(ctx, want)
@@ -3254,7 +3351,11 @@ def _dist_moe(torch):
         raise AssertionError(f"expert-parallel MoE layer in f32: max abs err "
                              f"{err} on a peak of {peak}, aux err {aux_err}")
     out = {"f32_max_abs_err": err, "f32_peak": peak, "f32_aux_err": aux_err}
-    del mine, x, want, got
+    del x, want, got
+    out.update(_dist_moe_drops(torch, mesh, ctx,
+                               base.replace(param_dtype="float32"), full,
+                               mine, g))
+    del full, mine
     torch.cuda.empty_cache()
 
     cfg = base
@@ -3308,8 +3409,8 @@ def _dist_rank(rank: int, world: int, workdir: str):
     tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
                              rank=rank, world_size=world)
     try:
-        out = {"tick": _dist_tick(torch, np, ops, work),
-               "moe": _dist_moe(torch)}
+        tick, blocks = _dist_tick(torch, np, ops, work)
+        out = {"tick": tick, "blocks": blocks, "moe": _dist_moe(torch)}
         tdist.barrier()
     finally:
         tdist.destroy_process_group()
@@ -3322,7 +3423,9 @@ def phase_dist_ranks(torch, np, ops_mod, dft, autocorr, tick_states,
     then DIST_RANKS ranks spawned on the one card (``_dist_rank``), each
     running the sharded tick against phase 3's decisions and its share of
     the expert-parallel MoE layer. The parent joins every rank (a failed
-    rank fails the run). Returns (the ranks' launches together, numbers to
+    rank fails the run), then holds B1 and B2 to their plain versions at
+    every row-block shape the ranks launched them on (``_hold_captured``,
+    phase 2's checks). Returns (the ranks' launches together, numbers to
     keep)."""
     import tempfile
     import torch.multiprocessing as mp
@@ -3362,7 +3465,13 @@ def phase_dist_ranks(torch, np, ops_mod, dft, autocorr, tick_states,
         print(f"[dist] rank {r} MoE layer ({MOE_ARCH} full width, mesh "
               f"{DIST_MOE_MESH}): f32 at capacity E/K against the local "
               f"path max abs err {mo['f32_max_abs_err']:.6g} (peak "
-              f"{mo['f32_peak']:.4f}), aux err {mo['f32_aux_err']:.3g}; bf16 "
+              f"{mo['f32_peak']:.4f}), aux err {mo['f32_aux_err']:.3g}; f32 "
+              f"at the config's capacity ({mo['drop_capacity']}) on tokens "
+              f"sharing a direction: dropped {mo['drops']} of "
+              f"{mo['drop_pairs']} pairs (the local path on this rank's "
+              f"slice {mo['local_drops']}), max abs err "
+              f"{mo['drop_max_abs_err']:.6g} (peak {mo['drop_peak']:.4f}), "
+              f"aux err {mo['drop_aux_err']:.3g}; bf16 "
               f"{DIST_TIMED_TOKENS[0]} x {DIST_TIMED_TOKENS[1]} tokens "
               f"(gloo, through the host): host {mo['bf16_host_ms']:.4f} ms, "
               f"events {mo['bf16_event_ms']:.4f} ms, split "
@@ -3373,6 +3482,16 @@ def phase_dist_ranks(torch, np, ops_mod, dft, autocorr, tick_states,
               f"{mo['peak_gb']:.4f} GB")
     print(f"[dist] {DIST_RANKS} gloo ranks on one card: {wall:.4f} s "
           f"wall, spawn included")
+    if not sum(sum(rec["moe"]["drops"]) for rec in ranks):
+        raise AssertionError("expert-parallel MoE layer in f32 at the "
+                             "config's capacity: no rank dropped a pair, "
+                             "the drop check held nothing")
+    seen = {"dft_power": {tuple(b) for rec in ranks
+                          for b in rec["blocks"]["dft_power"]},
+            "autocorr": {(J, N, tuple(lags)) for rec in ranks
+                         for J, N, lags in rec["blocks"]["autocorr"]}}
+    print("[dist] the ranks' row blocks, each held to its plain version:")
+    _hold_captured(torch, seen, "dist")
     return launches, {"ranks_wall_s": wall, "ranks": ranks,
                       "b2_plans": [p._asdict() for p in plans]}
 

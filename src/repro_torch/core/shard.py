@@ -8,7 +8,8 @@ runs one process a rank (``torch.distributed``) and does what
 ``shard_map`` over a replicated host array does: every rank holds the
 whole fleet's inputs, computes its block of rows and all-gathers the
 result, so every rank ends with the whole answer. Rows are padded to a
-multiple of the mesh (``_pad_rows``) and the padding is cut after.
+multiple of the mesh and the padding is cut after
+(``launch/mesh.row_sharded``).
 
 The sharded results are bit-identical to the unsharded ones: each row's
 arithmetic does not depend on how many rows share its launch (NB and
@@ -31,7 +32,7 @@ The kernel stages take the mesh through ``kernels.ops``
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -67,45 +68,6 @@ def decide_mesh(shards: Optional[int] = None, *, device: DeviceLike = None):
     return meshlib.device_mesh((shards,), ("shard",), device=device)
 
 
-def _pad_rows(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
-    """Pad dim 0 to a multiple of ``n`` with zeros; returns (padded,
-    original rows). Row stages never mix rows, so padding cannot perturb
-    real rows."""
-    B = x.shape[0]
-    B_p = -(-B // n) * n
-    if B_p != B:
-        x = torch.cat([x, x.new_zeros((B_p - B, *x.shape[1:]))])
-    return x, B
-
-
-def _rank_block(mesh) -> Optional[Tuple[int, int]]:
-    """(shards, this rank's index) on a 1-D mesh; ``None`` for a rank
-    outside it."""
-    coord = mesh.get_coordinate()
-    if coord is None:
-        return None
-    return mesh.size(), coord[0]
-
-
-def row_sharded(fn, mesh, *rows: torch.Tensor, async_op: bool = False
-                ) -> Union[torch.Tensor, meshlib.Gathered]:
-    """``fn(*rows)`` with the rows split over ``mesh``: pad to a multiple
-    of the mesh with zeros, this rank's block through ``fn``, all-gather,
-    padding cut. With ``async_op`` returns the gather in flight."""
-    block = _rank_block(mesh)
-    if block is None:
-        out = fn(*rows)
-        return meshlib.Gathered(out) if async_op else out
-    n, index = block
-    padded = [_pad_rows(r, n)[0] for r in rows]
-    step = padded[0].shape[0] // n
-    g = meshlib.all_gather_rows(fn(*(r[index * step:(index + 1) * step]
-                                     for r in padded)),
-                                mesh.get_group("shard"), async_op=async_op,
-                                rows=rows[0].shape[0])
-    return g if async_op else g.wait()
-
-
 def classify_lm(nb: characterize.NaiveBayes, windows,
                 mesh=None) -> torch.Tensor:
     """(J, T, F) windows -> (J, T) int8 LM series on the model's device,
@@ -114,7 +76,8 @@ def classify_lm(nb: characterize.NaiveBayes, windows,
     if mesh is None:
         return characterize.classify_lm_batch(nb, windows)
     x = characterize._as_f32(nb, windows)
-    return row_sharded(lambda w: characterize._nb_predict_lm(nb, w), mesh, x)
+    return meshlib.row_sharded(
+        lambda w: characterize._nb_predict_lm(nb, w), mesh, x)
 
 
 def postpone_rows(profiles: torch.Tensor, periods: torch.Tensor,
@@ -128,5 +91,5 @@ def postpone_rows(profiles: torch.Tensor, periods: torch.Tensor,
     if mesh is None:
         out = pp.postpone_batch(profiles, periods, m_now)
         return meshlib.Gathered(out) if async_op else out
-    return row_sharded(pp.postpone_batch, mesh, profiles, periods, m_now,
-                       async_op=async_op)
+    return meshlib.row_sharded(pp.postpone_batch, mesh, profiles, periods,
+                               m_now, async_op=async_op)

@@ -25,7 +25,9 @@ layers' chunked scan and attention prefill.
 ``power_spectrum`` and ``autocorr_score`` take an optional ``mesh`` (a
 1-D ``DeviceMesh``, ``core/shard.decide_mesh``): the rows are then split
 over its ranks, each rank launching the kernel on its block, and
-all-gathered -- the kernel half of the sharded decide plane.
+all-gathered (``launch/mesh.row_sharded``) -- the kernel half of the
+sharded decide plane. Each kernel's row arithmetic does not depend on the
+rows it is launched with, so the result is bit-identical to one launch.
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 there is no fallback to the plain version and no shape the kernel hands
@@ -52,6 +54,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as _ss
 from repro_torch.kernels import vjp
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import gla
 
 
@@ -72,16 +75,6 @@ def _needs_grad(*inputs: Optional[torch.Tensor]) -> bool:
         t is not None and t.requires_grad for t in inputs)
 
 
-def _row_sharded(fn, mesh, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` with the rows of ``x`` split over the 1-D ``mesh``
-    (``core/shard.row_sharded``: pad to a multiple of the mesh, this rank's
-    block through ``fn``, all-gather, padding cut). Each kernel's row
-    arithmetic does not depend on the rows it is launched with, so the
-    result is bit-identical to ``fn(x)``."""
-    from repro_torch.core import shard
-    return shard.row_sharded(fn, mesh, x)
-
-
 def power_spectrum(x: torch.Tensor, *, center: bool = False,
                    mesh=None) -> torch.Tensor:
     """(B, N) -> (B, N//2+1) f32 one-sided power spectrum; ``center``
@@ -89,7 +82,7 @@ def power_spectrum(x: torch.Tensor, *, center: bool = False,
     ranks."""
     x = x.float()
     if mesh is not None:
-        return _row_sharded(lambda v: _power(v, center), mesh, x)
+        return meshlib.row_sharded(lambda v: _power(v, center), mesh, x)
     return _power(x, center)
 
 
@@ -107,7 +100,7 @@ def autocorr_score(x: torch.Tensor, lags: torch.Tensor, *,
     the one lag grid."""
     x = x.float()
     if mesh is not None:
-        return _row_sharded(lambda v: _scores(v, lags), mesh, x)
+        return meshlib.row_sharded(lambda v: _scores(v, lags), mesh, x)
     return _scores(x, lags)
 
 

@@ -27,7 +27,7 @@ the tensors as they are and never switches a backend.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -116,3 +116,35 @@ def all_gather_rows(x: torch.Tensor, grp, *, async_op: bool = False,
     work = dist.all_gather_into_tensor(out, x, group=grp, async_op=async_op)
     return Gathered(out, work if async_op else None, rows)
 
+
+def _pad_rows(x: torch.Tensor, n: int) -> Tuple[torch.Tensor, int]:
+    """Pad dim 0 to a multiple of ``n`` with zeros; returns (padded,
+    original rows). Row stages never mix rows, so padding cannot perturb
+    real rows."""
+    B = x.shape[0]
+    B_p = -(-B // n) * n
+    if B_p != B:
+        x = torch.cat([x, x.new_zeros((B_p - B, *x.shape[1:]))])
+    return x, B
+
+
+def row_sharded(fn, mesh, *rows: torch.Tensor, async_op: bool = False
+                ) -> Union[torch.Tensor, Gathered]:
+    """``fn(*rows)`` with the rows split over the 1-D ``mesh``: pad to a
+    multiple of the mesh with zeros, this rank's block through ``fn``,
+    all-gather, padding cut. A rank outside the mesh computes every row
+    itself. With ``async_op`` returns the gather in flight. The rule of the
+    sharded decide plane (``core/shard.py``) and of the kernels' ``mesh=``
+    (``kernels/ops.py``)."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        out = fn(*rows)
+        return Gathered(out) if async_op else out
+    n, index = mesh.size(), coord[0]
+    padded = [_pad_rows(r, n)[0] for r in rows]
+    step = padded[0].shape[0] // n
+    g = all_gather_rows(fn(*(r[index * step:(index + 1) * step]
+                             for r in padded)),
+                        mesh.get_group(mesh.mesh_dim_names[0]),
+                        async_op=async_op, rows=rows[0].shape[0])
+    return g if async_op else g.wait()

@@ -27,15 +27,13 @@ import torch
 
 FSDP, TP = "data", "model"
 
-# The reference's perf knob, refuted there by analysis and kept for the
-# record: sharding the expert FFN inner dim over 'data' is invalid on this
-# mesh, because 'data' is also the token axis and the partial-output sum
-# would mix tokens (``models/blocks._moe_ffn_sharded``).
-EXPERT_INNER_SHARD = False
-
 # trailing-dims rules keyed by leaf name; names match the model param
 # dicts. 3D entries are the (E, d, f) expert tensors. The embedding table
-# is d-sharded only, as in the reference.
+# is d-sharded only, as in the reference. The reference's ``*3i`` rules
+# (the expert FFN's inner dim over 'data', behind its EXPERT_INNER_SHARD
+# knob, which it keeps off) are left out: that layout is invalid on this
+# mesh, because 'data' is also the token axis and the partial-output sum
+# would mix tokens (``models/blocks._moe_ffn_sharded`` refuses it).
 _RULES: Dict[str, Tuple[Optional[str], ...]] = {
     "embed": (None, TP),
     "head": (None, TP),
@@ -44,8 +42,6 @@ _RULES: Dict[str, Tuple[Optional[str], ...]] = {
     "w_gate": (FSDP, TP), "w_up": (FSDP, TP), "w_down": (TP, FSDP),
     "w_gate3": (TP, FSDP, None), "w_up3": (TP, FSDP, None),
     "w_down3": (TP, None, FSDP),
-    "w_gate3i": (TP, None, FSDP), "w_up3i": (TP, None, FSDP),
-    "w_down3i": (TP, FSDP, None),
     "router": (None, TP),        # expert-sharded; EP gathers its columns
     "in_proj": (FSDP, None), "out_proj": (None, FSDP),
     "wr": (FSDP, TP), "wg": (FSDP, TP),
@@ -96,7 +92,7 @@ def _rule_for(names: Tuple[str, ...], shape: Tuple[int, ...]) -> Spec:
     # expert tensors: same names, one extra leading dim -> 3D rule
     if param_name in ("w_gate", "w_up", "w_down"):
         if len(shape) >= 3 and shape[-1] != 1 and _looks_expert(names):
-            rule = _RULES[param_name + ("3i" if EXPERT_INNER_SHARD else "3")]
+            rule = _RULES[param_name + "3"]
     if leaf == "vr":            # adafactor row stats: param shape minus last
         rule = rule[:-1]
     elif leaf == "vc":          # col stats: minus second-to-last

@@ -380,6 +380,14 @@ def _moe_ffn_sharded(params: Params, cfg: ArchConfig, x: torch.Tensor,
     from repro_torch.launch.mesh import axis_rank, axis_size
     from repro_torch.models import dist
 
+    # The reference's 'expert_inner_shard' (Megatron row/col inside each
+    # expert, f over 'data') is invalid on this mesh, as it records: 'data'
+    # is also the token-shard axis, so the output sum over 'data' would mix
+    # different tokens' partial results. ZeRO-3 is the only layout.
+    if ctx.expert_inner_shard:
+        raise ValueError("expert_inner_shard: sharding the expert FFN's "
+                         "inner dim over 'data' mixes tokens on this mesh; "
+                         "the expert-parallel MoE takes ZeRO-3 only")
     m = cfg.moe
     mesh, bd, tp = ctx.mesh, ctx.batch_axes, ctx.tp_axis
     tp_n, nb = axis_size(mesh, tp), dist.batch_size(ctx)
@@ -395,10 +403,6 @@ def _moe_ffn_sharded(params: Params, cfg: ArchConfig, x: torch.Tensor,
     C = moe_capacity(m, T_tp)
     E_loc = E // tp_n
 
-    # The reference's 'expert_inner_shard' (Megatron row/col inside each
-    # expert, f over 'data') is invalid on this mesh, as it records: 'data'
-    # is also the token-shard axis, so the output sum over 'data' would mix
-    # different tokens' partial results. ZeRO-3 it is, whatever the knob.
     xt = x.reshape(T_loc, d)
     if sp_mode == "slice":
         r = axis_rank(mesh, tp)

@@ -48,8 +48,9 @@ class DistContext:
     batch_axes: Tuple[str, ...]        # ('pod', 'data') / ('data',)
     tp_axis: str = "model"
     seq_shard: bool = False
-    # the reference's perf knob (refuted there, see blocks._moe_ffn_sharded):
-    # shard the expert FFN inner dim over 'data' instead of ZeRO-3
+    # the reference's perf knob (refuted there): shard the expert FFN inner
+    # dim over 'data' instead of ZeRO-3; ``blocks._moe_ffn_sharded``
+    # refuses True
     expert_inner_shard: bool = False
 
 

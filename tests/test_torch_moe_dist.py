@@ -291,3 +291,19 @@ def test_reference_logit_gather_fault_is_not_ported(run):
     for f in ranks:
         err, peak = _peak_err(f["local_f32/out"], f["local_f32/local_out"])
         assert err <= 1e-5 * peak, (err, peak)
+
+
+def test_expert_inner_shard_is_refused():
+    """The reference's inner-dim layout for the experts (its
+    EXPERT_INNER_SHARD, kept off there) would sum partial outputs of
+    different tokens over 'data'; the port takes ZeRO-3 only and refuses
+    the knob rather than ignore it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding
+    from repro_torch.models import blocks, dist
+    cfg = get_config("qwen3_moe_30b_a3b").smoke()
+    ctx = dist.DistContext(None, ("data",), expert_inner_shard=True)
+    x = torch.zeros(1, 2, cfg.d_model)
+    with pytest.raises(ValueError, match="expert_inner_shard"):
+        blocks._moe_ffn_sharded({}, cfg, x, ctx)
+    assert not any(k.endswith("3i") for k in sharding._RULES)
