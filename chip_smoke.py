@@ -177,13 +177,33 @@ PyTorch version:
                prefill of the same batch: logits bit-equal, or else a
                difference printed as a finding; either way 2 layers in
                f32 at full width within 1e-6 of their peak.
+ 11. tp      — last, after phase 9's memory is released: the model on a
+               ``(data, model)`` mesh. Four gloo ranks spawned on the card
+               as in phase 10(b), each holding its slices of
+               ``internlm2_1p8b`` at full width (``launch/sharding``:
+               heads and FFN columns over ``model``, ZeRO-3 over
+               ``data``) on a (2, 2) mesh: a warm-up train step whose loss
+               and grad norm must equal phase 8's first step within
+               TP_TRAIN_RTOL, 2 counted steps (48 B5 launches each on
+               every rank, B3 on the rank's slices), the second with
+               every collective timed; a prefill of 4 x 4,096 with the cache in
+               the rank's layout and 4 greedy decode steps, whose tokens
+               equal the local path's wherever its top-2 margin exceeds
+               TP_GREEDY_MARGIN; one f32 step 2 layers deep within
+               TP_F32_TOL of the local step on the card; then
+               ``elastic.rescale`` of an 8-layer state from (2, 2) to
+               (1, 4) while the source trains, every destination slice
+               bit-equal to the gathered source's at the stop, the same
+               rounds on every rank, and a step on (1, 4). The parent holds
+               B5 at every per-rank shape the ranks launched it at.
 
 Every phase raises on failure. The kernels' launch counters are set to 0
 before each path (phases 3, 4 and each of its controller and scenario
 runs, 5's prefill and migration, 6's two prefills and its migration, 7's
 prefill, 8's counted steps, its migration, its card-against-CPU steps,
 its trainers and its incremental checkpoints, 9's two counted prefills,
-10's sharded ticks in each rank and its one-rank prefill) and read after
+10's sharded ticks in each rank and its one-rank prefill, 11's mesh
+steps, prefill, decode and rescale in each rank) and read after
 it: each kernel of the path must have run in it. The last lines are the
 card (``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
 "device": ...}``.
@@ -2366,6 +2386,7 @@ def phase_train(torch, ops_mod, ref):
     t0 = time.perf_counter()
     state, m = step_fn(state, _train_batch(torch, corpus, 0))  # warm-up
     torch.cuda.synchronize()
+    first = {k: float(m[k]) for k in ("loss", "grad_norm")}  # phase 11's
     print(f"[train] init {t_init:.4f} s, state {v_mem / 1e9:.4f} GB; "
           f"warm-up step {time.perf_counter() - t0:.4f} s, loss "
           f"{float(m['loss']):.6f}")
@@ -2516,6 +2537,7 @@ def phase_train(torch, ops_mod, ref):
     torch.cuda.empty_cache()
     return total_launches, mig_launches, {
         "params": n, "state_gb": v_mem / 1e9, "batch": TRAIN_BATCH,
+        "first_step": first,
         "seq": TRAIN_SEQ, "steps": steps, "split_ms": split,
         "split_step_ms": whole, "migration_batch": mig_batch,
         "rounds": out.rounds, "stop_reason": out.stop_reason,
@@ -3499,7 +3521,7 @@ def phase_dist_ranks(torch, np, ops_mod, dft, autocorr, tick_states,
 def phase_dist_one_rank(torch, ops_mod, cfg, params, batch):
     """Phase 10(a): the full-depth prefill of phase 9's model and batch
     through the expert-parallel path on one NCCL rank (a (1, 1) mesh: every
-    collective a copy, C as on the local path), against the local prefill
+    collective the identity, C as on the local path), against the local prefill
     of the same batch: logits bit-equal, else (a difference to explain)
     within 1e-6 of the peak in f32 at 2 layers, which always runs. Returns
     (the counted prefill's launches, numbers to keep)."""
@@ -3571,6 +3593,632 @@ def phase_dist_one_rank(torch, ops_mod, cfg, params, batch):
                       "f32_2layer_peak": peak32}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the model on a (data, model) mesh, four gloo ranks on the card
+# ---------------------------------------------------------------------------
+TP_RANKS = 4
+TP_MESH, TP_DST_MESH = (2, 2), (1, 4)        # ("data", "model")
+TP_DEVICE = "cuda"
+TP_STEPS = 2                  # counted train steps, after a warm-up
+TP_PROMPT, TP_DECODE = 4096, 4                # prefill 4 x 4,096, then greedy
+TP_F32_LAYERS, TP_F32_SEQ = 2, 512            # the f32 step against local
+TP_ELASTIC_LAYERS = 8                         # the rescale's depth
+TP_PCFG = dict(block_elems=1 << 14, max_rounds=4, stop_dirty_blocks=0,
+               steps_per_round=1)
+# The mesh's first bf16 step against phase 8's local one (same seed, same
+# batch): the loss within 2e-3 and the grad norm within 2e-2, relative.
+# The mesh sums its data ranks' bf16 gradients (each rounded once more)
+# and reduces in another order; a wrong collective (a gradient counted
+# twice, a vocabulary block missed) moves the norm by a factor.
+TP_TRAIN_RTOL = dict(loss=2e-3, grad_norm=2e-2)
+# f32, 2 layers at full width, one AdamW step, mesh against the local path
+# on the card: loss and grad norm within 1e-5 (relative), each leaf of the
+# first moment within 1e-5 of its largest magnitude, each param within
+# 1e-5 of its leaf's largest magnitude where the local first moment
+# settles the update's sign (``_train_errors``' rule: elsewhere a first
+# AdamW step may take either sign).
+TP_F32_TOL = 1e-5
+# greedy decode against the local path (teacher-forced with the mesh's
+# tokens): equal wherever the local top-2 logit margin exceeds this; a
+# near tie may break either way in bf16, as ``_judge_routing`` counts
+TP_GREEDY_MARGIN = 0.25
+
+
+def _tp_batch(torch, corpus, step: int):
+    return {k: torch.from_numpy(v.copy()).to(TP_DEVICE)
+            for k, v in corpus.batch_at(step).items()}
+
+
+@contextlib.contextmanager
+def _capturing_attention(ops_mod, seen):
+    """Record every B5 launch's (B, H, Hkv, S, D, dtype, window) into
+    ``seen`` while the block runs. The kernel's wrapper counts its launches
+    on the module's name, which the recorder holds meanwhile: the count
+    moves with it and back."""
+    kernel = ops_mod._fa.flash_attention
+
+    def rec(q, k, v, window, *args, **kw):
+        seen.add((*q.shape[:2], k.shape[1], *q.shape[2:], str(q.dtype),
+                  int(window)))
+        return kernel(q, k, v, window, *args, **kw)
+
+    rec.launches = kernel.launches
+    ops_mod._fa.flash_attention = rec
+    try:
+        yield
+    finally:
+        ops_mod._fa.flash_attention = kernel
+        kernel.launches = rec.launches
+
+
+@contextlib.contextmanager
+def _collective_ms(torch, tdist, box):
+    """Host ms and bytes of every collective call by kind while the block
+    runs, the card synchronised before and after each (gloo stages CUDA
+    tensors through the host)."""
+    names = ("all_reduce", "all_gather_into_tensor", "all_to_all_single")
+    orig = {n: getattr(tdist, n) for n in names}
+
+    def wrap(n):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[n](*args, **kw)
+            torch.cuda.synchronize()
+            rec = box.setdefault(n, {"ms": 0.0, "calls": 0, "bytes": 0})
+            rec["ms"] += 1e3 * (time.perf_counter() - t)
+            rec["calls"] += 1
+            t0 = args[1] if n != "all_reduce" else args[0]
+            rec["bytes"] += t0.numel() * t0.element_size()
+            return out
+        return run
+
+    for n in names:
+        setattr(tdist, n, wrap(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(tdist, n, orig[n])
+
+
+def _tp_state(torch, cfg, mesh):
+    """This rank's slices of phase 8's seeded training state: the full
+    params drawn on the card from SEED (the same draw on every rank), cut
+    by ``launch/sharding``, the rest freed; the optimizer state made from
+    the slices (equal to the full state's slices)."""
+    from repro_torch import optim
+    from repro_torch.launch import sharding
+    from repro_torch.models import lm
+    full = lm.init_params(cfg, SEED, device=TP_DEVICE)
+    params = sharding.param_shardings(mesh, full)
+    del full
+    gc.collect()
+    if TP_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"params": params, "opt": optim.init_opt_state(cfg, params),
+            "step": torch.zeros((), dtype=torch.int32, device=TP_DEVICE)}
+
+
+def _tp_setup(cfg, mesh):
+    from repro_torch.launch import sharding
+    from repro_torch.models import dist
+    return dist.model_context(mesh, cfg.seq_shard), dict(
+        constrain=sharding.make_constrain(mesh, cfg),
+        constrain_logits=sharding.make_constrain_logits(mesh))
+
+
+class _Counted:
+    """Kernel launches summed over the blocks run under it (the mesh's
+    own work; the local references a rank computes are left out), and
+    every B5 launch's shape."""
+
+    def __init__(self, ops_mod):
+        self.ops, self.total, self.seen = ops_mod, {}, set()
+
+    @contextlib.contextmanager
+    def __call__(self):
+        self.ops.reset_launch_counts()
+        with _capturing_attention(self.ops, self.seen):
+            yield
+        for k, v in self.ops.launch_counts().items():
+            self.total[k] = self.total.get(k, 0) + v
+
+
+def _tp_train(torch, ops_mod, counted, first, rank):
+    """The full-width, full-depth internlm2 trainer of phase 8 on a TP_MESH
+    mesh: a warm-up step held to phase 8's first step (``first``), then
+    TP_STEPS counted steps (B5 twice a layer under block remat, B3 on the
+    rank's slices), the last with every collective timed."""
+    import torch.distributed as tdist
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models import dist
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
+    ctx, hooks = _tp_setup(cfg, mesh)
+    t0 = time.perf_counter()
+    state = _tp_state(torch, cfg, mesh)
+    t_init = time.perf_counter() - t0
+    corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    step = make_train_step(cfg, telemetry=True, **hooks)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"init_s": t_init, "state_gb": sum(
+        t.numel() * t.element_size() for t in tree.leaves(state)) / 1e9}
+
+    def batch(i):
+        return sharding.batch_shardings(mesh, _tp_batch(torch, corpus, i))
+
+    with dist.use(ctx):
+        t0 = time.perf_counter()
+        with counted():
+            state, m = step(state, batch(0))
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        got = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        out["first"] = got
+        for k, tol in TP_TRAIN_RTOL.items():
+            if not abs(got[k] - first[k]) <= tol * abs(first[k]):
+                raise AssertionError(f"rank {rank}: the mesh's first step "
+                                     f"{k} {got[k]} against the local "
+                                     f"step's {first[k]} (phase 8)")
+        rows, coll = [], {}
+        for n_step in range(TP_STEPS):
+            i = int(state["step"])
+            b = batch(i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops_mod.reset_launch_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            # the last step times every collective (gloo moves a CUDA
+            # tensor through the host, which syncs the card anyway)
+            timer = _collective_ms(torch, tdist, coll) \
+                if n_step == TP_STEPS - 1 else contextlib.nullcontext()
+            with counted(), timer:
+                a.record()
+                state, m = step(state, b)
+                e.record()
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+            n = ops_mod.launch_counts()
+            row = {"step": i, "host_ms": 1e3 * host,
+                   "event_ms": a.elapsed_time(e),
+                   "tokens_per_s": tokens / host,
+                   "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   "dirty_fraction": float(m["dirty_fraction"]),
+                   "b5_launches": n["flash_attention"],
+                   "b3_launches": n["dirty_blocks"],
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            rows.append(row)
+            want_b5 = 2 * cfg.num_layers
+            want_b3 = _scan_launches(len(tree.leaves(state["params"])))
+            if n["flash_attention"] != want_b5 or \
+                    n["dirty_blocks"] != want_b3 or \
+                    not math.isfinite(row["loss"]):
+                raise AssertionError(f"rank {rank} mesh step {i}: launches "
+                                     f"{n} (want {want_b5} flash_attention, "
+                                     f"{want_b3} dirty_blocks), loss "
+                                     f"{row['loss']}")
+    out.update(steps=rows, collectives=coll)
+    del state
+    return out
+
+
+def _tp_serve(torch, counted, rank):
+    """Prefill 4 x TP_PROMPT on the mesh (the cache in the rank's layout),
+    then TP_DECODE greedy steps; rank 0 then runs the local path
+    teacher-forced with the mesh's tokens and holds every token whose
+    local top-2 margin exceeds TP_GREEDY_MARGIN."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models import dist, lm
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = get_config(TRAIN_ARCH)
+    mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
+    ctx, hooks = _tp_setup(cfg, mesh)
+    params = _tp_state(torch, cfg, mesh)["params"]
+    g = torch.Generator(device=TP_DEVICE).manual_seed(SEED + 11)
+    prompt = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TP_PROMPT),
+                           generator=g, device=TP_DEVICE, dtype=torch.int32)
+    rows = sharding.batch_pspec(mesh, ("logits",), prompt[:, :1])
+    mine = sharding.batch_shardings(mesh, {"tokens": prompt})
+    prefill = make_prefill_step(cfg, TP_PROMPT + TP_DECODE,
+                                constrain=hooks["constrain"])
+    decode = make_decode_step(cfg, constrain=hooks["constrain"])
+    out, logits_all, toks = {}, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counted(), dist.use(ctx):
+        logits, cache = prefill(params, mine)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["cache_gb"] = sum(t.numel() * t.element_size()
+                          for t in (cache["attn"]["k"], cache["attn"]["v"])
+                          ) / 1e9
+    dec_ms = []
+    for s in range(TP_DECODE + 1):
+        full = sharding.gather_leaf(mesh, rows, logits.float())
+        logits_all.append(full)
+        nxt = full.argmax(dim=-1).to(torch.int32)[:, None]
+        toks.append(nxt)
+        if s == TP_DECODE:
+            break
+        tok = sharding.batch_shardings(mesh, {"tokens": nxt})["tokens"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted(), dist.use(dist.model_context(mesh, False)):
+            _, logits, cache = decode(params, tok, cache)
+        torch.cuda.synchronize()
+        dec_ms.append(1e3 * (time.perf_counter() - t0))
+    out["decode_ms"] = dec_ms
+    out["tokens"] = torch.cat(toks, 1).tolist()
+    del params, cache
+    torch.cuda.empty_cache()
+    if rank == 0:                      # the local path, alone on the card
+        full_p = lm.init_params(cfg, SEED, device=TP_DEVICE)
+        pre = make_prefill_step(cfg, TP_PROMPT + TP_DECODE)
+        dec = make_decode_step(cfg)
+        want, cache = pre(full_p, {"tokens": prompt})
+        held = ties = 0
+        err = 0.0
+        for s in range(TP_DECODE + 1):
+            want = want.float()
+            err = max(err, float((want - logits_all[s]).abs().max()))
+            top2 = want.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            same = want.argmax(dim=-1) == toks[s][:, 0].long()
+            sure = margin > TP_GREEDY_MARGIN
+            if bool((sure & ~same).any()):
+                raise AssertionError(f"greedy step {s}: the mesh's tokens "
+                                     f"{toks[s][:, 0].tolist()} against the "
+                                     f"local path's {want.argmax(-1).tolist()}"
+                                     f" at margins {margin.tolist()}")
+            held += int(sure.sum())
+            ties += int((~sure).sum())
+            if s < TP_DECODE:
+                _, want, cache = dec(full_p, toks[s], cache)
+        if held < 1:
+            raise AssertionError("greedy decode: every position a near tie; "
+                                 "the check held nothing")
+        out.update(greedy_held=held, greedy_ties=ties,
+                   logits_max_abs_err=err)
+        del full_p, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_f32(torch, counted, rank):
+    """One f32 AdamW step of internlm2 at full width, TP_F32_LAYERS deep,
+    on the mesh against the local step on the card (rank 0 holds every
+    gathered leaf within TP_F32_TOL)."""
+    from repro_torch import optim, tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models import dist, lm
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TP_F32_LAYERS,
+                                         param_dtype="float32")
+    mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
+    ctx, hooks = _tp_setup(cfg, mesh)
+    corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TP_F32_SEQ, seed=SEED)
+    b = _tp_batch(torch, corpus, 0)
+    full = lm.init_params(cfg, SEED, device=TP_DEVICE)
+    zero = torch.zeros((), dtype=torch.int32, device=TP_DEVICE)
+    params = sharding.param_shardings(mesh, full)
+    mine = {"params": params, "opt": optim.init_opt_state(cfg, params),
+            "step": zero}
+    with counted(), dist.use(ctx):
+        got, mg = make_train_step(cfg, **hooks)(
+            mine, sharding.batch_shardings(mesh, b))
+    del mine, params
+    want = mw = None
+    if rank == 0:
+        want, mw = make_train_step(cfg)(
+            {"params": full, "opt": optim.init_opt_state(cfg, full),
+             "step": zero}, b)
+    del full
+    specs = sharding.leaf_specs(mesh, lm.init_params(cfg, device="meta"))
+    errs = {"param": 0.0, "moment": 0.0, "settled": 0, "elements": 0}
+    for key in ("params", "m"):
+        leaves = tree.leaves(got["params"] if key == "params"
+                             else got["opt"]["m"])
+        if rank == 0:
+            wants = tree.leaves(want["params"] if key == "params"
+                                else want["opt"]["m"])
+            moments = tree.leaves(want["opt"]["m"])
+        for i, (leaf, spec) in enumerate(zip(leaves, specs)):
+            whole = sharding.gather_leaf(mesh, spec, leaf)
+            if rank != 0:
+                continue
+            w = wants[i]
+            peak = max(float(w.abs().max()), 1e-30)
+            diff = (whole.float() - w.float()).abs()
+            if key == "m":
+                errs["moment"] = max(errs["moment"], float(diff.max()) / peak)
+                continue
+            mom = moments[i]
+            settled = mom.abs() > max(2 * TP_F32_TOL * float(
+                mom.abs().max()), 1e-7)
+            if bool(settled.any()):
+                errs["param"] = max(errs["param"],
+                                    float(diff[settled].max()) / peak)
+            errs["settled"] += int(settled.sum())
+            errs["elements"] += w.numel()
+    out = {"loss": float(mg["loss"]), "grad_norm": float(mg["grad_norm"])}
+    if rank == 0:
+        out.update(errs, want_loss=float(mw["loss"]),
+                   want_grad_norm=float(mw["grad_norm"]))
+        bad = [k for k in ("loss", "grad_norm")
+               if abs(out[k] - out["want_" + k]) > TP_F32_TOL * abs(
+                   out["want_" + k])]
+        if bad or errs["param"] > TP_F32_TOL or \
+                errs["moment"] > TP_F32_TOL or errs["settled"] < 1:
+            raise AssertionError(f"f32 step on the mesh against the local "
+                                 f"step: {out}")
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_shapes(cfg):
+    """The full training state's shapes (meta tensors)."""
+    from repro_torch.train import init_train_state
+    return init_train_state(cfg, device="meta")
+
+
+def _tp_elastic(torch, tdist, ops_mod, counted, rank):
+    """``elastic.rescale`` of the TP_ELASTIC_LAYERS-deep internlm2 state from
+    TP_MESH to TP_DST_MESH while the source trains (one step a round, the
+    dirty counts summed over the ranks): each destination slice held bit
+    for bit against the slice cut from the gathered source at the stop,
+    then one step on the destination mesh."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import precopy
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models import dist
+    from repro_torch.runtime import elastic
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TP_ELASTIC_LAYERS)
+    src = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
+    dst = meshlib.make_host_mesh(*TP_DST_MESH, device=TP_DEVICE)
+    (ctx, hooks), (d_ctx, d_hooks) = _tp_setup(cfg, src), _tp_setup(cfg, dst)
+    corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    step = make_train_step(cfg, telemetry=True, **hooks)
+    box = {"state": _tp_state(torch, cfg, src)}
+
+    def step_once(st):
+        b = sharding.batch_shardings(src, _tp_batch(torch, corpus,
+                                                    int(st["step"])))
+        with dist.use(ctx):
+            box["state"], m = step(st, b)
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError("loss not finite during the rescale")
+        return box["state"]
+
+    scans = {"host_ms": []}
+    scan = precopy.dirty_scan
+
+    def timed_scan(live, shadow, block):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = scan(live, shadow, block)
+        torch.cuda.synchronize()
+        scans["host_ms"].append(1e3 * (time.perf_counter() - t))
+        return res
+
+    precopy.dirty_scan = timed_scan
+    try:
+        t0 = time.perf_counter()
+        with counted():
+            got, rep = elastic.rescale(cfg, box["state"], step_once, dst,
+                                       src=src,
+                                       pcfg=precopy.PrecopyConfig(**TP_PCFG))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        precopy.dirty_scan = scan
+    shapes = _state_shapes(cfg)
+    equal = True
+    for leaf, a, b, mine in zip(tree.leaves(box["state"]),
+                                sharding.leaf_specs(src, shapes),
+                                sharding.leaf_specs(dst, shapes),
+                                tree.leaves(got)):
+        want = sharding.local_slice(dst, b, sharding.gather_leaf(src, a,
+                                                                 leaf))
+        equal = equal and _same_bytes(torch, want, mine)
+    flag = torch.tensor([int(equal)], device=TP_DEVICE)
+    tdist.all_reduce(flag, op=tdist.ReduceOp.MIN)
+    if not bool(flag.item()):
+        raise AssertionError(f"rank {rank}: the rescaled state differs from "
+                             "the source's slices at the stop")
+    n_steps = int(box["state"]["step"])
+    del box
+    torch.cuda.empty_cache()
+    b = sharding.batch_shardings(dst, _tp_batch(torch, corpus,
+                                                int(got["step"])))
+    with counted(), dist.use(d_ctx):
+        got, m = make_train_step(cfg, telemetry=True, **d_hooks)(got, b)
+    if not math.isfinite(float(m["loss"])) or int(got["step"]) != n_steps + 1:
+        raise AssertionError(f"destination step {int(got['step'])}, loss "
+                             f"{float(m['loss'])}")
+    o = rep.precopy.outcome
+    return {"rounds": o.rounds, "stop_reason": o.stop_reason,
+            "per_round_bytes": rep.precopy.per_round_dirty_bytes,
+            "v_mem": rep.precopy.v_mem,
+            "bytes_sent_over_v_mem": o.bytes_sent / rep.precopy.v_mem,
+            "source_steps": n_steps, "scan_host_ms": scans["host_ms"],
+            "relayout_s": rep.relayout_seconds, "wall_s": wall,
+            "devices": [rep.src_devices, rep.dst_devices],
+            "dst_loss": float(m["loss"])}
+
+
+def _tp_rank(rank: int, world: int, workdir: str):
+    """One rank of phase 11, a spawned process on the card shared with the
+    others, in a gloo group whose FileStore lies in ``workdir``: train,
+    serve, the f32 check and the rescale (``_tp_train``, ``_tp_serve``,
+    ``_tp_f32``, ``_tp_elastic``). Writes ``rank<r>.json``; any failure
+    raises, and the process exits non-zero."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    work = pathlib.Path(workdir)
+    first = json.loads((work / "first_step.json").read_text())
+    tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                             rank=rank, world_size=world)
+    try:
+        counted = _Counted(ops)
+        out = {"train": _tp_train(torch, ops, counted, first, rank)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serve"] = _tp_serve(torch, counted, rank)
+        out["f32"] = _tp_f32(torch, counted, rank)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["elastic"] = _tp_elastic(torch, tdist, ops, counted, rank)
+        out["launches"] = counted.total
+        out["b5_shapes"] = sorted(counted.seen)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _hold_attention(torch, seen, tag: str):
+    """Phase 7's B5 check (``_attn_check`` against ``ref.attention_ref``)
+    on seeded inputs at each distinct (B, H, Hkv, S, D, dtype, window) in
+    ``seen``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for B, H, Hkv, S, D, dtype, window in sorted(seen):
+        dt = getattr(torch, dtype.split(".")[-1])
+        q, k, v = _attn_inputs(torch, g, B, H, Hkv, S, D, dt)
+        got = fa.flash_attention(q, k, v, window)
+        err, use = _attn_check(torch, ref, got, q, k, v, window,
+                               f"{tag} ({B}, {H}, {Hkv}, {S}, {D}) {dtype}")
+        print(f"[{tag}] B5 at a rank's shape (B {B}, H {H}, Hkv {Hkv}, S "
+              f"{S}, D {D}, {dtype}, window {window}) against "
+              f"attention_ref: max abs err {err:.6g}, {use:.4f} of the "
+              f"limit")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+
+
+def phase_tp_ranks(torch, ops_mod, first_step):
+    """Phase 11: TP_RANKS ranks spawned on the one card (gloo; NCCL refuses
+    ranks that share a card), each running full-width internlm2 on a
+    TP_MESH ``(data, model)`` mesh (``_tp_rank``): training held to phase
+    8's first step (``first_step``), a prefill and greedy decode held to
+    the local path, an f32 step held to the local one, and
+    ``elastic.rescale`` onto TP_DST_MESH. The parent joins every rank (a
+    failed rank fails the run), requires every rank to take the same
+    rescale rounds, then holds B5 at every shape the ranks launched it at.
+    Returns (the ranks' launches together, numbers to keep)."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        work = pathlib.Path(tmp)
+        (work / "first_step.json").write_text(json.dumps(first_step))
+        t0 = time.perf_counter()
+        mp.start_processes(_tp_rank, args=(TP_RANKS, tmp), nprocs=TP_RANKS,
+                           join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+    launches = {op: 0 for op in ops_mod.launch_counts()}
+    for rec in ranks:
+        for op, n in rec["launches"].items():
+            launches[op] += n
+    keys = ("rounds", "stop_reason", "per_round_bytes", "source_steps")
+    if any([r["elastic"][k] for k in keys] !=
+           [ranks[0]["elastic"][k] for k in keys] for r in ranks):
+        raise AssertionError("the ranks took different rescale rounds: "
+                             + str([[r["elastic"][k] for k in keys]
+                                    for r in ranks]))
+    for r, rec in enumerate(ranks):
+        tr = rec["train"]
+        print(f"[tp] rank {r} {TRAIN_ARCH} full width and depth on "
+              f"{TP_MESH} (data, model), bf16, AdamW, block remat, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: state {tr['state_gb']:.4f}"
+              f" GB a rank, init {tr['init_s']:.4f} s, warm-up "
+              f"{tr['warmup_s']:.4f} s, first step loss "
+              f"{tr['first']['loss']:.6f} grad norm "
+              f"{tr['first']['grad_norm']:.6f} (phase 8: "
+              f"{first_step['loss']:.6f}, {first_step['grad_norm']:.6f})")
+        for row in tr["steps"]:
+            print(f"[tp] rank {r} step {row['step']}: host "
+                  f"{row['host_ms']:.4f} ms, events {row['event_ms']:.4f} ms,"
+                  f" {row['tokens_per_s']:.1f} tokens/s, loss "
+                  f"{row['loss']:.6f}, grad norm {row['grad_norm']:.6f}, "
+                  f"dirty fraction {row['dirty_fraction']:.6f}, B5 "
+                  f"{row['b5_launches']}, B3 {row['b3_launches']}, peak "
+                  f"{row['peak_gb']:.4f} GB")
+        print(f"[tp] rank {r} step {tr['steps'][-1]['step']}'s "
+              f"collectives, each between two syncs of the card: "
+              + ", ".join(
+                  f"{k} {v['calls']} calls {v['ms']:.4f} ms "
+                  f"{v['bytes'] / 1e9:.4f} GB"
+                  for k, v in tr["collectives"].items()))
+        sv = rec["serve"]
+        print(f"[tp] rank {r} prefill {TRAIN_BATCH} x {TP_PROMPT}: "
+              f"{sv['prefill_s']:.4f} s, cache block {sv['cache_gb']:.4f} "
+              f"GB; decode ms {[round(t, 4) for t in sv['decode_ms']]}")
+        el = rec["elastic"]
+        print(f"[tp] rank {r} rescale ({TP_ELASTIC_LAYERS} layers) "
+              f"{TP_MESH} -> {TP_DST_MESH}: {el['rounds']} rounds, stop "
+              f"{el['stop_reason']}, bytes sent / v_mem "
+              f"{el['bytes_sent_over_v_mem']:.6f}, per-round bytes "
+              f"{el['per_round_bytes']}, scans ms "
+              f"{[round(t, 4) for t in el['scan_host_ms']]}, re-layout "
+              f"{el['relayout_s']:.4f} s, wall {el['wall_s']:.4f} s; "
+              f"destination bit-equal, steps on: loss {el['dst_loss']:.6f};"
+              f" peak {rec['peak_gb']:.4f} GB; launches {rec['launches']}")
+    sv, f32 = ranks[0]["serve"], ranks[0]["f32"]
+    print(f"[tp] greedy tokens {sv['tokens']}: equal to the local path's "
+          f"at {sv['greedy_held']} positions whose margin exceeds "
+          f"{TP_GREEDY_MARGIN} ({sv['greedy_ties']} near ties not held); "
+          f"logits max abs err {sv['logits_max_abs_err']:.6g}")
+    print(f"[tp] f32, {TP_F32_LAYERS} layers, {TRAIN_BATCH} x {TP_F32_SEQ}:"
+          f" loss {f32['loss']:.8f} (local {f32['want_loss']:.8f}), grad "
+          f"norm {f32['grad_norm']:.8f} (local {f32['want_grad_norm']:.8f}),"
+          f" first moment err {f32['moment']:.6g} of its leaf's peak, "
+          f"params err {f32['param']:.6g} of their leaf's peak on the "
+          f"{f32['settled'] / f32['elements']:.4f} settled (limit "
+          f"{TP_F32_TOL})")
+    print(f"[tp] {TP_RANKS} gloo ranks on one card: {wall:.4f} s wall, spawn "
+          f"included")
+    seen = {tuple(s) for rec in ranks for s in rec["b5_shapes"]}
+    _hold_attention(torch, seen, "tp")
+    return launches, {"ranks_wall_s": wall, "ranks": ranks,
+                      "b5_shapes": sorted(seen)}
+
+
 def main() -> int:
     # phase 8's pre-copy holds the 26.5 GB training state twice beside a
     # step's transients, which fits the card only in segments that grow in
@@ -3639,6 +4287,10 @@ def main() -> int:
     moe_launches, moe_times = phase_moe_serve(torch, ops)
     moe_times["card_vs_cpu"] = phase_moe_cpu_check(torch)
     dist_times["one_rank"] = moe_times.pop("dist_one_rank")
+    gc.collect()                       # phase 9's model freed before phase 11
+    torch.cuda.empty_cache()
+    tp_launches, tp_times = phase_tp_ranks(torch, ops,
+                                           train_times["first_step"])
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -3659,7 +4311,8 @@ def main() -> int:
              serve_prefill, serve_launches,
              ssm_prefill, ssm_migrate, rwkv_launches, dense_launches,
              train_launches, train_mig_launches, *check_launches.values(),
-             trainer_launches, inc_launches, *moe_launches, dist_launches)
+             trainer_launches, inc_launches, *moe_launches, dist_launches,
+             tp_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
         launches = sum(path[op] for path in paths)
@@ -3676,6 +4329,7 @@ def main() -> int:
     print("[train] " + json.dumps(train_times))
     print("[moe] " + json.dumps(moe_times))
     print("[dist] " + json.dumps(dist_times))
+    print("[tp] " + json.dumps(tp_times))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -132,7 +132,8 @@ class PrecopyReport:
 def migrate(get_state: Callable[[], Any],
             step_fn: Optional[Callable[[], None]],
             cfg: PrecopyConfig = PrecopyConfig(),
-            *, placement: Optional[Callable[[Any], Any]] = None
+            *, placement: Optional[Callable[[Any], Any]] = None,
+            reduce: Optional[Callable[[List[int]], List[int]]] = None
             ) -> Tuple[Any, PrecopyReport]:
     """Pre-copy migrate the state returned by ``get_state`` while ``step_fn``
     keeps mutating it between rounds (the 'live' in live migration).
@@ -140,20 +141,25 @@ def migrate(get_state: Callable[[], Any],
     ``placement`` optionally maps the round-0 copy onto its destination
     (e.g. ``lambda t: repro_torch.tree.map(lambda x: x.to("cuda:1"), t)``);
     later rounds scan against the source's copy and move only the dirty
-    blocks there. Returns (destination_state, report).
+    blocks there. ``reduce`` maps this process's counts (the state's bytes,
+    then each scan's dirty blocks and bytes) to the totals over every
+    process migrating its part of one state (a sum over ranks), so that
+    each takes the same stop decisions and reports the whole. Returns
+    (destination_state, report).
     """
+    total = reduce or (lambda counts: counts)
     t0 = time.monotonic()
     place = placement or (lambda t: t)
     live = get_state()
-    v_mem = total_bytes(live)
+    v_mem, = total([total_bytes(live)])
     scan_seconds: List[float] = []
 
     def scan(live):
         _synchronize(live)                 # time the scan, not the step
         t = time.perf_counter()
-        out = dirty_scan(live, record, cfg.block_elems)
+        masks, n_dirty, n_bytes = dirty_scan(live, record, cfg.block_elems)
         scan_seconds.append(time.perf_counter() - t)
-        return out
+        return (masks, *total([n_dirty, n_bytes]))
 
     # round 0: full copy (iterative-copy stage, first iteration)
     local = tree.map(

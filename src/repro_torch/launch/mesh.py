@@ -8,14 +8,14 @@ sharded stages under ``shard_map``; the port runs one process a rank
 process group the caller has already initialised:
 
   ``("shard",)``        the decide plane's row split (``core/shard.py``);
-  ``("data", "model")`` the expert-parallel MoE (``models/dist.py``):
-                        ``data`` the batch and ZeRO-3 axis, ``model`` the
-                        expert (and sequence) axis.
+  ``("data", "model")`` the model (``models/dist.py``): ``data`` the
+                        batch and ZeRO-3 axis, ``model`` the tensor,
+                        expert (and sequence) axis;
+  ``("pod", "data", "model")`` the same with an outer data-parallel axis
+                        (``make_production_mesh(multi_pod=True)``).
 
 Axis semantics as in the reference: ``pod`` and ``data`` are the batch
 axes (``batch_axes``), ``model`` is tensor/expert parallel.
-``make_production_mesh`` (16 x 16 and 2 x 16 x 16) waits for the dry run
-(ROADMAP item 15).
 
 Backends. NCCL runs one rank a card. Several ranks that share one card
 (NCCL refuses them) or the CPU use a ``gloo`` group, which the caller
@@ -59,6 +59,17 @@ def device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], *,
                          f"has {world}")
     ranks = torch.arange(n, dtype=torch.int).reshape(shape)
     return DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None):
+    """The production mesh: (16, 16) ``("data", "model")``, or with
+    ``multi_pod`` (2, 16, 16) ``("pod", "data", "model")``, over the first
+    256 or 512 ranks of the initialised group (a smaller group raises).
+    The dry run builds it under a fake process group of that size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return device_mesh(shape, names, device=device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *,

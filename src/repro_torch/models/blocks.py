@@ -25,6 +25,17 @@ rank routes its tokens, sends them to their experts' ranks with an
 all-to-all over the ``model`` axis, gathers its experts' weights over
 ``data`` (ZeRO-3), and sends the outputs back; its weights are cut by
 ``moe_shard_params``.
+
+Under a context the attention and the MLP are tensor-parallel too
+(Megatron's layout, the one GSPMD gives the reference from
+``launch/sharding``'s rules): ``wq``/``wk``/``wv`` and ``w_gate``/``w_up``
+are column blocks over ``model`` and ZeRO-3 shards over ``data``
+(all-gathered there before use), ``wo`` and ``w_down`` row blocks whose
+partial products leave the region through ``dist.tp_exit``. A rank
+computes its H/tp query heads and the KV heads they read (kernel B5 takes
+them as they are); its decode reads its block of the KV ring, the KV heads
+(``launch/sharding.kv_split``) or, where ``model`` does not divide them,
+the ring's window, whose per-slice softmax sums are merged over ``model``.
 """
 from __future__ import annotations
 
@@ -150,6 +161,11 @@ def multihead_attention(
     K/V are written into the ring in place; returns (out, (k, v)) with the
     same cache tensors. Prefill returns the sequence's own (k, v).
     """
+    from repro_torch.models import dist
+    ctx = dist.current()
+    if ctx is not None:
+        return _attention_tp(params, cfg, x, angles, kv_cache, cache_pos,
+                             ctx)
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, H, hd)
@@ -180,18 +196,153 @@ def multihead_attention(
     cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
     qh = q.reshape(B, 1, Hkv, g, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * scale
-    # valid cache entries: absolute position of slot i in the ring
-    idx = torch.arange(W, device=x.device)
-    if cfg.sliding_window > 0:
-        abs_pos = torch.where(idx <= slot, cache_pos - slot + idx,
-                              cache_pos - slot + idx - W)
-        valid = (abs_pos >= 0) & (abs_pos > cache_pos - cfg.sliding_window)
-    else:
-        valid = idx < cache_pos + 1              # tokens seen incl. current
-    logits = torch.where(valid, logits, MASK_FILL)
+    logits = torch.where(_decode_valid(cfg, W, cache_pos, slot,
+                                       torch.arange(W, device=x.device)),
+                         logits, MASK_FILL)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv).reshape(B, 1, H * hd)
     return out @ params["wo"], (ck, cv)
+
+
+def _kv_block(cfg: ArchConfig, tp: int, r: int) -> Tuple[int, int]:
+    """The KV heads [kv0, kv1) that rank ``r`` of ``tp``'s query heads
+    [r H/tp, (r+1) H/tp) read. Raises where ``model`` does not divide the
+    query heads, or where those query heads are not whole GQA groups of
+    their KV heads (B5 reads query head h from KV head h // group)."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if H % tp:
+        raise ValueError(f"tensor parallelism: the model axis ({tp}) does "
+                         f"not divide the {H} query heads")
+    Hq, g = H // tp, H // Hkv
+    kv0, kv1 = (r * Hq) // g, ((r + 1) * Hq - 1) // g + 1
+    if Hq % (kv1 - kv0) or (kv1 - kv0 > 1 and Hq // (kv1 - kv0) != g):
+        raise ValueError(f"tensor parallelism: {Hq} query heads a rank do "
+                         f"not form whole groups of {g} over KV heads "
+                         f"{kv0}..{kv1 - 1}")
+    return kv0, kv1
+
+
+def _attention_tp(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                  angles: torch.Tensor, kv_cache, cache_pos, ctx):
+    """``multihead_attention`` on this rank under ``ctx``: its H/tp query
+    heads and the KV heads they read (``_kv_block``).
+
+    ``params`` are the rank's slices (``launch/sharding``): ``wq`` the
+    columns of its heads; ``wk``/``wv`` those of its KV heads where
+    ``model`` divides them, else all-gathered over ``model`` (or whole,
+    replicated) and every KV head computed; ``wo`` the rows of its heads;
+    every one a ZeRO-3 shard over ``data``, all-gathered here. Prefill
+    (and training) runs B5 on the rank's heads over the whole sequence
+    (with ``seq_shard`` ``dist.tp_enter`` gathers it) and returns the K/V
+    in the rank's ring layout: its KV heads, or all of them where the ring
+    is cut along its window. Decode reads the rank's block of the ring:
+    its KV heads, or (``kv_split`` "window") the ring's slots [r W/tp,
+    (r+1) W/tp) with every head, softmax sums merged over ``model``."""
+    from repro_torch.launch.sharding import kv_split
+    from repro_torch.models import dist
+    mesh, ax = ctx.mesh, ctx.tp_axis
+    tp, r = dist.tp_size(ctx), dist.tp_rank(ctx)
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv0, kv1 = _kv_block(cfg, tp, r)
+    Hq = H // tp
+    wq = dist.fsdp(params["wq"], ctx, d, 0)
+    wo = dist.fsdp(params["wo"], ctx, d, 1)
+    own_kv = Hkv % tp == 0                 # wk/wv hold the rank's KV heads
+
+    def kv_weight(w):
+        w = dist.fsdp(w, ctx, d, 0)
+        if own_kv or w.shape[1] == Hkv * hd:
+            # a replicated weight used for part of the work: sum its grads
+            return w if own_kv else dist.tp_param(w, ctx)
+        return dist.all_gather(w, mesh, ax, dim=1)
+
+    wk, wv = kv_weight(params["wk"]), kv_weight(params["wv"])
+    norms = {}
+    if cfg.qk_norm:
+        norms = {n: {"scale": dist.tp_param(params[n]["scale"], ctx)}
+                 for n in ("q_norm", "k_norm")}
+    x = dist.tp_enter(x, ctx)
+    B, S, _ = x.shape
+
+    def project(w, heads, norm):
+        t = (x @ w).reshape(B, S, heads, hd)
+        if norm:
+            t = rmsnorm(norms[norm], t, cfg.norm_eps)
+        return t
+
+    by_window = kv_cache is not None and not own_kv
+    if by_window:                          # every query head, see below
+        wq = dist.all_gather(wq, mesh, ax, dim=1)
+    q = apply_rope(project(wq, H if by_window else Hq,
+                           cfg.qk_norm and "q_norm"), angles)
+    n_kv = wk.shape[1] // hd
+    k = apply_rope(project(wk, n_kv, cfg.qk_norm and "k_norm"), angles)
+    v = project(wv, n_kv, None)
+    lo = kv0 if own_kv else 0              # the rank's heads within k, v
+    if kv_cache is None:
+        out = ops.flash_attention(
+            q.transpose(1, 2), k[:, :, kv0 - lo:kv1 - lo].transpose(1, 2),
+            v[:, :, kv0 - lo:kv1 - lo].transpose(1, 2),
+            window=cfg.sliding_window, chunk=min(cfg.attn_chunk, S))
+        o = out.transpose(1, 2).reshape(B, S, Hq * hd) @ wo
+        return dist.tp_exit(o, ctx), (k, v)
+
+    # ---- decode ------------------------------------------------------------
+    ck, cv = kv_cache
+    scale = hd ** -0.5
+    if not by_window:
+        g = Hq // (kv1 - kv0)
+        W = ck.shape[1]
+        slot = torch.remainder(cache_pos, W).long()
+        ck.index_copy_(1, slot.view(1), k.to(ck.dtype))
+        cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
+        qh = q.reshape(B, 1, kv1 - kv0, g, hd)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * scale
+        logits = torch.where(_decode_valid(cfg, W, cache_pos, slot,
+                                           torch.arange(W, device=x.device)),
+                             logits, MASK_FILL)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv)
+        o = out.reshape(B, 1, Hq * hd) @ wo
+        return dist.tp_exit(o, ctx), (ck, cv)
+    if kv_split(mesh, Hkv, ck.shape[1] * tp) != "window":
+        raise ValueError("tensor-parallel decode: the KV ring is cut neither "
+                         "by heads nor by window (launch/sharding.kv_split)")
+    Wl = ck.shape[1]
+    W = Wl * tp
+    slot = torch.remainder(cache_pos, W).long()
+    here = slot - r * Wl                    # the slot in this rank's block
+    mine = (here >= 0) & (here < Wl)
+    li = here.clamp(0, Wl - 1).view(1)
+    for ring, t in ((ck, k), (cv, v)):
+        ring.index_copy_(1, li, torch.where(mine, t.to(ring.dtype),
+                                            ring.index_select(1, li)))
+    g = H // Hkv
+    qh = q.reshape(B, 1, Hkv, g, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * scale
+    idx = r * Wl + torch.arange(Wl, device=x.device)
+    logits = torch.where(_decode_valid(cfg, W, cache_pos, slot, idx),
+                         logits, MASK_FILL)
+    # log-sum-exp merge over the window's blocks: the max over every block
+    # first, then each block's exp-sums and P.V summed over ``model``
+    top = dist.all_reduce_max(logits.amax(dim=-1, keepdim=True), mesh, ax)
+    p = torch.exp(logits - top)
+    denom = dist.reduce_from_tp(p.sum(dim=-1), mesh, ax)      # (B, h, g, 1)
+    pv = dist.reduce_from_tp(
+        torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float()), mesh, ax)
+    out = (pv / denom.permute(0, 3, 1, 2)[..., None]).to(x.dtype)
+    o = out.reshape(B, 1, H * hd)[..., r * Hq * hd:(r + 1) * Hq * hd] @ wo
+    return dist.tp_exit(o, ctx), (ck, cv)
+
+
+def _decode_valid(cfg: ArchConfig, W: int, cache_pos, slot, idx):
+    """Which ring slots ``idx`` (of a ring of ``W``) hold tokens the new
+    one attends to, as the local decode decides."""
+    if cfg.sliding_window > 0:
+        abs_pos = torch.where(idx <= slot, cache_pos - slot + idx,
+                              cache_pos - slot + idx - W)
+        return (abs_pos >= 0) & (abs_pos > cache_pos - cfg.sliding_window)
+    return idx < cache_pos + 1
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +361,26 @@ def mlp_init(gen: Optional[torch.Generator], cfg: ArchConfig,
     return p
 
 
-def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Params, x: torch.Tensor, *, exact: bool = False
+        ) -> torch.Tensor:
+    """SwiGLU (or GELU without ``w_gate``). Under a ``dist`` context
+    tensor-parallel: ``params`` are this rank's column blocks of
+    ``w_gate``/``w_up`` and row block of ``w_down`` (ZeRO-3 shards over
+    ``data``, all-gathered here), the region entered and left by
+    ``dist.tp_enter``/``tp_exit`` (``exact``: the transpose convention of
+    the MoE layer, whose shared expert this is)."""
+    from repro_torch.models import dist
+    ctx = dist.current()
+    if ctx is None:
+        return _mlp_local(params, x)
+    d = x.shape[-1]
+    x = dist.tp_enter(x, ctx, exact=exact)
+    params = {k: dist.fsdp(w, ctx, d, 1 if k == "w_down" else 0)
+              for k, w in params.items()}
+    return dist.tp_exit(_mlp_local(params, x), ctx, exact=exact)
+
+
+def _mlp_local(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "w_gate" in params:             # SwiGLU
         return (F.silu(x @ params["w_gate"])
                 * (x @ params["w_up"])) @ params["w_down"]
@@ -337,17 +507,12 @@ def moe_ffn(params: Params, cfg: ArchConfig, x: torch.Tensor
 
 def moe_shard_params(mesh, params: Params) -> Params:
     """This rank's share of one MoE layer's full params for the
-    expert-parallel path: the router and the expert stacks cut by
-    ``launch/sharding.param_shardings`` (router (d, E/tp); w_gate, w_up
-    (E/tp, d/data, f); w_down (E/tp, f, d/data)); the shared expert whole,
-    since it runs on each rank's own tokens outside the dispatch (the
-    reference leaves it to GSPMD)."""
+    expert-parallel path, cut by ``launch/sharding.param_shardings``:
+    router (d, E/tp); w_gate, w_up (E/tp, d/data, f); w_down (E/tp, f,
+    d/data); the shared expert by the dense MLP's 2-D rules (the
+    reference's ``_looks_expert`` sends it there), run tensor-parallel."""
     from repro_torch.launch import sharding
-    experts = {k: v for k, v in params.items() if k != "shared"}
-    out = sharding.param_shardings(mesh, {"moe": experts})["moe"]
-    if "shared" in params:
-        out["shared"] = params["shared"]
-    return out
+    return sharding.param_shardings(mesh, {"moe": params})["moe"]
 
 
 def _moe_ffn_sharded(params: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -436,6 +601,5 @@ def _moe_ffn_sharded(params: Params, cfg: ArchConfig, x: torch.Tensor,
         y = dist.all_gather(y, mesh, tp, dim=0)
     out = y.reshape(B, S, d).to(x.dtype)
     if m.num_shared_experts:
-        out = out + mlp(params["shared"], x.reshape(T_loc, d)
-                        ).reshape(B, S, d)
+        out = out + mlp(params["shared"], x, exact=True)
     return out, aux

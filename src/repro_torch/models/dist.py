@@ -19,6 +19,25 @@ them as through the reference's ``lax`` collectives:
   ``lax.all_to_all(tiled=True)`` -> ``all_to_all``
   ``lax.psum``                   -> ``all_reduce``
 
+Each returns its input unchanged when the axis has one rank (a (1, 1)
+mesh runs no copy and no backend call), and so does its gradient.
+
+The model on a ``(data, model)`` mesh (``models/blocks``, ``models/lm``)
+runs the collectives GSPMD inserts for the reference, in Megatron's form:
+every rank of a ``model`` group computes the same loss, so a
+tensor-parallel region is entered by ``copy_to_tp`` (identity forward,
+all-reduce backward) and left by ``reduce_from_tp`` (all-reduce forward,
+identity backward); with ``seq_shard`` the residual stream is split along
+the sequence, entered by ``all_gather`` along it (reduce-scatter
+backward) and left by ``reduce_scatter`` (all-gather backward):
+``tp_enter`` and ``tp_exit`` pick the pair. ``gather_split`` (all-gather
+forward, this rank's chunk backward) and ``split`` (the chunk forward,
+all-gather backward) move a tensor between a split layout and a
+replicated one; ``scale_grad`` scales a gradient only. The
+expert-parallel MoE layer keeps the exact adjoints above (every
+collective's backward its transpose, as ``lax``'s); ``lm._moe``
+adapts it to the replicated loss.
+
 A rank's block (``local_tokens``): the batch split over the batch axes
 when it divides them (else every batch rank holds all of it), the
 sequence split over the model axis when ``seq_shard`` is set. The
@@ -64,9 +83,26 @@ def current() -> Optional[DistContext]:
 def constrain_heads(x: torch.Tensor) -> torch.Tensor:
     """The identity on this rank's tensor. The reference's
     ``constrain_heads`` is a GSPMD layout hint (shard a head-major tensor
-    over the batch and model axes); a rank running eager code holds its
-    local tensor already, and there is no compiler to hint."""
+    over the batch and model axes); a rank running eager code already
+    holds its batch block, and a tensor-parallel layer computes only its
+    own block of heads (``blocks.multihead_attention``), so the head split
+    it asks for is local by construction and there is no compiler to
+    hint."""
     return x
+
+
+def model_context(mesh, seq_shard: bool = False) -> "DistContext":
+    """The context of the model on ``mesh``: its batch axes, ``model`` the
+    tensor-parallel axis, the sequence split when ``seq_shard``."""
+    return DistContext(mesh, meshlib.batch_axes(mesh), seq_shard=seq_shard)
+
+
+def tp_size(ctx: Optional[DistContext]) -> int:
+    return 1 if ctx is None else meshlib.axis_size(ctx.mesh, ctx.tp_axis)
+
+
+def tp_rank(ctx: Optional[DistContext]) -> int:
+    return 0 if ctx is None else meshlib.axis_rank(ctx.mesh, ctx.tp_axis)
 
 
 @contextlib.contextmanager
@@ -126,37 +162,145 @@ def _functional():
         yield F
 
 
+def _one(mesh, axis: str) -> bool:
+    return meshlib.axis_size(mesh, axis) == 1
+
+
+def _chunks_summed(g: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """Reduce-scatter along ``dim``: chunk j of every rank's ``g`` summed
+    on rank j, in rank order (an all-to-all, since gloo has no
+    reduce-scatter)."""
+    gt = g.movedim(dim, 0).contiguous()
+    parts = torch.empty_like(gt)
+    tdist.all_to_all_single(parts, gt, group=grp)
+    n = tdist.get_world_size(grp)
+    return parts.reshape(n, -1, *gt.shape[1:]).sum(0).movedim(0, dim)
+
+
+def _gathered(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((tdist.get_world_size(grp) * xt.shape[0],
+                        *xt.shape[1:]))
+    tdist.all_gather_into_tensor(out, xt, group=grp)
+    return out.movedim(0, dim).contiguous()
+
+
+def _own_chunk(g: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    n, r = tdist.get_world_size(grp), tdist.get_rank(grp)
+    step = g.shape[dim] // n
+    return g.narrow(dim, r * step, step).contiguous()
+
+
+def _summed(x: torch.Tensor, grp) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    tdist.all_reduce(out, group=grp)
+    return out
+
+
 class _AllGather(torch.autograd.Function):
     """All-gather along ``dim``; backward sums each rank's share of the
-    gradient back to it (an all-to-all of the gradient's chunks, summed in
-    rank order). ``torch.distributed.nn.functional.all_gather`` is not
-    used: its backward on gloo passes group ranks to ``scatter`` as global
-    ranks and fails on any group but the world."""
+    gradient back to it (``_chunks_summed``).
+    ``torch.distributed.nn.functional.all_gather`` is not used: its
+    backward on gloo passes group ranks to ``scatter`` as global ranks and
+    fails on any group but the world."""
 
     @staticmethod
     def forward(ctx, x, grp, dim):
         ctx.grp, ctx.dim = grp, dim
-        xt = x.movedim(dim, 0).contiguous()
-        out = xt.new_empty((tdist.get_world_size(grp) * xt.shape[0],
-                            *xt.shape[1:]))
-        tdist.all_gather_into_tensor(out, xt, group=grp)
-        return out.movedim(0, dim).contiguous()
+        return _gathered(x, grp, dim)
 
     @staticmethod
     def backward(ctx, g):
-        gt = g.movedim(ctx.dim, 0).contiguous()
-        parts = torch.empty_like(gt)
-        tdist.all_to_all_single(parts, gt, group=ctx.grp)
-        n = tdist.get_world_size(ctx.grp)
-        gx = parts.reshape(n, -1, *gt.shape[1:]).sum(0)
-        return gx.movedim(0, ctx.dim), None, None
+        return _chunks_summed(g, ctx.grp, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over the ranks, this rank's chunk along ``dim`` kept; backward
+    all-gathers the chunks' gradients (the transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _chunks_summed(x, grp, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.grp, ctx.dim), None, None
+
+
+class _GatherSplit(torch.autograd.Function):
+    """All-gather along ``dim`` into a tensor every rank then uses alike;
+    backward keeps this rank's chunk of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _gathered(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_chunk(g, ctx.grp, ctx.dim), None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's chunk along ``dim`` of a replicated tensor; backward
+    all-gathers the chunks' gradients into the replicated one."""
+
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _own_chunk(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.grp, ctx.dim), None, None
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, all-reduce backward (the
+    gradients of a replicated input's per-rank uses summed)."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.grp), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's ``g``: all-reduce forward, identity backward (every
+    rank's partial sum gets the replicated gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        return _summed(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """Every rank's ``x`` along ``axis``, end to end along ``dim`` in rank
     order (``lax.all_gather(x, axis, axis=dim, tiled=True)``), contiguous
     (the products that read it see the layout of the local path's
-    weights)."""
+    weights). Backward: the transpose, a reduce-scatter."""
+    if _one(mesh, axis):
+        return x
     return _AllGather.apply(x, mesh.get_group(axis), dim)
 
 
@@ -164,6 +308,8 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Dim 0 of ``x`` cut into one equal chunk per rank of ``axis``, chunk
     j sent to rank j; the chunks received are stacked along dim 0 in rank
     order."""
+    if _one(mesh, axis):
+        return x
     x = x.contiguous()
     with _functional() as F:
         return F.all_to_all_single(torch.empty_like(x), x, None, None,
@@ -171,7 +317,109 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 
 def all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axis`` (``lax.psum``)."""
+    """The sum of ``x`` over the ranks of ``axis`` (``lax.psum``);
+    backward the same sum of the gradients."""
+    if _one(mesh, axis):
+        return x
     with _functional() as F:
         return F.all_reduce(x, op=tdist.ReduceOp.SUM,
                             group=mesh.get_group(axis))
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, this rank's chunk along ``dim``
+    kept (``lax.psum_scatter(tiled=True)``); backward all-gathers."""
+    if _one(mesh, axis):
+        return x
+    return _ReduceScatter.apply(x, mesh.get_group(axis), dim)
+
+
+def gather_split(x: torch.Tensor, mesh, axis: str, dim: int
+                 ) -> torch.Tensor:
+    """All-gather along ``dim`` into a tensor every rank of ``axis`` uses
+    alike (its gradient replicated); backward keeps this rank's chunk."""
+    if _one(mesh, axis):
+        return x
+    return _GatherSplit.apply(x, mesh.get_group(axis), dim)
+
+
+def split(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of a tensor replicated over
+    ``axis``; backward all-gathers the gradient."""
+    if _one(mesh, axis):
+        return x
+    return _Split.apply(x, mesh.get_group(axis), dim)
+
+
+def copy_to_tp(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Identity forward, all-reduce over ``axis`` backward."""
+    if _one(mesh, axis) or not torch.is_grad_enabled():
+        return x
+    return _CopyToTP.apply(x, mesh.get_group(axis))
+
+
+def reduce_from_tp(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """All-reduce over ``axis`` forward, identity backward."""
+    if _one(mesh, axis):
+        return x
+    return _ReduceFromTP.apply(x, mesh.get_group(axis))
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The element-wise max over ``axis``, without a gradient."""
+    if _one(mesh, axis):
+        return x.detach()
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    tdist.all_reduce(out, op=tdist.ReduceOp.MAX, group=mesh.get_group(axis))
+    return out
+
+
+def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
+    """Identity forward; backward multiplies the gradient by ``s``."""
+    if s == 1.0 or not torch.is_grad_enabled():
+        return x
+    return _ScaleGrad.apply(x, s)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel regions of the model
+# ---------------------------------------------------------------------------
+def tp_enter(x: torch.Tensor, ctx: DistContext, *, exact: bool = False
+             ) -> torch.Tensor:
+    """The residual stream ``x`` entering a tensor-parallel region: with
+    ``seq_shard`` all-gathered along the sequence (dim 1; reduce-scatter
+    backward), else ``copy_to_tp`` (replicated; the identity with
+    ``exact``, the transpose convention of the MoE layer)."""
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    if ctx.seq_shard:
+        return all_gather(x, mesh, tp, dim=1)
+    return x if exact else copy_to_tp(x, mesh, tp)
+
+
+def tp_exit(x: torch.Tensor, ctx: DistContext, *, exact: bool = False
+            ) -> torch.Tensor:
+    """A region's partial sums leaving it: with ``seq_shard``
+    reduce-scattered along the sequence (all-gather backward), else
+    ``reduce_from_tp`` (``all_reduce`` with ``exact``)."""
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    if ctx.seq_shard:
+        return reduce_scatter(x, mesh, tp, dim=1)
+    return all_reduce(x, mesh, tp) if exact else reduce_from_tp(x, mesh, tp)
+
+
+def tp_param(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
+    """A leaf replicated over ``model`` whose use on a rank sees only part
+    of the work (its heads, or with ``seq_shard`` its tokens): its
+    gradient summed over ``model`` (``copy_to_tp``)."""
+    return copy_to_tp(t, ctx.mesh, ctx.tp_axis)
+
+
+def fsdp(t: torch.Tensor, ctx: DistContext, full: int, dim: int
+         ) -> torch.Tensor:
+    """A weight's ZeRO-3 shard all-gathered over ``data`` along ``dim``
+    when it was cut there (``t.shape[dim] != full``); its gradient then
+    reduce-scattered, each ``data`` rank's share summed."""
+    if t.shape[dim] == full:
+        return t
+    return all_gather(t, ctx.mesh, "data", dim=dim)

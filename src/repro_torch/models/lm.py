@@ -37,10 +37,26 @@ each layer of a uniform stack or each hybrid group under
 B5 and B4 run forward there; their backward is plain PyTorch
 (``kernels/vjp.py``). ``forward`` (prefill) and ``decode_step`` stay under
 ``torch.no_grad()``, which their in-place cache writes need.
+
+On a ``(data, model)`` mesh (a ``models/dist`` context, params, batch and
+cache in this rank's slices from ``launch/sharding``) the dense and MoE
+wirings run tensor-parallel: the embedding table's columns are looked up
+and all-gathered over ``model``, the attention and MLP are Megatron
+regions (``blocks``), the MoE layer expert-parallel, and the head's
+vocabulary is split over ``model`` (a tied head's partial products are
+all-reduced, then cut by ``constrain_logits``), so ``lm_loss`` takes the
+log-sum-exp over the split vocabulary. Every rank of a ``model`` group
+computes the same loss; ``lm_loss`` returns this ``data`` rank's share of
+it (its tokens over the global count), the shares summing to the loss.
+``constrain`` (``launch/sharding.make_constrain``) cuts the residual
+stream once, after the embedding, where the reference constrains it after
+every residual add: a rank's stream keeps its layout between layers
+(``dist.tp_exit`` leaves it so). The ``mamba``, ``rwkv`` and
+``hybrid_shared`` wirings raise on a mesh (ROADMAP item 15a-ii).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,11 +65,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models import mamba2, rwkv6
+from repro_torch.models import dist, mamba2, rwkv6
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 ATTN_KINDS = ("attn", "shared_attn", "moe")      # layers with a KV ring
+Identity = lambda x: x  # noqa: E731
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +83,46 @@ def wiring_mode(cfg: ArchConfig) -> str:
         return "prefix_dense"
     assert len(set(cfg.block_pattern)) == 1, cfg.block_pattern
     return "uniform"
+
+
+def _mesh_context(cfg: ArchConfig) -> Optional[dist.DistContext]:
+    """The ``dist`` context, once the wiring is known to run on it."""
+    ctx = dist.current()
+    if ctx is not None and wiring_mode(cfg) not in ("uniform",
+                                                    "prefix_dense"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {wiring_mode(cfg)} wiring on a mesh is ROADMAP "
+            "item 15a-ii")
+    if ctx is not None and cfg.block_pattern[0] in ("mamba", "rwkv"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.block_pattern[0]} layers on a mesh are ROADMAP "
+            "item 15a-ii")
+    if ctx is not None:
+        # a width the model axis does not divide stays whole on every rank
+        # (the rules' fallback), and a region's exit would sum its copies
+        widths = {"query heads": cfg.num_heads}
+        if "attn" in cfg.block_pattern or cfg.first_k_dense:
+            widths["d_ff"] = cfg.d_ff
+        if cfg.moe is not None:
+            widths["experts"] = cfg.moe.num_experts
+            if cfg.moe.num_shared_experts:
+                widths["the shared expert's d_ff"] = (
+                    cfg.moe.num_shared_experts * cfg.moe.d_ff_expert)
+        tp = dist.tp_size(ctx)
+        bad = {k: w for k, w in widths.items() if w % tp}
+        if bad:
+            raise NotImplementedError(f"{cfg.name} on a model axis of {tp}: "
+                                      f"it does not divide {bad}")
+    return ctx
+
+
+def _norm(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """RMSNorm; with ``seq_shard`` a rank's scale sees only its tokens, so
+    its gradient is summed over ``model``."""
+    ctx = dist.current()
+    if ctx is not None and ctx.seq_shard:
+        params = {"scale": dist.tp_param(params["scale"], ctx)}
+    return B.rmsnorm(params, x, cfg.norm_eps)
 
 
 def _group_shape(cfg: ArchConfig) -> Tuple[int, int]:
@@ -125,12 +182,12 @@ def apply_block(kind: str, params: Params, cfg: ArchConfig, x: torch.Tensor,
     aux = None
     if kind in ATTN_KINDS:
         h, new_kv = B.multihead_attention(
-            params["attn"], cfg, B.rmsnorm(params["ln1"], x, cfg.norm_eps),
+            params["attn"], cfg, _norm(params["ln1"], x, cfg),
             angles, kv_cache=cache, cache_pos=cache_pos)
         x = x + h
-        h2 = B.rmsnorm(params["ln2"], x, cfg.norm_eps)
+        h2 = _norm(params["ln2"], x, cfg)
         if kind == "moe":
-            mo, aux = B.moe_ffn(params["moe"], cfg, h2)
+            mo, aux = _moe(params["moe"], cfg, h2)
             return x + mo, new_kv, aux
         return x + B.mlp(params["mlp"], h2), new_kv, aux
     if kind == "mamba":
@@ -143,6 +200,26 @@ def apply_block(kind: str, params: Params, cfg: ArchConfig, x: torch.Tensor,
     if kind == "rwkv":
         return (*rwkv6.rwkv6_block(params, cfg, x, cache), aux)
     raise ValueError(kind)
+
+
+def _moe(params: Params, cfg: ArchConfig, x: torch.Tensor):
+    """``B.moe_ffn``; on a mesh adapted to the replicated loss. The
+    expert-parallel layer's collectives take their exact transposes (the
+    gradient of the sum of every rank's output), while every rank of a
+    ``model`` group here computes the same loss: a replicated input enters
+    by ``copy_to_tp`` and the replicated output's and the aux loss's
+    gradients are divided by the ``model`` size (the aux loss is
+    replicated under ``seq_shard`` too, the output then split)."""
+    ctx = dist.current()
+    if ctx is None:
+        return B.moe_ffn(params, cfg, x)
+    tp = dist.tp_size(ctx)
+    if not ctx.seq_shard:
+        x = dist.copy_to_tp(x, ctx.mesh, ctx.tp_axis)
+    out, aux = B.moe_ffn(params, cfg, x)
+    if not ctx.seq_shard:
+        out = dist.scale_grad(out, 1.0 / tp)
+    return out, dist.scale_grad(aux, 1.0 / tp)
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +277,22 @@ def _positions(cfg: ArchConfig, batch: Batch, Bsz: int, S: int,
     return pos
 
 
-def _embed(cfg: ArchConfig, params: Params, batch: Batch) -> torch.Tensor:
+def _lookup(cfg: ArchConfig, params: Params, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """The tokens' rows of the table. On a mesh the table is cut along d
+    over ``model``: the rank's columns, all-gathered (each rank's gradient
+    its own columns of the replicated one)."""
     # F.embedding, not indexing: on the card its backward is deterministic,
     # an indexed gather's (index_put_ with accumulate) is not
-    x = F.embedding(batch["tokens"].long(), params["embed"])
+    x = F.embedding(tokens.long(), params["embed"])
+    ctx = dist.current()
+    if ctx is not None and x.shape[-1] != cfg.d_model:
+        x = dist.gather_split(x, ctx.mesh, ctx.tp_axis, dim=-1)
+    return x
+
+
+def _embed(cfg: ArchConfig, params: Params, batch: Batch) -> torch.Tensor:
+    x = _lookup(cfg, params, batch["tokens"])
     if cfg.frontend_prefix and "prefix_embeds" in batch:
         pe = batch["prefix_embeds"].to(x.dtype)   # (B, P, d) stub frontend
         x = x.clone()
@@ -211,10 +300,43 @@ def _embed(cfg: ArchConfig, params: Params, batch: Batch) -> torch.Tensor:
     return x
 
 
-def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = B.rmsnorm(params["final_ln"], x, cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ w
+def _head(cfg: ArchConfig, params: Params, x: torch.Tensor,
+          constrain_logits: Callable = Identity, *,
+          whole: bool = False) -> torch.Tensor:
+    """Final norm and the product with the head (``embed.T`` when tied).
+
+    On a mesh the logits come out split along the vocabulary over
+    ``model`` (V/tp columns): ``head`` is cut there; a tied head's d-cut
+    table gives partial products, all-reduced to whole logits and then
+    cut by ``constrain_logits``. A head that ``model`` does not cut gives
+    whole logits. ``whole`` all-gathers split logits (prefill and decode,
+    without grad)."""
+    ctx = dist.current()
+    x = _norm(params["final_ln"], x, cfg)
+    if ctx is None:
+        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return constrain_logits(x @ w)
+    mesh, ax = ctx.mesh, ctx.tp_axis
+    hook = Identity if whole else constrain_logits
+    if cfg.tie_embeddings:
+        w = params["embed"].T                            # (d or d/tp, V)
+        cut = w.shape[0] != cfg.d_model
+    else:
+        w = params["head"]                               # (d, V or V/tp)
+        cut = w.shape[1] != cfg.vocab_size
+    if not cut:                        # replicated head: whole logits
+        if ctx.seq_shard:
+            x = dist.gather_split(x, mesh, ax, dim=1)
+        return hook(x @ w)
+    x = dist.tp_enter(x, ctx)
+    if cfg.tie_embeddings:             # d-cut table: partial products
+        dl, r = w.shape[0], dist.tp_rank(ctx)
+        return hook(dist.reduce_from_tp(x[..., r * dl:(r + 1) * dl] @ w,
+                                        mesh, ax))
+    logits = x @ w                     # (.., V/tp)
+    if whole:
+        logits = dist.all_gather(logits, mesh, ax, dim=-1)
+    return logits
 
 
 def _unstack(stack: Any, n: int) -> List[Any]:
@@ -258,8 +380,15 @@ def _layers(cfg: ArchConfig, params: Params):
 
 
 def _apply_unit(unit, cfg: ArchConfig, x: torch.Tensor,
-                angles: Optional[torch.Tensor], aux: torch.Tensor):
-    """The unit's layers in order; returns (x, aux plus theirs)."""
+                angles: Optional[torch.Tensor], aux: torch.Tensor,
+                ctx: Optional[dist.DistContext] = None):
+    """The unit's layers in order; returns (x, aux plus theirs). ``ctx``:
+    run under that ``dist`` context (a checkpointed unit's recompute runs
+    in backward, on the autograd engine's thread for a card, where the
+    caller's thread-local context is not set)."""
+    if ctx is not None:
+        with dist.use(ctx):
+            return _apply_unit(unit, cfg, x, angles, aux)
     for kind, lp, _, _ in unit:
         x, _, a = apply_block(kind, lp, cfg, x, angles, None, None)
         if a is not None:
@@ -291,40 +420,78 @@ def _angles(cfg: ArchConfig, positions: torch.Tensor):
 
 @torch.no_grad()
 def forward(params: Params, cfg: ArchConfig, batch: Batch, *,
-            want_cache: bool = False, cache_len: int = 0):
+            constrain: Callable = Identity, want_cache: bool = False,
+            cache_len: int = 0):
     """Full-sequence forward without grad (prefill). Returns (hidden,
     aux_loss, cache-or-None).
 
     ``want_cache`` (prefill): also build the decode cache with capacity
     ``cache_len`` (>= S; SWA archs use min(cache_len, window)), each layer's
-    K/V or state written into it as the layer runs."""
-    return _forward(params, cfg, batch, want_cache=want_cache,
-                    cache_len=cache_len)
+    K/V or state written into it as the layer runs. On a mesh the cache is
+    this rank's block of it (``init_cache``)."""
+    return _forward(params, cfg, batch, constrain=constrain,
+                    want_cache=want_cache, cache_len=cache_len)
+
+
+def _stream(cfg: ArchConfig, params: Params, batch: Batch,
+            constrain: Callable) -> torch.Tensor:
+    """The embedded tokens through ``constrain``; on a mesh with
+    ``seq_shard`` the hook must have cut the sequence over ``model``."""
+    x = constrain(_embed(cfg, params, batch))
+    ctx = dist.current()
+    if ctx is not None and ctx.seq_shard:
+        S, tp = batch["tokens"].shape[1], dist.tp_size(ctx)
+        if x.shape[1] * tp != S:
+            raise ValueError(f"seq_shard: the residual stream holds "
+                             f"{x.shape[1]} of {S} positions on a model axis "
+                             f"of {tp}; pass launch/sharding.make_constrain "
+                             "and a sequence the axis divides")
+    return x
+
+
+def _ring_block(cfg: ArchConfig, ring: torch.Tensor, t: torch.Tensor,
+                src: Optional[torch.Tensor]):
+    """A layer's prefill K/V ``t`` (B, S, heads, hd) as the slots of the
+    rank's ring block ``ring`` (B, W_r, heads, hd): the whole window, or on
+    a ring cut along its window the rank's slots."""
+    S, Wr = t.shape[1], ring.shape[1]
+    ctx = dist.current()
+    lo = 0
+    if ctx is not None and cfg.num_kv_heads % dist.tp_size(ctx):
+        lo = dist.tp_rank(ctx) * Wr     # the ring cut along its window
+    if src is None:
+        n = max(0, min(S - lo, Wr))
+        ring[:, :n] = t[:, lo:lo + n]
+    else:
+        ring.copy_(t.index_select(1, src[lo:lo + Wr]))
 
 
 def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
-             want_cache: bool = False, cache_len: int = 0,
-             remat: bool = False):
+             constrain: Callable = Identity, want_cache: bool = False,
+             cache_len: int = 0, remat: bool = False):
     """``forward`` in the caller's grad mode. Training (no cache) runs each
     unit of ``_units`` under ``torch.utils.checkpoint`` when ``remat``, as
     the reference's ``jax.checkpoint`` wraps its scanned body: the unit's
     activations are recomputed in backward, its kernels launched again.
     Each layer's aux loss is added in layer order."""
+    _mesh_context(cfg)
     Bsz, S = batch["tokens"].shape
-    x = _embed(cfg, params, batch)
+    x = _stream(cfg, params, batch, constrain)
     angles = _angles(cfg, _positions(cfg, batch, Bsz, S))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if not want_cache:
         for unit in _units(cfg, params):
             if remat:
                 x, aux_total = checkpoint(_apply_unit, unit, cfg, x, angles,
-                                          aux_total, use_reentrant=False)
+                                          aux_total, dist.current(),
+                                          use_reentrant=False)
             else:
                 x, aux_total = _apply_unit(unit, cfg, x, angles, aux_total)
         return x, aux_total, None
     cache = init_cache(cfg, Bsz, cache_len, device=x.device)
     cache["pos"].fill_(S)
-    src = _ring_src(S, _kv_window(cfg, cache_len), x.device)
+    W = _kv_window(cfg, cache_len)
+    src = _ring_src(S, W, x.device)
     for kind, lp, key, i in _layers(cfg, params):
         x, c, a = apply_block(kind, lp, cfg, x, angles, None, None)
         if a is not None:
@@ -332,10 +499,7 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
         if kind in ATTN_KINDS:
             rings = cache[key]
             for name, t in zip(("k", "v"), c):
-                if src is None:
-                    rings[name][i, :, :S] = t
-                else:
-                    rings[name][i] = t.index_select(1, src)
+                _ring_block(cfg, rings[name][i], t, src)
         else:
             for dst, t in zip(cache[key], c):
                 dst[i].copy_(t)
@@ -347,13 +511,20 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
-                cache: Dict[str, Any]):
+                cache: Dict[str, Any], *, constrain: Callable = Identity):
     """token: (B, 1) int32. Returns (logits (B, V), new_cache); the rings
     and states of ``cache`` are updated in place and shared by
-    ``new_cache``."""
+    ``new_cache``. On a mesh the rank's rows of the batch and its block of
+    the cache, and the logits whole (gathered over ``model``); the context
+    must not split the sequence (one position)."""
+    ctx = _mesh_context(cfg)
+    if ctx is not None and ctx.seq_shard:
+        raise ValueError("decode_step: one position cannot be split over "
+                         "the model axis; decode under a context without "
+                         "seq_shard")
     Bsz = token.shape[0]
     pos = cache["pos"]
-    x = params["embed"][token.long()]
+    x = constrain(_lookup(cfg, params, token))
     positions = pos.reshape(1, 1).expand(Bsz, 1)
     if cfg.mrope:
         positions = positions[None].expand(3, Bsz, 1)
@@ -368,7 +539,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
             x, c, _ = apply_block(kind, lp, cfg, x, angles, state, pos)
             for dst, t in zip(state, c):
                 dst.copy_(t)
-    logits = _head(cfg, params, x)[:, 0]                  # (B, V)
+    logits = _head(cfg, params, x, whole=True)[:, 0]      # (B, V)
     return logits, {**cache, "pos": pos + 1}
 
 
@@ -378,10 +549,24 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Empty decode cache at position 0: zero (L, B, W, Hkv, hd) rings and
-    zero stacked layer states."""
+    zero stacked layer states. On a mesh ``batch`` is the rank's rows and
+    each ring the rank's block (``launch/sharding.cache_pspec``): its KV
+    heads, or where ``model`` does not divide them its slots of the
+    window."""
+    from repro_torch.launch.sharding import kv_split
     mode = wiring_mode(cfg)
+    ctx = _mesh_context(cfg)
     dev = resolve_device(device)
-    shape = (_kv_window(cfg, cache_len), cfg.num_kv_heads, cfg.head_dim)
+    W, Hkv = _kv_window(cfg, cache_len), cfg.num_kv_heads
+    if ctx is not None and dist.tp_size(ctx) > 1:
+        tp = dist.tp_size(ctx)
+        where = kv_split(ctx.mesh, Hkv, W)
+        if where is None:
+            raise ValueError(f"init_cache: the model axis ({tp}) divides "
+                             f"neither the {Hkv} KV heads nor the window "
+                             f"{W}; a ring replicated over it is not ported")
+        W, Hkv = (W, Hkv // tp) if where == "heads" else (W // tp, Hkv)
+    shape = (W, Hkv, cfg.head_dim)
 
     def rings(n):
         return {name: torch.zeros((n, batch, *shape), dtype=cfg.dtype,
@@ -415,25 +600,69 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
-def lm_loss(params: Params, cfg: ArchConfig, batch: Batch):
+def _vocab_split_nll(logits: torch.Tensor, tgt: torch.Tensor, ctx):
+    """(log Z, gold logit) from logits whose vocabulary is split over
+    ``model`` (this rank's V/tp columns): the max all-reduced (no
+    gradient), the exp-sums and the gold logit (from the rank that holds
+    the target's column) summed over ``model``."""
+    mesh, ax = ctx.mesh, ctx.tp_axis
+    Vl = logits.shape[-1]
+    top = dist.all_reduce_max(logits.amax(dim=-1), mesh, ax)
+    sumexp = dist.reduce_from_tp(
+        torch.exp(logits - top[..., None]).sum(dim=-1), mesh, ax)
+    logz = top + torch.log(sumexp)
+    local = tgt - dist.tp_rank(ctx) * Vl
+    held = (local >= 0) & (local < Vl)
+    g = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = dist.reduce_from_tp(torch.where(held, g, g.new_zeros(())),
+                               mesh, ax)
+    return logz, gold
+
+
+def _batch_sum(t: torch.Tensor, ctx) -> torch.Tensor:
+    """A detached sum over the batch axes."""
+    t = t.detach()
+    for a in ctx.batch_axes:
+        t = dist.all_reduce(t, ctx.mesh, a)
+    return t
+
+
+def lm_loss(params: Params, cfg: ArchConfig, batch: Batch, *,
+            constrain: Callable = Identity,
+            constrain_logits: Callable = Identity):
     """Next-token cross entropy plus z-loss and the MoE aux loss (0 without
     ``moe`` layers) in the caller's grad mode, with ``cfg.remat``'s
     recomputation. Targets < 0 are masked; the logits go to logsumexp in
     f32. Returns (loss, {ce, z_loss, aux_loss, tokens}), the metrics
-    detached."""
-    x, aux, _ = _forward(params, cfg, batch,
+    detached.
+
+    On a mesh the returned loss is this ``data`` rank's share (its tokens'
+    terms over the global token count, the aux loss over the number of
+    batch ranks), the same on every rank of its ``model`` group, and the
+    metrics are the global values."""
+    x, aux, _ = _forward(params, cfg, batch, constrain=constrain,
                          remat=cfg.remat in ("block", "full"))
-    logits = _head(cfg, params, x).float()                # (B, S, V)
+    logits = _head(cfg, params, x, constrain_logits).float()  # (B, S, V*)
     targets = batch["targets"]
     mask = (targets >= 0).float()
     tgt = targets.clamp(min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    ctx = dist.current()
+    if ctx is not None and logits.shape[-1] != cfg.vocab_size:
+        logz, gold = _vocab_split_nll(logits, tgt, ctx)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
     nll = (logz - gold) * mask
     tokens = torch.sum(mask)
+    if ctx is not None:
+        tokens = _batch_sum(tokens, ctx)
+        aux = aux / dist.batch_size(ctx)
     denom = torch.clamp(tokens, min=1.0)
     ce = torch.sum(nll) / denom
     zl = cfg.z_loss * torch.sum(torch.square(logz) * mask) / denom
     loss = ce + zl + aux
-    return loss, {"ce": ce.detach(), "z_loss": zl.detach(),
-                  "aux_loss": aux.detach(), "tokens": tokens}
+    if ctx is None:
+        return loss, {"ce": ce.detach(), "z_loss": zl.detach(),
+                      "aux_loss": aux.detach(), "tokens": tokens}
+    return loss, {"ce": _batch_sum(ce, ctx), "z_loss": _batch_sum(zl, ctx),
+                  "aux_loss": _batch_sum(aux, ctx), "tokens": tokens}

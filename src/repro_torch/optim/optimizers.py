@@ -16,6 +16,14 @@ copied even where that dtype is f32), so the old params stay intact for
 the step's dirty-block telemetry. Adafactor's factored moments are small
 and are replaced each step. A caller that keeps a state must not read it
 again after handing it to ``apply_updates``.
+
+On a mesh (``apply_updates(..., mesh=, specs=)``: the params, grads and
+state are a rank's slices, ``specs`` their leaves' specs) AdamW is
+element-wise and runs on the slices as they are; the global norm sums
+every rank's squares, a replicated slice's share divided by its replica
+count so that each element counts once; Adafactor's row and column means,
+the mean of ``vr`` and the update's rms span the ranks a dimension is cut
+over (sums all-reduced there, divided by the whole dimension).
 """
 from __future__ import annotations
 
@@ -48,11 +56,30 @@ def make_schedule(cfg: ArchConfig, warmup: int = 200,
     return schedule
 
 
-def global_norm(grads) -> torch.Tensor:
+def _sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` summed over the ranks of each of ``axes`` (no gradient)."""
+    import torch.distributed as tdist
+    for a in axes:
+        if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+            t = t.clone()
+            tdist.all_reduce(t, group=mesh.get_group(a))
+    return t
+
+
+def global_norm(grads, *, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, each leaf's square summed
-    with f32 accumulation (no f32 copy of a bf16 leaf)."""
+    with f32 accumulation (no f32 copy of a bf16 leaf). With ``mesh`` the
+    leaves are slices with ``specs``: each slice's squares over its replica
+    count, summed over every rank."""
     sums = [torch.sum(torch.square(g), dtype=F32) for g in tree.leaves(grads)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    if mesh is None:
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    from repro_torch.launch.sharding import replicas
+    share = torch.tensor([1.0 / replicas(mesh, s) for s in specs],
+                         dtype=F32, device=sums[0].device)
+    total = _sum_over(torch.sum(torch.stack(sums) * share), mesh,
+                      mesh.mesh_dim_names)
+    return torch.sqrt(total)
 
 
 # ---------------------------------------------------------------------------
@@ -101,20 +128,45 @@ def _adafactor_init(params) -> OptState:
     return {"v": tree.map(factored, params)}
 
 
+def _mean(t: torch.Tensor, dim, cut, keepdim: bool = False) -> torch.Tensor:
+    """``torch.mean(t, dim, dtype=f32)`` where ``cut`` is None; else ``cut``
+    = (mesh, axes) the ranks ``dim`` is split over: the sums all-reduced
+    there, over the whole dimension's count."""
+    if cut is None or not cut[1]:
+        return torch.mean(t, dim=dim, keepdim=keepdim, dtype=F32)
+    mesh, axes = cut
+    n = t.numel() if dim is None else t.shape[dim]
+    for a in axes:
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    s = (torch.sum(t, dtype=F32) if dim is None
+         else torch.sum(t, dim=dim, keepdim=keepdim, dtype=F32))
+    return _sum_over(s, mesh, axes) / n
+
+
 def _adafactor_leaf(cfg: ArchConfig, g, v, p, lr, scale, decay=0.99,
-                    eps=1e-30, clip_thresh=1.0):
+                    eps=1e-30, clip_thresh=1.0, *, mesh=None, spec=None):
     """One leaf's update; elementwise math in ``g``'s dtype, reductions in
-    f32, the result promoted as the reference's jnp arithmetic promotes."""
+    f32, the result promoted as the reference's jnp arithmetic promotes.
+    With ``mesh`` the leaf is a slice cut by ``spec``."""
+    from repro_torch.launch.sharding import spec_axes
     dt = g.dtype
+
+    def cut(*dims):                    # the mesh axes of the given dims
+        if mesh is None:
+            return None
+        full = tuple(spec) + (None,) * (g.dim() - len(spec))
+        sel = full if not dims else tuple(full[d] for d in dims)
+        return mesh, spec_axes(sel)
+
     if g.dim() >= 2:
         sq = torch.square(g)
-        g2m_r = torch.mean(sq, dim=-1, dtype=F32)
-        g2m_c = torch.mean(sq, dim=-2, dtype=F32)
+        g2m_r = _mean(sq, -1, cut(-1))
+        g2m_c = _mean(sq, -2, cut(-2))
         del sq
         s2 = scale ** 2
         vr = decay * v["vr"] + (1 - decay) * (g2m_r * s2 + eps)
         vc = decay * v["vc"] + (1 - decay) * (g2m_c * s2 + eps)
-        r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+        r = vr / torch.clamp(_mean(vr, -1, cut(-2), keepdim=True), min=eps)
         denom = (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :]
                  + 1e-8)
         step = (g * scale.to(dt)) / denom.to(dt)
@@ -124,7 +176,7 @@ def _adafactor_leaf(cfg: ArchConfig, g, v, p, lr, scale, decay=0.99,
         nv = decay * v["v"] + (1 - decay) * (gf * gf + eps)
         step = (gf / (torch.sqrt(nv) + 1e-8)).to(dt)
         new_v = {"v": nv}
-    rms = torch.sqrt(torch.mean(torch.square(step), dtype=F32) + 1e-30)
+    rms = torch.sqrt(_mean(torch.square(step), None, cut()) + 1e-30)
     limit = torch.clamp(rms / clip_thresh, min=1.0).to(dt)
     ct = torch.promote_types(dt, p.dtype)
     wd = torch.tensor(cfg.weight_decay, dtype=dt, device=p.device).to(ct)
@@ -134,10 +186,13 @@ def _adafactor_leaf(cfg: ArchConfig, g, v, p, lr, scale, decay=0.99,
 
 
 def _adafactor_update(cfg: ArchConfig, params, grads, state: OptState, lr,
-                      scale) -> Tuple[Any, OptState]:
+                      scale, mesh=None, specs=None) -> Tuple[Any, OptState]:
     count = state["count"] + 1
-    pairs = _zip_map(lambda g, v, p: _adafactor_leaf(cfg, g, v, p, lr,
-                                                     scale),
+    by_leaf = ({} if specs is None
+               else dict(zip(map(id, tree.leaves(params)), specs)))
+    pairs = _zip_map(lambda g, v, p: _adafactor_leaf(
+                         cfg, g, v, p, lr, scale, mesh=mesh,
+                         spec=by_leaf.get(id(p))),
                      grads, state["v"], params)
     new_params = _zip_map(lambda t: t[0], pairs, stop=_is_pair)
     new_v = _zip_map(lambda t: t[1], pairs, stop=_is_pair)
@@ -178,16 +233,19 @@ def init_opt_state(cfg: ArchConfig, params) -> OptState:
 
 
 def apply_updates(cfg: ArchConfig, params, grads, state: OptState,
-                  lr) -> Tuple[Any, OptState, torch.Tensor]:
+                  lr, *, mesh=None, specs=None
+                  ) -> Tuple[Any, OptState, torch.Tensor]:
     """Clip-by-global-norm then the optimizer's update. Returns (new params,
     new state, grad norm). AdamW's moments and master in ``state`` are
-    updated in place and handed back in the new state."""
-    gnorm = global_norm(grads)
+    updated in place and handed back in the new state. ``mesh`` and
+    ``specs`` (the param leaves' specs, ``tree.leaves`` order): the trees
+    are a rank's slices."""
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-6),
                         max=1.0)
     if cfg.optimizer == "adafactor":
         params, state = _adafactor_update(cfg, params, grads, state, lr,
-                                          scale)
+                                          scale, mesh, specs)
     else:
         params, state = _adamw_update(cfg, params, grads, state, lr, scale)
     return params, state, gnorm

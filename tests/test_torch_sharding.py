@@ -84,7 +84,7 @@ def test_rules_take_key_objects_and_device_mesh_shapes():
 def test_param_shardings_cut_a_rank_slice(monkeypatch):
     """``param_shardings`` on a (2, 2) mesh: each leaf's slice at this
     rank's coordinates, a tensor of its own; a leaf no rule names whole.
-    (``blocks.moe_shard_params`` keeps the shared expert whole.)"""
+    (``blocks.moe_shard_params`` cuts the shared expert so too.)"""
     from repro_torch.launch import mesh as meshlib
 
     class Mesh:

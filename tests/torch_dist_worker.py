@@ -14,12 +14,17 @@ Suites:
                mesh, ``SurveillanceEngine(shards=k)``), sharded and not;
   ``moe``   -- the expert-parallel MoE layer on a (2, 2) mesh against the
                port's local path, and at the config's capacity for the
-               comparison with the JAX package.
+               comparison with the JAX package;
+  ``tp``    -- the whole model (five wirings) on (2, 2) and (1, 4) meshes:
+               a train step's gradients and state, a prefill and decode
+               steps, gathered back, beside the port's local path (rank
+               0); then ``elastic.rescale`` from (2, 2) to (1, 4).
 
 Run by hand: ``python tests/torch_dist_worker.py SUITE RANK WORLD WORKDIR``.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 import subprocess
@@ -300,6 +305,263 @@ def _moe_grads(torch, tdist, blocks, dist, mesh, ctx, cfg, full, x, name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# suite "tp"
+# ---------------------------------------------------------------------------
+#: the five wirings the model on a mesh runs: dense, qk_norm, SWA, moe,
+#: prefix_dense with seq_shard and Adafactor
+TP_ARCHS = ("internlm2_1p8b", "qwen3_8b", "h2o_danube3_4b",
+            "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b")
+TP_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+#: train batch, sequence (= prompt), decode cache and decode steps; the
+#: cache's window (20, or danube's 8) divides 4, so on (1, 4), where the 2
+#: KV heads do not, the KV ring is cut along its window
+TP_BATCH, TP_SEQ, TP_CACHE, TP_DECODE = 4, 16, 20, 2
+#: the elastic case: its arch, the pre-copy's block and source steps
+TP_ELASTIC = ("internlm2_1p8b", 256)
+
+
+def tp_config(arch: str, pkg):
+    """The f32 smoke config of ``arch`` in ``pkg`` (either package's
+    ``get_config``), with what each case exercises: block remat
+    (internlm2), a window of 8 (danube: the ring wraps in prefill), and
+    kimi-k2's own ``seq_shard`` and full remat, which its smoke config
+    turns off."""
+    cfg = pkg(arch).smoke().replace(param_dtype="float32")
+    return cfg.replace(**{"internlm2_1p8b": dict(remat="block"),
+                          "h2o_danube3_4b": dict(sliding_window=8),
+                          "kimi_k2_1t_a32b": dict(seq_shard=True,
+                                                  remat="full"),
+                          }.get(arch, {}))
+
+
+def _subtree(flat, prefix):
+    tree: dict = {}
+    for key in flat.files:
+        if key.startswith(prefix + "/"):
+            node, parts = tree, key[len(prefix) + 1:].split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = flat[key]
+    return tree
+
+
+def flat_tree(tree, prefix, out) -> dict:
+    """A nested dict (or tuple) of tensors/arrays as ``prefix/key/...``
+    numpy entries of ``out``."""
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree))
+    for k, v in items:
+        key = f"{prefix}/{k}"
+        if isinstance(v, (dict, tuple, list)):
+            flat_tree(v, key, out)
+        else:
+            out[key] = (v.detach().float().numpy().copy()
+                        if hasattr(v, "detach") else np.asarray(v))
+    return out
+
+
+@contextlib.contextmanager
+def _backward_on_another_thread(torch):
+    """``torch.autograd.grad`` run on a thread of its own, as the autograd
+    engine runs a card's backward (on its device thread, where the
+    caller's thread-local ``dist`` context is not set): a checkpointed
+    layer's recompute must still see the mesh."""
+    import threading
+    grad = torch.autograd.grad
+
+    def on_thread(*args, **kw):
+        box = {}
+
+        def run():
+            try:
+                box["out"] = grad(*args, **kw)
+            except BaseException as e:          # re-raised by the caller
+                box["err"] = e
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    torch.autograd.grad = on_thread
+    try:
+        yield
+    finally:
+        torch.autograd.grad = grad
+
+
+def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None):
+    """One train step's gradient, loss, grad norm and new state, a prefill
+    and the decode steps, on ``mesh`` (this rank's slices, gathered back)
+    or, without one, on the port's local path. Returns flat numpy
+    entries."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import dist, lm
+    from repro_torch.train import (make_decode_step, make_grad_fn,
+                                   make_prefill_step, make_train_step)
+    out: dict = {}
+    hooks, ctx = {}, None
+    gather = cut = (lambda spec_fn, t: t)
+    full_cache = lm.init_cache(cfg, TP_BATCH, TP_CACHE, device="cpu")
+    if mesh is not None:
+        hooks = dict(constrain=sharding.make_constrain(mesh, cfg),
+                     constrain_logits=sharding.make_constrain_logits(mesh))
+        ctx = dist.model_context(mesh, cfg.seq_shard)
+
+        def gather(specs, t):
+            return sharding.gather_tree(mesh, specs, t)
+
+        state_specs = sharding.state_specs(mesh, state)
+        param_specs = sharding.param_specs(mesh, state["params"])
+        cache_specs = sharding.cache_specs(mesh, cfg, full_cache)
+        rows = sharding.batch_pspec(mesh, ("logits",), full_cache["pos"]
+                                    .new_zeros(TP_BATCH, 1))
+        state = sharding.state_shardings(mesh, state)
+        batch = sharding.batch_shardings(mesh, batch)
+        prompt = sharding.batch_shardings(mesh, prompt)
+        tokens = [sharding.batch_shardings(mesh, {"tokens": t})["tokens"]
+                  for t in tokens]
+    else:
+        state_specs = param_specs = cache_specs = rows = None
+    with dist.use(ctx):
+        loss, metrics, grads = make_grad_fn(cfg, **hooks)(state["params"],
+                                                           batch)
+        out["loss"] = loss.numpy()
+        flat_tree(gather(param_specs, grads), "grads", out)
+        new, m = make_train_step(cfg, **hooks)(state, batch)
+        out["step_loss"], out["grad_norm"] = m["loss"].numpy(), \
+            m["grad_norm"].numpy()
+        flat_tree(gather(state_specs, new), "state", out)
+        logits, cache = make_prefill_step(
+            cfg, TP_CACHE, constrain=hooks.get("constrain", lm.Identity))(
+                state["params"], prompt)
+    if mesh is not None:
+        logits = sharding.gather_leaf(mesh, rows, logits)
+    out["prefill_logits"] = logits.numpy().copy()
+    flat_tree(gather(cache_specs, cache), "prefill_cache", out)
+    dec_ctx = None if ctx is None else dist.model_context(mesh, False)
+    with dist.use(dec_ctx):
+        decode = make_decode_step(cfg, constrain=hooks.get("constrain",
+                                                           lm.Identity))
+        for t, tok in enumerate(tokens):
+            _, logits, cache = decode(state["params"], tok, cache)
+            if mesh is not None:
+                logits = sharding.gather_leaf(mesh, rows, logits)
+            out[f"decode{t}_logits"] = logits.numpy().copy()
+    flat_tree(gather(cache_specs, cache), "decode_cache", out)
+    return out
+
+
+def _tp_inputs(torch, inp, arch):
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert
+    cfg = tp_config(arch, get_config)
+    params = convert.params_from_numpy(cfg, _subtree(inp, f"{arch}/params"),
+                                       device="cpu")
+    state = {"params": params, "opt": optim.init_opt_state(cfg, params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    t = {k: torch.as_tensor(inp[f"{arch}/{k}"])
+         for k in ("tokens", "targets", "prompt", "decode")}
+    return (cfg, state, {"tokens": t["tokens"], "targets": t["targets"]},
+            {"tokens": t["prompt"]}, list(t["decode"]))
+
+
+def _clone_state(torch, state):
+    from repro_torch import tree
+    return tree.map(lambda t: t.clone(), state)
+
+
+def _tp_elastic(torch, inp, rank) -> dict:
+    """``elastic.rescale`` of the (2, 2) state onto (1, 4) while the source
+    keeps stepping; the destination held bit for bit to the slices cut from
+    the gathered source at the stop, then one step on (1, 4)."""
+    from repro_torch.core import precopy
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models import dist
+    from repro_torch.runtime import elastic
+    from repro_torch.train import make_grad_fn, make_train_step
+    arch, block = TP_ELASTIC
+    cfg, state, batch, _, _ = _tp_inputs(torch, inp, arch)
+    src = meshlib.make_host_mesh(2, 2, device="cpu")
+    dst = meshlib.make_host_mesh(1, 4, device="cpu")
+    s_specs = sharding.state_specs(src, state)
+    d_specs = sharding.state_specs(dst, state)
+
+    def run_on(mesh):
+        hooks = dict(constrain=sharding.make_constrain(mesh, cfg),
+                     constrain_logits=sharding.make_constrain_logits(mesh))
+        return (dist.model_context(mesh, cfg.seq_shard),
+                sharding.batch_shardings(mesh, batch), hooks)
+
+    ctx, b_src, hooks = run_on(src)
+    step = make_train_step(cfg, **hooks)
+    box = {"state": sharding.state_shardings(src, state)}
+
+    def step_once(st):
+        with dist.use(ctx):
+            box["state"], _ = step(st, b_src)
+        return box["state"]
+
+    got, rep = elastic.rescale(cfg, box["state"], step_once, dst, src=src,
+                               pcfg=precopy.PrecopyConfig(block_elems=block))
+    want = sharding.walk(
+        lambda p, leaf, a, b: sharding.local_slice(
+            dst, b, sharding.gather_leaf(src, a, leaf)),
+        box["state"], (), s_specs, d_specs)
+    from repro_torch import tree
+    equal = all(torch.equal(a, b) for a, b in zip(tree.leaves(got),
+                                                  tree.leaves(want)))
+    with dist.use(ctx):
+        src_loss = make_grad_fn(cfg, **hooks)(box["state"]["params"],
+                                              b_src)[0]
+    d_ctx, b_dst, d_hooks = run_on(dst)
+    with dist.use(d_ctx):
+        dst_loss = make_grad_fn(cfg, **d_hooks)(got["params"], b_dst)[0]
+        _, m = make_train_step(cfg, **d_hooks)(got, b_dst)
+    o = rep.precopy.outcome
+    return {"elastic/equal": np.asarray(equal),
+            "elastic/rounds": np.asarray(o.rounds),
+            "elastic/stop_reason": np.asarray(o.stop_reason),
+            "elastic/per_round": np.asarray(rep.precopy.per_round_dirty_bytes),
+            "elastic/devices": np.asarray([rep.src_devices,
+                                           rep.dst_devices]),
+            "elastic/src_loss": src_loss.numpy(),
+            "elastic/dst_loss": dst_loss.numpy(),
+            "elastic/dst_step_loss": m["loss"].numpy(),
+            "elastic/step": np.asarray(int(got["step"]))}
+
+
+def _tp_suite(rank: int, world: int, inp) -> dict:
+    import torch
+    with _backward_on_another_thread(torch):
+        return _tp_cases(torch, rank, inp)
+
+
+def _tp_cases(torch, rank: int, inp) -> dict:
+    from repro_torch.launch import mesh as meshlib
+    out: dict = {}
+    for name, shape in TP_MESHES.items():
+        mesh = meshlib.make_host_mesh(*shape, device="cpu")
+        for arch in TP_ARCHS:
+            cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp, arch)
+            got = _tp_run(torch, cfg, state, batch, prompt, tokens,
+                          mesh=mesh)
+            if rank == 0:
+                out.update({f"{name}/{arch}/{k}": v for k, v in got.items()})
+    if rank == 0:
+        for arch in TP_ARCHS:
+            cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp, arch)
+            got = _tp_run(torch, cfg, state, batch, prompt, tokens)
+            out.update({f"local/{arch}/{k}": v for k, v in got.items()})
+    out.update(_tp_elastic(torch, inp, rank))
+    return out
+
+
 def main(argv) -> int:
     suite, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), \
         pathlib.Path(argv[3])
@@ -311,7 +573,8 @@ def main(argv) -> int:
                              rank=rank, world_size=world)
     try:
         inp = np.load(workdir / "inputs.npz")
-        out = {"shard": _shard_suite, "moe": _moe_suite}[suite](
+        out = {"shard": _shard_suite, "moe": _moe_suite,
+               "tp": _tp_suite}[suite](
             rank, world, inp)
         tdist.barrier()
     finally:
