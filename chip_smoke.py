@@ -8,7 +8,8 @@ SSM-hybrid), serving of an RWKV model, of a full-width qwen3-8b and of
 the MoE models (qwen3-moe-30b-a3b at full width and depth, also through
 the expert-parallel path, kimi-k2's prefix-dense wiring at full width),
 training of a full-width internlm2-1.8b and the live pre-copy of its
-training state, and holds every hand-written kernel against its plain
+training state, the model on a (data, model) mesh of ranks (dense, SSM
+and hybrid), and holds every hand-written kernel against its plain
 PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
@@ -196,14 +197,34 @@ PyTorch version:
                bit-equal to the gathered source's at the stop, the same
                rounds on every rank, and a step on (1, 4). The parent holds
                B5 at every per-rank shape the ranks launched it at.
+ 12. ssm-tp  — after phase 11: the SSM and hybrid wirings on the mesh.
+               The parent first runs the local first steps on the card
+               (rwkv6 at full depth, zamba2 12 layers deep) and frees
+               them; then four gloo ranks on (2, 2) in bf16 train rwkv6
+               at full width and depth (a warm-up step whose loss is
+               held to the local one, 2 counted steps with 48 B4
+               launches each, B3 on the rank's slices, the second with
+               every collective timed), prefill and decode 4 greedy
+               steps of rwkv6 over 4 x 4,096 (its tokens counted against
+               the local path's; ROADMAP C-11), of rwkv6 in f32 over 4 x
+               1,024 and of zamba2 over 4 x 4,096 (45 B4 and 9 B5
+               launches a rank), those tokens held to the local path's
+               where its top-2 margin exceeds TP_GREEDY_MARGIN, train
+               zamba2 12 layers deep (one step, loss and grad norm held),
+               and take
+               one f32 step of rwkv6 (2 layers) and of a zamba2 group,
+               each held to the local step within its SSM_TP_F32 limit.
+               The parent holds B4 and B5 at every per-rank shape the
+               ranks launched them at.
 
 Every phase raises on failure. The kernels' launch counters are set to 0
 before each path (phases 3, 4 and each of its controller and scenario
 runs, 5's prefill and migration, 6's two prefills and its migration, 7's
 prefill, 8's counted steps, its migration, its card-against-CPU steps,
 its trainers and its incremental checkpoints, 9's two counted prefills,
-10's sharded ticks in each rank and its one-rank prefill, 11's mesh
-steps, prefill, decode and rescale in each rank) and read after
+10's sharded ticks in each rank and its one-rank prefill, 11's and 12's
+mesh steps, prefills, decode steps and 11's rescale in each rank) and
+read after
 it: each kernel of the path must have run in it. The last lines are the
 card (``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
 "device": ...}``.
@@ -3708,28 +3729,75 @@ def _tp_setup(cfg, mesh):
         constrain_logits=sharding.make_constrain_logits(mesh))
 
 
+@contextlib.contextmanager
+def _capturing_scan(ops_mod, seen):
+    """Record every B4 launch's (B, H, S, Dk, Dv, dtype, kind, initial
+    state) into ``seen`` while the block runs, ``kind`` "mamba" where q
+    and k are shared by every head (stride 0 over H), else "rwkv" with a
+    bonus or "plain"; the launch count moves as in
+    ``_capturing_attention`` (``ops.launch_counts`` reads it after the
+    block)."""
+    kernel = ops_mod._ss.ssm_scan
+
+    def rec(q, k, v, log_decay, bonus=None, initial_state=None):
+        kind = ("mamba" if q.stride(1) == 0 and k.stride(1) == 0
+                else "rwkv" if bonus is not None else "plain")
+        seen.add((*q.shape, v.shape[-1], str(q.dtype), kind,
+                  initial_state is not None))
+        return kernel(q, k, v, log_decay, bonus, initial_state)
+
+    rec.launches = kernel.launches
+    ops_mod._ss.ssm_scan = rec
+    try:
+        yield
+    finally:
+        ops_mod._ss.ssm_scan = kernel
+        kernel.launches = rec.launches
+
+
 class _Counted:
     """Kernel launches summed over the blocks run under it (the mesh's
     own work; the local references a rank computes are left out), and
-    every B5 launch's shape."""
+    every B5 and B4 launch's shape."""
 
     def __init__(self, ops_mod):
         self.ops, self.total, self.seen = ops_mod, {}, set()
+        self.scans = set()
 
     @contextlib.contextmanager
     def __call__(self):
         self.ops.reset_launch_counts()
-        with _capturing_attention(self.ops, self.seen):
+        with _capturing_attention(self.ops, self.seen), \
+                _capturing_scan(self.ops, self.scans):
             yield
         for k, v in self.ops.launch_counts().items():
             self.total[k] = self.total.get(k, 0) + v
 
 
-def _tp_train(torch, ops_mod, counted, first, rank):
-    """The full-width, full-depth internlm2 trainer of phase 8 on a TP_MESH
-    mesh: a warm-up step held to phase 8's first step (``first``), then
-    TP_STEPS counted steps (B5 twice a layer under block remat, B3 on the
-    rank's slices), the last with every collective timed."""
+def _kernel_layers(cfg) -> dict:
+    """The layers of ``cfg`` that launch B5 (attention: the shared block
+    once a group) and B4 (Mamba2, RWKV6): one launch each a forward."""
+    from repro_torch.models import lm
+    kinds = [kind for kind, *_ in lm._layers(
+        cfg, lm.init_params(cfg, device="meta"))]
+    return {"flash_attention": sum(k in lm.ATTN_KINDS for k in kinds),
+            "ssm_scan": sum(k in ("mamba", "rwkv") for k in kinds)}
+
+
+def _check_launches(n: dict, want: dict, what: str) -> None:
+    bad = {k: (n[k], w) for k, w in want.items() if n[k] != w}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, want) {bad}")
+
+
+def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
+              layers=None, steps=TP_STEPS, held=tuple(TP_TRAIN_RTOL)):
+    """The full-width trainer of phase 8 (``arch``, full depth or
+    ``layers`` deep) on a TP_MESH mesh: a warm-up step whose ``held``
+    metrics are held to the local first step (``first``; the others are
+    reported beside it), then ``steps`` counted steps, the last with
+    every collective timed. Each step launches B5 and B4 twice a layer
+    that runs them (block remat) and B3 on the rank's slices."""
     import torch.distributed as tdist
     from repro_torch import tree
     from repro_torch.configs import get_config
@@ -3739,12 +3807,16 @@ def _tp_train(torch, ops_mod, counted, first, rank):
     from repro_torch.models import dist
     from repro_torch.train import make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
     ctx, hooks = _tp_setup(cfg, mesh)
+    want = {k: 2 * n for k, n in _kernel_layers(cfg).items()}
     t0 = time.perf_counter()
     state = _tp_state(torch, cfg, mesh)
     t_init = time.perf_counter() - t0
+    want["dirty_blocks"] = _scan_launches(len(tree.leaves(state["params"])))
     corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
     step = make_train_step(cfg, telemetry=True, **hooks)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3758,17 +3830,20 @@ def _tp_train(torch, ops_mod, counted, first, rank):
         t0 = time.perf_counter()
         with counted():
             state, m = step(state, batch(0))
+        _check_launches(ops_mod.launch_counts(), want,
+                        f"rank {rank} {arch} warm-up step")
         torch.cuda.synchronize()
         out["warmup_s"] = time.perf_counter() - t0
         got = {k: float(m[k]) for k in ("loss", "grad_norm")}
         out["first"] = got
-        for k, tol in TP_TRAIN_RTOL.items():
+        for k in held:
+            tol = TP_TRAIN_RTOL[k]
             if not abs(got[k] - first[k]) <= tol * abs(first[k]):
                 raise AssertionError(f"rank {rank}: the mesh's first step "
                                      f"{k} {got[k]} against the local "
                                      f"step's {first[k]} (phase 8)")
         rows, coll = [], {}
-        for n_step in range(TP_STEPS):
+        for n_step in range(steps):
             i = int(state["step"])
             b = batch(i)
             torch.cuda.synchronize()
@@ -3780,7 +3855,7 @@ def _tp_train(torch, ops_mod, counted, first, rank):
             # the last step times every collective (gloo moves a CUDA
             # tensor through the host, which syncs the card anyway)
             timer = _collective_ms(torch, tdist, coll) \
-                if n_step == TP_STEPS - 1 else contextlib.nullcontext()
+                if n_step == steps - 1 else contextlib.nullcontext()
             with counted(), timer:
                 a.record()
                 state, m = step(state, b)
@@ -3795,44 +3870,46 @@ def _tp_train(torch, ops_mod, counted, first, rank):
                    "grad_norm": float(m["grad_norm"]),
                    "dirty_fraction": float(m["dirty_fraction"]),
                    "b5_launches": n["flash_attention"],
+                   "b4_launches": n["ssm_scan"],
                    "b3_launches": n["dirty_blocks"],
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             rows.append(row)
-            want_b5 = 2 * cfg.num_layers
-            want_b3 = _scan_launches(len(tree.leaves(state["params"])))
-            if n["flash_attention"] != want_b5 or \
-                    n["dirty_blocks"] != want_b3 or \
-                    not math.isfinite(row["loss"]):
-                raise AssertionError(f"rank {rank} mesh step {i}: launches "
-                                     f"{n} (want {want_b5} flash_attention, "
-                                     f"{want_b3} dirty_blocks), loss "
-                                     f"{row['loss']}")
+            _check_launches(n, want, f"rank {rank} {arch} mesh step {i}")
+            if not math.isfinite(row["loss"]):
+                raise AssertionError(f"rank {rank} {arch} mesh step {i}: "
+                                     f"loss {row['loss']}")
     out.update(steps=rows, collectives=coll)
     del state
     return out
 
 
-def _tp_serve(torch, counted, rank):
-    """Prefill 4 x TP_PROMPT on the mesh (the cache in the rank's layout),
-    then TP_DECODE greedy steps; rank 0 then runs the local path
-    teacher-forced with the mesh's tokens and holds every token whose
-    local top-2 margin exceeds TP_GREEDY_MARGIN."""
+def _tp_serve(torch, ops_mod, counted, rank, arch=TRAIN_ARCH, dtype=None,
+              hold=True, prompt_len=TP_PROMPT):
+    """Prefill 4 x ``prompt_len`` of ``arch`` (in ``dtype``, else the
+    config's) on the mesh (the cache in the rank's layout; B5 and B4 once a layer
+    that runs them), then TP_DECODE greedy steps; rank 0 then runs the
+    local path teacher-forced with the mesh's tokens and holds every token
+    whose local top-2 margin exceeds TP_GREEDY_MARGIN (without ``hold``
+    it counts the tokens that differ there instead)."""
+    from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharding
     from repro_torch.models import dist, lm
     from repro_torch.train import make_decode_step, make_prefill_step
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    if dtype:
+        cfg = cfg.replace(param_dtype=dtype)
     mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
     ctx, hooks = _tp_setup(cfg, mesh)
     params = _tp_state(torch, cfg, mesh)["params"]
     g = torch.Generator(device=TP_DEVICE).manual_seed(SEED + 11)
-    prompt = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TP_PROMPT),
+    prompt = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, prompt_len),
                            generator=g, device=TP_DEVICE, dtype=torch.int32)
     rows = sharding.batch_pspec(mesh, ("logits",), prompt[:, :1])
     mine = sharding.batch_shardings(mesh, {"tokens": prompt})
-    prefill = make_prefill_step(cfg, TP_PROMPT + TP_DECODE,
+    prefill = make_prefill_step(cfg, prompt_len + TP_DECODE,
                                 constrain=hooks["constrain"])
     decode = make_decode_step(cfg, constrain=hooks["constrain"])
     out, logits_all, toks = {}, [], []
@@ -3840,11 +3917,12 @@ def _tp_serve(torch, counted, rank):
     t0 = time.perf_counter()
     with counted(), dist.use(ctx):
         logits, cache = prefill(params, mine)
+    _check_launches(ops_mod.launch_counts(), _kernel_layers(cfg),
+                    f"rank {rank} {arch} prefill")
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     out["cache_gb"] = sum(t.numel() * t.element_size()
-                          for t in (cache["attn"]["k"], cache["attn"]["v"])
-                          ) / 1e9
+                          for t in tree.leaves(cache)) / 1e9
     dec_ms = []
     for s in range(TP_DECODE + 1):
         full = sharding.gather_leaf(mesh, rows, logits.float())
@@ -3866,10 +3944,10 @@ def _tp_serve(torch, counted, rank):
     torch.cuda.empty_cache()
     if rank == 0:                      # the local path, alone on the card
         full_p = lm.init_params(cfg, SEED, device=TP_DEVICE)
-        pre = make_prefill_step(cfg, TP_PROMPT + TP_DECODE)
+        pre = make_prefill_step(cfg, prompt_len + TP_DECODE)
         dec = make_decode_step(cfg)
         want, cache = pre(full_p, {"tokens": prompt})
-        held = ties = 0
+        held = ties = differ = 0
         err = 0.0
         for s in range(TP_DECODE + 1):
             want = want.float()
@@ -3878,29 +3956,32 @@ def _tp_serve(torch, counted, rank):
             margin = top2[:, 0] - top2[:, 1]
             same = want.argmax(dim=-1) == toks[s][:, 0].long()
             sure = margin > TP_GREEDY_MARGIN
-            if bool((sure & ~same).any()):
+            if hold and bool((sure & ~same).any()):
                 raise AssertionError(f"greedy step {s}: the mesh's tokens "
                                      f"{toks[s][:, 0].tolist()} against the "
                                      f"local path's {want.argmax(-1).tolist()}"
                                      f" at margins {margin.tolist()}")
             held += int(sure.sum())
             ties += int((~sure).sum())
+            differ += int((sure & ~same).sum())
             if s < TP_DECODE:
                 _, want, cache = dec(full_p, toks[s], cache)
         if held < 1:
             raise AssertionError("greedy decode: every position a near tie; "
                                  "the check held nothing")
-        out.update(greedy_held=held, greedy_ties=ties,
+        out.update(greedy_held=held, greedy_ties=ties, greedy_differ=differ,
                    logits_max_abs_err=err)
         del full_p, cache
         torch.cuda.empty_cache()
     return out
 
 
-def _tp_f32(torch, counted, rank):
-    """One f32 AdamW step of internlm2 at full width, TP_F32_LAYERS deep,
-    on the mesh against the local step on the card (rank 0 holds every
-    gathered leaf within TP_F32_TOL)."""
+def _tp_f32(torch, counted, rank, arch=TRAIN_ARCH, layers=TP_F32_LAYERS,
+            tol=TP_F32_TOL):
+    """One f32 AdamW step of ``arch`` at full width, ``layers`` deep, on
+    the mesh against the local step on the card: rank 0 compares every
+    gathered leaf and returns the verdict, within ``tol``, as ``ok`` (the
+    parent raises on it after printing)."""
     from repro_torch import optim, tree
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticCorpus
@@ -3909,8 +3990,8 @@ def _tp_f32(torch, counted, rank):
     from repro_torch.models import dist, lm
     from repro_torch.train import make_train_step
 
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=TP_F32_LAYERS,
-                                         param_dtype="float32")
+    cfg = get_config(arch).replace(num_layers=layers,
+                                   param_dtype="float32")
     mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
     ctx, hooks = _tp_setup(cfg, mesh)
     corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TP_F32_SEQ, seed=SEED)
@@ -3950,8 +4031,8 @@ def _tp_f32(torch, counted, rank):
                 errs["moment"] = max(errs["moment"], float(diff.max()) / peak)
                 continue
             mom = moments[i]
-            settled = mom.abs() > max(2 * TP_F32_TOL * float(
-                mom.abs().max()), 1e-7)
+            settled = mom.abs() > max(2 * tol * float(mom.abs().max()),
+                                      1e-7)
             if bool(settled.any()):
                 errs["param"] = max(errs["param"],
                                     float(diff[settled].max()) / peak)
@@ -3962,12 +4043,11 @@ def _tp_f32(torch, counted, rank):
         out.update(errs, want_loss=float(mw["loss"]),
                    want_grad_norm=float(mw["grad_norm"]))
         bad = [k for k in ("loss", "grad_norm")
-               if abs(out[k] - out["want_" + k]) > TP_F32_TOL * abs(
+               if abs(out[k] - out["want_" + k]) > tol * abs(
                    out["want_" + k])]
-        if bad or errs["param"] > TP_F32_TOL or \
-                errs["moment"] > TP_F32_TOL or errs["settled"] < 1:
-            raise AssertionError(f"f32 step on the mesh against the local "
-                                 f"step: {out}")
+        out["ok"] = not (bad or errs["param"] > tol or
+                         errs["moment"] > tol or errs["settled"] < 1)
+        out["tol"] = tol
     del got, want
     torch.cuda.empty_cache()
     return out
@@ -4092,7 +4172,7 @@ def _tp_rank(rank: int, world: int, workdir: str):
         out = {"train": _tp_train(torch, ops, counted, first, rank)}
         gc.collect()
         torch.cuda.empty_cache()
-        out["serve"] = _tp_serve(torch, counted, rank)
+        out["serve"] = _tp_serve(torch, ops, counted, rank)
         out["f32"] = _tp_f32(torch, counted, rank)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4213,10 +4293,258 @@ def phase_tp_ranks(torch, ops_mod, first_step):
           f"{TP_F32_TOL})")
     print(f"[tp] {TP_RANKS} gloo ranks on one card: {wall:.4f} s wall, spawn "
           f"included")
+    if not f32["ok"]:
+        raise AssertionError(f"f32 step on the mesh against the local step "
+                             f"beyond {TP_F32_TOL}: {f32}")
     seen = {tuple(s) for rec in ranks for s in rec["b5_shapes"]}
     _hold_attention(torch, seen, "tp")
     return launches, {"ranks_wall_s": wall, "ranks": ranks,
                       "b5_shapes": sorted(seen)}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the SSM and hybrid wirings on a (data, model) mesh
+# ---------------------------------------------------------------------------
+SSM_TP_TRAIN_LAYERS = 12        # zamba2's train step: 2 of its 9 groups
+# the f32 steps against the local ones: (arch, layers, tolerance). rwkv6's
+# 2-layer f32 gradient on an H100 moves by 1.3e-3 (its grad norm) and
+# 1.8e-3 of a leaf's peak when its weights take 1e-7 relative noise
+# (``scripts/torch_rwkv6_conditioning.py --device cuda --layers 2
+# --batch 4 --seq 512``), so two correct evaluations cannot agree within
+# TP_F32_TOL there: it is held at 5e-3. zamba2's group keeps TP_F32_TOL.
+SSM_TP_F32 = ((RWKV_ARCH, 2, 5e-3), (SSM_ARCH, 6, TP_F32_TOL))
+SSM_TP_F32_PROMPT = 1024        # rwkv6's f32 prefill, whose tokens are held
+# rwkv6 at the seeded init amplifies a perturbation through its 24 layers
+# (ROADMAP C-11): in bf16 the mesh's rounding, unlike the local path's,
+# moves its logits by ~2 (this phase's bf16 greedy check, on an H100),
+# and its first-step gradient explodes and is chaotic (on the CPU, one
+# bf16 ulp in 1% of the weights moves the grad norm from 2.5e4 to 1.1e6,
+# ``scripts/torch_rwkv6_conditioning.py --dtype bfloat16 --tokens
+# uniform``; on an H100 the local step reads 1.1e8 where the mesh reads
+# 499). So in bf16 its first step is held by the loss and its greedy
+# tokens are counted, not held; the same prefill and decode in f32 hold
+# its tokens, and the f32 step 2 layers deep (SSM_TP_F32) its gradients.
+
+
+def phase_ssm_tp_first(torch):
+    """The local first steps phase 12's mesh steps are held to, on the card
+    before the ranks start (each state freed after): rwkv6 at full depth
+    and zamba2 SSM_TP_TRAIN_LAYERS deep, bf16, seeded as the ranks seed
+    theirs, batch 0 of TRAIN_BATCH x TRAIN_SEQ."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.train import init_train_state, make_train_step
+
+    first = {}
+    for arch, layers in ((RWKV_ARCH, None), (SSM_ARCH, SSM_TP_TRAIN_LAYERS)):
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        state = init_train_state(cfg, SEED, device="cuda")
+        corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+        state, m = make_train_step(cfg, telemetry=True)(
+            state, _train_batch(torch, corpus, 0))
+        first[arch] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        print(f"[ssm-tp] {arch} {cfg.num_layers} layers, the local first "
+              f"step on the card: loss {first[arch]['loss']:.6f}, grad norm "
+              f"{first[arch]['grad_norm']:.6f}")
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return first
+
+
+def _ssm_tp_rank(rank: int, world: int, workdir: str):
+    """One rank of phase 12, spawned on the card shared with the others as
+    in phase 11: rwkv6 trained and served (bf16, then f32) at full width
+    and depth, zamba2 served at full width and depth and trained
+    SSM_TP_TRAIN_LAYERS deep, then the f32 steps of SSM_TP_F32 against the
+    local ones. Writes ``rank<r>.json``; any failure but the f32 verdicts
+    (which the parent reads) raises, and the process exits non-zero."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    work = pathlib.Path(workdir)
+    first = json.loads((work / "first_step.json").read_text())
+    tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                             rank=rank, world_size=world)
+
+    def freed():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        counted = _Counted(ops)
+        # training first, as in phase 11: its warm-up step takes the
+        # ranks' first CUDA and gloo calls
+        out = {"rwkv6_train": _tp_train(torch, ops, counted,
+                                        first[RWKV_ARCH], rank, RWKV_ARCH,
+                                        held=("loss",))}
+        freed()
+        out["rwkv6_serve"] = _tp_serve(torch, ops, counted, rank, RWKV_ARCH,
+                                       hold=False)
+        freed()
+        out["rwkv6_serve_f32"] = _tp_serve(torch, ops, counted, rank,
+                                           RWKV_ARCH, dtype="float32",
+                                           prompt_len=SSM_TP_F32_PROMPT)
+        freed()
+        out["zamba2_serve"] = _tp_serve(torch, ops, counted, rank, SSM_ARCH)
+        freed()
+        out["zamba2_train"] = _tp_train(torch, ops, counted,
+                                        first[SSM_ARCH], rank, SSM_ARCH,
+                                        layers=SSM_TP_TRAIN_LAYERS, steps=0)
+        freed()
+        for arch, layers, tol in SSM_TP_F32:
+            out[f"{arch}_f32"] = _tp_f32(torch, counted, rank, arch, layers,
+                                         tol=tol)
+            freed()
+        out["launches"] = counted.total
+        out["b5_shapes"] = sorted(counted.seen)
+        out["b4_shapes"] = sorted(counted.scans)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _hold_scans(torch, seen, tag: str):
+    """Phase 6's B4 check on seeded inputs (``_scan_case``, its q/k shared
+    over heads for "mamba", a bonus for "rwkv") at each distinct (B, H, S,
+    Dk, Dv, dtype, kind, initial state) in ``seen``: against
+    ``gla.gla_chunked`` within ``_scan_err``'s tolerances, bit-equal on a
+    second launch."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.models import gla
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for B, H, S, Dk, Dv, dtype, kind, init in sorted(seen):
+        dt = getattr(torch, dtype.split(".")[-1])
+        ins, u, s0 = _scan_case(torch, g, kind, B, H, S, Dk, Dv, dtype=dt,
+                                ssd=kind != "rwkv", init=init)
+        got = ssm_scan.ssm_scan(*ins, u, s0)
+        again = ssm_scan.ssm_scan(*ins, u, s0)
+        want = gla.gla_chunked(*ins, bonus=u, initial_state=s0)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"[{tag}] ssm_scan not deterministic at "
+                                 f"{(B, H, S, Dk, Dv)}")
+        try:
+            err, atol = _scan_err(torch, got, want)
+        except AssertionError as e:
+            raise AssertionError(f"[{tag}] ssm_scan disagrees at a rank's "
+                                 f"shape {(B, H, S, Dk, Dv)} {kind}: {e}")
+        print(f"[{tag}] B4 at a rank's shape (B {B}, H {H}, S {S}, Dk {Dk}, "
+              f"Dv {Dv}, {dtype}, {kind}) against gla_chunked: max abs err "
+              f"{err:.6g} (atol {atol:.3g}), bit-equal on a second launch")
+        del ins, u, s0, got, again, want
+        torch.cuda.empty_cache()
+
+
+def phase_ssm_tp_ranks(torch, ops_mod):
+    """Phase 12: the local first steps (``phase_ssm_tp_first``), then
+    TP_RANKS ranks spawned on the card as in phase 11 (``_ssm_tp_rank``).
+    The parent joins every rank (a failed rank fails the run), requires
+    every f32 step within its limit (SSM_TP_F32), then holds B4 and B5 at
+    every shape the ranks launched them at. Returns (the ranks' launches
+    together, numbers to keep)."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = phase_ssm_tp_first(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_tp_") as tmp:
+        work = pathlib.Path(tmp)
+        (work / "first_step.json").write_text(json.dumps(first))
+        t0 = time.perf_counter()
+        mp.start_processes(_ssm_tp_rank, args=(TP_RANKS, tmp),
+                           nprocs=TP_RANKS, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+    launches = {op: 0 for op in ops_mod.launch_counts()}
+    for rec in ranks:
+        for op, n in rec["launches"].items():
+            launches[op] += n
+    for r, rec in enumerate(ranks):
+        for arch, key, dt, n in (
+                (SSM_ARCH, "zamba2_serve", "bf16", TP_PROMPT),
+                (RWKV_ARCH, "rwkv6_serve", "bf16", TP_PROMPT),
+                (RWKV_ARCH, "rwkv6_serve_f32", "f32", SSM_TP_F32_PROMPT)):
+            sv = rec[key]
+            print(f"[ssm-tp] rank {r} {arch} full width and depth on "
+                  f"{TP_MESH} (data, model), {dt}: prefill {TRAIN_BATCH} x "
+                  f"{n} {sv['prefill_s']:.4f} s, cache block "
+                  f"{sv['cache_gb']:.4f} GB; decode ms "
+                  f"{[round(t, 4) for t in sv['decode_ms']]}")
+        for key, what in (("rwkv6_train", f"{RWKV_ARCH} full depth"),
+                          ("zamba2_train", f"{SSM_ARCH} "
+                           f"{SSM_TP_TRAIN_LAYERS} layers")):
+            tr = rec[key]
+            arch = RWKV_ARCH if key == "rwkv6_train" else SSM_ARCH
+            print(f"[ssm-tp] rank {r} {what} on {TP_MESH}, bf16, AdamW, "
+                  f"block remat, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: state "
+                  f"{tr['state_gb']:.4f} GB a rank, init {tr['init_s']:.4f} "
+                  f"s, warm-up {tr['warmup_s']:.4f} s, first step loss "
+                  f"{tr['first']['loss']:.6f} grad norm "
+                  f"{tr['first']['grad_norm']:.6f} (local: "
+                  f"{first[arch]['loss']:.6f}, {first[arch]['grad_norm']:.6f})")
+            for row in tr["steps"]:
+                print(f"[ssm-tp] rank {r} {arch} step {row['step']}: host "
+                      f"{row['host_ms']:.4f} ms, events "
+                      f"{row['event_ms']:.4f} ms, "
+                      f"{row['tokens_per_s']:.1f} tokens/s, loss "
+                      f"{row['loss']:.6f}, grad norm {row['grad_norm']:.6f},"
+                      f" dirty fraction {row['dirty_fraction']:.6f}, B4 "
+                      f"{row['b4_launches']}, B5 {row['b5_launches']}, B3 "
+                      f"{row['b3_launches']}, peak {row['peak_gb']:.4f} GB")
+            if tr["steps"]:
+                print(f"[ssm-tp] rank {r} {arch} step "
+                      f"{tr['steps'][-1]['step']}'s collectives, each between"
+                      f" two syncs of the card: " + ", ".join(
+                          f"{k} {v['calls']} calls {v['ms']:.4f} ms "
+                          f"{v['bytes'] / 1e9:.4f} GB"
+                          for k, v in tr["collectives"].items()))
+        print(f"[ssm-tp] rank {r}: peak {rec['peak_gb']:.4f} GB, launches "
+              f"{rec['launches']}")
+    bad = []
+    for arch, key, what in ((SSM_ARCH, "zamba2_serve", "bf16, held"),
+                            (RWKV_ARCH, "rwkv6_serve", "bf16, counted"),
+                            (RWKV_ARCH, "rwkv6_serve_f32", "f32, held")):
+        sv = ranks[0][key]
+        print(f"[ssm-tp] {arch} ({what}) greedy tokens {sv['tokens']}: "
+              f"{sv['greedy_held'] - sv['greedy_differ']} of "
+              f"{sv['greedy_held']} positions whose margin exceeds "
+              f"{TP_GREEDY_MARGIN} equal to the local path's "
+              f"({sv['greedy_ties']} near ties not held); logits max abs "
+              f"err {sv['logits_max_abs_err']:.6g}")
+    for arch, layers, _ in SSM_TP_F32:
+        f32 = ranks[0][f"{arch}_f32"]
+        print(f"[ssm-tp] {arch} f32, {layers} layers, {TRAIN_BATCH} x "
+              f"{TP_F32_SEQ}: loss {f32['loss']:.8f} (local "
+              f"{f32['want_loss']:.8f}), grad norm {f32['grad_norm']:.8f} "
+              f"(local {f32['want_grad_norm']:.8f}), first moment err "
+              f"{f32['moment']:.6g} of its leaf's peak, params err "
+              f"{f32['param']:.6g} of their leaf's peak on the "
+              f"{f32['settled'] / f32['elements']:.4f} settled (limit "
+              f"{f32['tol']})")
+        if not f32["ok"]:
+            bad.append(arch)
+    print(f"[ssm-tp] {TP_RANKS} gloo ranks on one card: {wall:.4f} s wall, "
+          f"spawn included")
+    if bad:
+        raise AssertionError(f"f32 steps on the mesh against the local "
+                             f"steps beyond their limits: {bad}")
+    seen = {tuple(s) for rec in ranks for s in rec["b5_shapes"]}
+    scans = {tuple(s) for rec in ranks for s in rec["b4_shapes"]}
+    _hold_scans(torch, scans, "ssm-tp")
+    _hold_attention(torch, seen, "ssm-tp")
+    return launches, {"ranks_wall_s": wall, "first": first, "ranks": ranks,
+                      "b4_shapes": sorted(scans), "b5_shapes": sorted(seen)}
 
 
 def main() -> int:
@@ -4291,6 +4619,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_launches, tp_times = phase_tp_ranks(torch, ops,
                                            train_times["first_step"])
+    ssm_tp_launches, ssm_tp_times = phase_ssm_tp_ranks(torch, ops)
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -4312,7 +4641,7 @@ def main() -> int:
              ssm_prefill, ssm_migrate, rwkv_launches, dense_launches,
              train_launches, train_mig_launches, *check_launches.values(),
              trainer_launches, inc_launches, *moe_launches, dist_launches,
-             tp_launches)
+             tp_launches, ssm_tp_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
         launches = sum(path[op] for path in paths)
@@ -4330,6 +4659,7 @@ def main() -> int:
     print("[moe] " + json.dumps(moe_times))
     print("[dist] " + json.dumps(dist_times))
     print("[tp] " + json.dumps(tp_times))
+    print("[ssm-tp] " + json.dumps(ssm_tp_times))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

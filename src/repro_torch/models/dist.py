@@ -33,7 +33,12 @@ backward) and left by ``reduce_scatter`` (all-gather backward):
 ``tp_enter`` and ``tp_exit`` pick the pair. ``gather_split`` (all-gather
 forward, this rank's chunk backward) and ``split`` (the chunk forward,
 all-gather backward) move a tensor between a split layout and a
-replicated one; ``scale_grad`` scales a gradient only. The
+replicated one; ``scale_grad`` scales a gradient only. A leaf whole on
+every ``model`` rank but used rank by rank (a norm's scale, the Mamba2
+and RWKV6 per-head leaves) enters through ``tp_param`` (``copy_to_tp``),
+or ``tp_block`` for the rank's part of it; ``tp_sum`` adds per-rank
+partial statistics (the Mamba2 gated norm's sum of squares) that every
+rank then uses alike (all-reduce both ways). The
 expert-parallel MoE layer keeps the exact adjoints above (every
 collective's backward its transpose, as ``lax``'s); ``lm._moe``
 adapts it to the replicated loss.
@@ -413,6 +418,56 @@ def tp_param(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
     of the work (its heads, or with ``seq_shard`` its tokens): its
     gradient summed over ``model`` (``copy_to_tp``)."""
     return copy_to_tp(t, ctx.mesh, ctx.tp_axis)
+
+
+def tp_block(t: torch.Tensor, ctx: DistContext, dim: int,
+             ranges=None) -> torch.Tensor:
+    """This rank's part along ``dim`` of a leaf that is whole on every
+    ``model`` rank, taken through ``tp_param`` (its gradient lands in the
+    part's place in the whole leaf and is summed over ``model``).
+    ``ranges``: [(start, stop), ...] along ``dim``, end to end in that
+    order; by default the rank's equal block (the rank's heads of a
+    head-major dim). ``t`` itself where the part is the whole leaf (a
+    one-rank axis)."""
+    tp, r = tp_size(ctx), tp_rank(ctx)
+    if ranges is None:
+        n = t.shape[dim] // tp
+        ranges = [(r * n, (r + 1) * n)]
+    merged: list = []
+    for a, b in ranges:                 # adjacent ranges as one
+        if merged and merged[-1][1] == a:
+            merged[-1] = (merged[-1][0], b)
+        else:
+            merged.append((a, b))
+    if merged == [(0, t.shape[dim])]:
+        return t
+    t = tp_param(t, ctx)
+    parts = [t.narrow(dim, a, b - a) for a, b in merged]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+class _SumStat(torch.autograd.Function):
+    """The sum over ``model`` of per-rank partial statistics that every
+    rank then uses alike: all-reduce forward, and all-reduce backward (each
+    rank's gradient reaches only its own share of the work)."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _summed(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.grp), None
+
+
+def tp_sum(x: torch.Tensor, ctx: DistContext) -> torch.Tensor:
+    """A per-rank partial sum (a norm's sum of squares over the rank's
+    channels) summed over ``model``; the gradient of the result, which
+    every rank uses for its own channels, summed back over ``model``."""
+    if _one(ctx.mesh, ctx.tp_axis):
+        return x
+    return _SumStat.apply(x, ctx.mesh.get_group(ctx.tp_axis))
 
 
 def fsdp(t: torch.Tensor, ctx: DistContext, full: int, dim: int

@@ -52,7 +52,12 @@ it (its tokens over the global count), the shares summing to the loss.
 stream once, after the embedding, where the reference constrains it after
 every residual add: a rank's stream keeps its layout between layers
 (``dist.tp_exit`` leaves it so). The ``mamba``, ``rwkv`` and
-``hybrid_shared`` wirings raise on a mesh (ROADMAP item 15a-ii).
+``hybrid_shared`` wirings run on a mesh too: a Mamba2 or RWKV6 layer on
+the rank's heads (``models/mamba2``, ``models/rwkv6``), zamba2's shared
+attention block as the attention and MLP regions above, once a group
+(its gradient summed over the groups by autograd), its ring cut as the
+others. ``_mesh_context`` refuses a width that ``model`` does not divide,
+and ``seq_shard`` with SSM layers.
 """
 from __future__ import annotations
 
@@ -86,33 +91,43 @@ def wiring_mode(cfg: ArchConfig) -> str:
 
 
 def _mesh_context(cfg: ArchConfig) -> Optional[dist.DistContext]:
-    """The ``dist`` context, once the wiring is known to run on it."""
+    """The ``dist`` context, once the config is known to run on it: every
+    width the rules cut over ``model`` must divide it, or it would stay
+    whole on every rank (the rules' fallback) and a region's exit would sum
+    its copies."""
     ctx = dist.current()
-    if ctx is not None and wiring_mode(cfg) not in ("uniform",
-                                                    "prefix_dense"):
+    if ctx is None:
+        return None
+    kinds = set(cfg.block_pattern)
+    widths = {}
+    if kinds & set(ATTN_KINDS):
+        widths["query heads"] = cfg.num_heads
+    if kinds & {"attn", "shared_attn"} or cfg.first_k_dense:
+        widths["d_ff"] = cfg.d_ff
+    if cfg.moe is not None:
+        widths["experts"] = cfg.moe.num_experts
+        if cfg.moe.num_shared_experts:
+            widths["the shared expert's d_ff"] = (
+                cfg.moe.num_shared_experts * cfg.moe.d_ff_expert)
+    if "mamba" in kinds:
+        widths["Mamba2 heads"] = mamba2.dims(cfg)[1]
+    if "rwkv" in kinds:
+        widths["RWKV heads"] = cfg.d_model // cfg.ssm.head_dim
+        widths["d_model (the shift carries, cm_wr)"] = cfg.d_model
+        widths["the channel-mix d_ff"] = cfg.d_ff
+    tp = dist.tp_size(ctx)
+    bad = {k: w for k, w in widths.items() if w % tp}
+    if bad:
+        raise NotImplementedError(f"{cfg.name} on a model axis of {tp}: "
+                                  f"it does not divide {bad}")
+    if kinds & {"mamba", "rwkv"} and ctx.seq_shard:
+        raise NotImplementedError(f"{cfg.name}: seq_shard with {kinds} "
+                                  "layers (a scan runs over the whole "
+                                  "sequence); use a context without it")
+    if "mamba" in kinds and tp > 1 and (cfg.ssm.conv_width - 1) % tp == 0:
         raise NotImplementedError(
-            f"{cfg.name}: the {wiring_mode(cfg)} wiring on a mesh is ROADMAP "
-            "item 15a-ii")
-    if ctx is not None and cfg.block_pattern[0] in ("mamba", "rwkv"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.block_pattern[0]} layers on a mesh are ROADMAP "
-            "item 15a-ii")
-    if ctx is not None:
-        # a width the model axis does not divide stays whole on every rank
-        # (the rules' fallback), and a region's exit would sum its copies
-        widths = {"query heads": cfg.num_heads}
-        if "attn" in cfg.block_pattern or cfg.first_k_dense:
-            widths["d_ff"] = cfg.d_ff
-        if cfg.moe is not None:
-            widths["experts"] = cfg.moe.num_experts
-            if cfg.moe.num_shared_experts:
-                widths["the shared expert's d_ff"] = (
-                    cfg.moe.num_shared_experts * cfg.moe.d_ff_expert)
-        tp = dist.tp_size(ctx)
-        bad = {k: w for k, w in widths.items() if w % tp}
-        if bad:
-            raise NotImplementedError(f"{cfg.name} on a model axis of {tp}: "
-                                      f"it does not divide {bad}")
+            f"{cfg.name}: the rules would cut the conv carry's "
+            f"{cfg.ssm.conv_width - 1} steps over a model axis of {tp}")
     return ctx
 
 
@@ -173,11 +188,13 @@ BLOCK_INIT = {
 
 
 def apply_block(kind: str, params: Params, cfg: ArchConfig, x: torch.Tensor,
-                angles: Optional[torch.Tensor], cache, cache_pos):
+                angles: Optional[torch.Tensor], cache, cache_pos, *,
+                want_state: bool = True):
     """One layer. Returns (x, layer cache, aux loss): an attention layer's
     prefill K/V, or with ``cache`` its ring tensors after the in-place
     write; a Mamba2 or RWKV6 layer's new state tuple (``cache`` is only
-    read). The aux loss (f32 0-dim) is a ``moe`` layer's; other layers
+    read; without ``want_state``, in training, a Mamba2 layer's conv carry
+    is None). The aux loss (f32 0-dim) is a ``moe`` layer's; other layers
     have none (None), where the reference adds a zero."""
     aux = None
     if kind in ATTN_KINDS:
@@ -193,7 +210,8 @@ def apply_block(kind: str, params: Params, cfg: ArchConfig, x: torch.Tensor,
     if kind == "mamba":
         xn = B.rmsnorm(params["ln"], x, cfg.norm_eps)
         if cache is None:
-            h, new_c = mamba2.mamba2_forward(params["mixer"], cfg, xn)
+            h, new_c = mamba2.mamba2_forward(params["mixer"], cfg, xn,
+                                             want_state=want_state)
         else:
             h, new_c = mamba2.mamba2_decode(params["mixer"], cfg, xn, cache)
         return x + h, new_c, aux
@@ -390,7 +408,8 @@ def _apply_unit(unit, cfg: ArchConfig, x: torch.Tensor,
         with dist.use(ctx):
             return _apply_unit(unit, cfg, x, angles, aux)
     for kind, lp, _, _ in unit:
-        x, _, a = apply_block(kind, lp, cfg, x, angles, None, None)
+        x, _, a = apply_block(kind, lp, cfg, x, angles, None, None,
+                              want_state=False)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -550,16 +569,18 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Empty decode cache at position 0: zero (L, B, W, Hkv, hd) rings and
     zero stacked layer states. On a mesh ``batch`` is the rank's rows and
-    each ring the rank's block (``launch/sharding.cache_pspec``): its KV
-    heads, or where ``model`` does not divide them its slots of the
-    window."""
+    each leaf the rank's block (``launch/sharding.cache_pspec``): a ring's
+    KV heads, or where ``model`` does not divide them its slots of the
+    window; the Mamba2 SSD and RWKV6 wkv states' heads, the RWKV6 shift
+    carries' d-slices, the Mamba2 conv carry whole."""
     from repro_torch.launch.sharding import kv_split
     mode = wiring_mode(cfg)
     ctx = _mesh_context(cfg)
     dev = resolve_device(device)
     W, Hkv = _kv_window(cfg, cache_len), cfg.num_kv_heads
-    if ctx is not None and dist.tp_size(ctx) > 1:
-        tp = dist.tp_size(ctx)
+    tp = dist.tp_size(ctx)
+    has_ring = mode != "uniform" or cfg.block_pattern[0] in ("attn", "moe")
+    if tp > 1 and has_ring:
         where = kv_split(ctx.mesh, Hkv, W)
         if where is None:
             raise ValueError(f"init_cache: the model axis ({tp}) divides "
@@ -577,7 +598,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     if mode == "hybrid_shared":
         n_groups, per = _group_shape(cfg)
         cache["mamba"] = mamba2.init_cache(cfg, batch, cfg.dtype,
-                                           lead=(n_groups * per,), device=dev)
+                                           lead=(n_groups * per,), device=dev,
+                                           tp=tp)
         cache["shared_attn"] = rings(n_groups)
         return cache
     if mode == "prefix_dense":
@@ -590,10 +612,10 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
         cache[kind] = rings(cfg.num_layers)
     elif kind == "mamba":
         cache["mamba"] = mamba2.init_cache(cfg, batch, cfg.dtype, lead=lead,
-                                           device=dev)
+                                           device=dev, tp=tp)
     else:
         cache["rwkv"] = rwkv6.init_cache(cfg, batch, cfg.dtype, lead=lead,
-                                         device=dev)
+                                         device=dev, tp=tp)
     return cache
 
 

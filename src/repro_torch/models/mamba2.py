@@ -11,6 +11,26 @@ materialized; decode runs the one-token recurrence
 
 Parameters are the reference's keys; ``A_log``, ``D`` and ``dt_bias`` are
 f32 whatever the config's dtype, as in the reference.
+
+On a ``(data, model)`` mesh (a ``models/dist`` context) a rank computes its
+H/tp heads. The rules cut ``in_proj`` and ``out_proj`` over ``data`` only
+(ZeRO-3) and leave the rest whole, so the rank gathers them over ``data``
+and takes its heads' part of every leaf through ``dist.tp_block`` (its
+gradient summed over ``model``): ``in_proj``'s columns of its z and x
+channels and its dt, and the B and C columns every head shares (one
+group); the conv's weights on those channels; its ``A_log``, ``D``,
+``dt_bias`` and norm scale; ``out_proj``'s rows, whose partial products
+leave through ``dist.tp_exit``. B4 runs on the rank's heads, q/k still
+stride-0 views over them. The gated RMSNorm averages over the whole
+d_in, so its f32 sum of squares is summed over ``model``
+(``dist.tp_sum``) before the rsqrt. The SSD state is cut on its heads;
+the conv carry (W-1 = 3 steps, which the rules do not cut) is whole on
+every rank. To write it, a rank all-gathers its x channels over
+``model`` for the last W-1 tokens at prefill and for the new token at
+each decode step, rather than projecting every x channel itself: that
+moves (B, W-1, d_in) values once a layer, where computing them would
+take d x d_in more of ``in_proj`` (gathered over ``data`` too) on every
+rank.
 """
 from __future__ import annotations
 
@@ -22,7 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models import gla
+from repro_torch.models import dist, gla
 from repro_torch.models.blocks import dense_init, rmsnorm, rmsnorm_init
 
 Params = Dict[str, torch.Tensor]
@@ -65,8 +85,11 @@ def mamba2_init(gen: Optional[torch.Generator], cfg: ArchConfig, *,
     }
 
 
-def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
-    d_in, H, N, _ = dims(cfg)
+Dims = Tuple[int, int, int, int]
+
+
+def _split_proj(dm: Dims, proj: torch.Tensor):
+    d_in, H, N, _ = dm
     z = proj[..., :d_in]
     xBC = proj[..., d_in: 2 * d_in + 2 * N]
     dt = proj[..., 2 * d_in + 2 * N:]
@@ -89,11 +112,11 @@ def _causal_depthwise_conv(xBC: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _ssd_inputs(params: Params, cfg: ArchConfig, xBC: torch.Tensor,
-                dt_raw: torch.Tensor):
+def _ssd_inputs(params: Params, cfg: ArchConfig, dm: Dims,
+                xBC: torch.Tensor, dt_raw: torch.Tensor):
     """Conv'd xBC + raw dt -> (q, k, v, log_decay, x_heads, dt) for the GLA
     core."""
-    d_in, H, N, _ = dims(cfg)
+    d_in, H, N, _ = dm
     P = cfg.ssm.head_dim
     xBC = F.silu(xBC)
     x = xBC[..., :d_in]
@@ -109,16 +132,83 @@ def _ssd_inputs(params: Params, cfg: ArchConfig, xBC: torch.Tensor,
     return Cm, Bm, v, log_decay, xh, dt
 
 
-def mamba2_forward(params: Params, cfg: ArchConfig, x: torch.Tensor
+def _rank_view(params: Params, cfg: ArchConfig, ctx
+               ) -> Tuple[Params, Dims, int]:
+    """The layer as this rank computes it: (params, dims, x channels of the
+    rank). Without a context the layer itself. Under one the rank's H/tp
+    heads: the ZeRO-3 projections gathered over ``data``, and of every leaf
+    whole over ``model`` its heads' part (``dist.tp_block``, gradients
+    summed over ``model``): ``in_proj``'s columns of its z and x channels,
+    the shared B and C and its dt, the conv's x channels and B/C, its
+    ``A_log``, ``D``, ``dt_bias`` and norm scale, ``out_proj``'s rows."""
+    dm = dims(cfg)
+    if ctx is None:
+        return params, dm, dm[0]
+    d_in, H, N, _ = dm
+    d = cfg.d_model
+    tp, r = dist.tp_size(ctx), dist.tp_rank(ctx)
+    di, h = d_in // tp, H // tp
+    x_r = (d_in + r * di, d_in + (r + 1) * di)
+    bc = (2 * d_in, 2 * d_in + 2 * N)
+    proj_cols = [(r * di, (r + 1) * di), x_r, bc,
+                 (bc[1] + r * h, bc[1] + (r + 1) * h)]
+    conv_cols = [(r * di, (r + 1) * di), (d_in, d_in + 2 * N)]
+    mine = {
+        # the rank's columns first, then the gather over ``data``
+        "in_proj": dist.fsdp(dist.tp_block(params["in_proj"], ctx, 1,
+                                           proj_cols), ctx, d, 0),
+        "conv_w": dist.tp_block(params["conv_w"], ctx, 1, conv_cols),
+        "conv_b": dist.tp_block(params["conv_b"], ctx, 0, conv_cols),
+        "norm": {"scale": dist.tp_block(params["norm"]["scale"], ctx, 0)},
+        "out_proj": dist.fsdp(dist.tp_block(params["out_proj"], ctx, 0),
+                              ctx, d, 1),
+    }
+    for k in ("A_log", "D", "dt_bias"):
+        mine[k] = dist.tp_block(params[k], ctx, 0)
+    return mine, (di, h, N, di + 2 * N), di
+
+
+def _gated_norm(params: Params, cfg: ArchConfig, y: torch.Tensor,
+                z: torch.Tensor, ctx) -> torch.Tensor:
+    """RMSNorm of y * silu(z) over the whole d_in. Under a context y and z
+    are the rank's channels: the f32 sum of squares is summed over
+    ``model`` (``dist.tp_sum``) before the rsqrt."""
+    g = y * F.silu(z)
+    if ctx is None:
+        return rmsnorm(params["norm"], g, cfg.norm_eps)
+    gf = g.float()
+    ss = dist.tp_sum((gf * gf).sum(dim=-1, keepdim=True), ctx)
+    out = gf * torch.rsqrt(ss / dims(cfg)[0] + cfg.norm_eps)
+    return (out * params["norm"]["scale"].float()).to(g.dtype)
+
+
+def _whole_carry(xBC_raw: torch.Tensor, di: int, ctx) -> torch.Tensor:
+    """Pre-activation conv inputs (.., x channels, B, C) as the whole
+    carry's channels: under a context the rank's x channels all-gathered
+    over ``model`` (every rank holds the whole carry)."""
+    if ctx is None:
+        return xBC_raw
+    xs = dist.all_gather(xBC_raw[..., :di], ctx.mesh, ctx.tp_axis, dim=-1)
+    return torch.cat([xs, xBC_raw[..., di:]], dim=-1)
+
+
+def mamba2_forward(params: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                   want_state: bool = True
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence forward. Returns (y, (conv_state, ssd_state)) so
-    prefill can hand off to decode."""
+    prefill can hand off to decode; without ``want_state`` the conv carry
+    is None (training). Under a ``dist`` context (module docstring) the
+    rank's heads: the SSD state is theirs, the conv carry whole."""
+    ctx = dist.current()
+    if ctx is not None:
+        x = dist.tp_enter(x, ctx)
+    p, dm, di = _rank_view(params, cfg, ctx)
     B, S, _ = x.shape
-    d_in, H, N, _ = dims(cfg)
+    d_in, H, N, _ = dm
     Wc = cfg.ssm.conv_width
-    z, xBC_raw, dt_raw = _split_proj(cfg, x @ params["in_proj"])
-    xBC = _causal_depthwise_conv(xBC_raw, params["conv_w"], params["conv_b"])
-    q, k, v, logw, xh, _ = _ssd_inputs(params, cfg, xBC, dt_raw)
+    z, xBC_raw, dt_raw = _split_proj(dm, x @ p["in_proj"])
+    xBC = _causal_depthwise_conv(xBC_raw, p["conv_w"], p["conv_b"])
+    q, k, v, logw, xh, _ = _ssd_inputs(p, cfg, dm, xBC, dt_raw)
 
     # GLA layout (B, H, S, D*) as views: B/C and the decay stride 0
     qh = q[:, None].expand(B, H, S, N)
@@ -126,48 +216,70 @@ def mamba2_forward(params: Params, cfg: ArchConfig, x: torch.Tensor
     vh = v.permute(0, 2, 1, 3)                         # (B,H,S,P)
     lw = logw.permute(0, 2, 1)[..., None].expand(B, H, S, N)
     y, state = ops.ssm_scan(qh, kh, vh, lw)
-    y = y + params["D"][None, :, None, None] * xh.permute(0, 2, 1, 3)  # D*x skip
+    y = y + p["D"][None, :, None, None] * xh.permute(0, 2, 1, 3)  # D*x skip
     y = y.permute(0, 2, 1, 3).reshape(B, S, d_in).to(x.dtype)
 
-    y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    # pre-activation carry, copied out of the projection it slices
-    conv_state = xBC_raw[:, -(Wc - 1):, :].clone(
-        memory_format=torch.contiguous_format)
-    return y @ params["out_proj"], (conv_state, state.float())
+    y = _gated_norm(p, cfg, y, z, ctx) @ p["out_proj"]
+    if ctx is not None:
+        y = dist.tp_exit(y, ctx)
+    conv_state = None
+    if want_state:
+        # pre-activation carry, copied out of the projection it slices
+        conv_state = _whole_carry(xBC_raw[:, -(Wc - 1):, :], di, ctx).clone(
+            memory_format=torch.contiguous_format)
+    return y, (conv_state, state.float())
 
 
 def mamba2_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
                   cache: Tuple[torch.Tensor, torch.Tensor]
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Single-token step. x: (B, 1, d); cache = (conv_state, ssd_state).
-    Returns new state tensors; ``cache`` is only read."""
+    Returns new state tensors; ``cache`` is only read. Under a context the
+    SSD state is the rank's heads' and the conv carry whole: the rank's
+    channels of it feed its conv, and the new token's x channels are
+    gathered over ``model`` into the new carry."""
     conv_state, ssd_state = cache
+    ctx = dist.current()
+    if ctx is not None:
+        x = dist.tp_enter(x, ctx)
+    p, dm, di = _rank_view(params, cfg, ctx)
     B = x.shape[0]
-    d_in, H, N, _ = dims(cfg)
-    z, xBC_raw, dt_raw = _split_proj(cfg, x @ params["in_proj"])
-    xBC = _causal_depthwise_conv(xBC_raw, params["conv_w"], params["conv_b"],
-                                 prev=conv_state)
-    new_conv = torch.cat([conv_state[:, 1:], xBC_raw], dim=1)
-    q, k, v, logw, xh, _ = _ssd_inputs(params, cfg, xBC, dt_raw)
+    d_in, H, N, _ = dm
+    z, xBC_raw, dt_raw = _split_proj(dm, x @ p["in_proj"])
+    prev = conv_state
+    if ctx is not None:
+        full_in, r = dims(cfg)[0], dist.tp_rank(ctx)
+        prev = torch.cat([conv_state[..., r * di:(r + 1) * di],
+                          conv_state[..., full_in:]], dim=-1)
+    xBC = _causal_depthwise_conv(xBC_raw, p["conv_w"], p["conv_b"],
+                                 prev=prev)
+    new_conv = torch.cat([conv_state[:, 1:],
+                          _whole_carry(xBC_raw, di, ctx).to(
+                              conv_state.dtype)], dim=1)
+    q, k, v, logw, xh, _ = _ssd_inputs(p, cfg, dm, xBC, dt_raw)
 
     qh = q[:, 0, None, :].expand(B, H, N)
     kh = k[:, 0, None, :].expand(B, H, N)
     vh = v[:, 0]                                       # (B,H,P)
     lw = logw[:, 0, :, None].expand(B, H, N)
     y, new_state = gla.gla_decode_step(qh, kh, vh, lw, ssd_state)
-    y = y + params["D"][None, :, None] * xh[:, 0]
+    y = y + p["D"][None, :, None] * xh[:, 0]
     y = y.reshape(B, 1, d_in).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ params["out_proj"], (new_conv, new_state)
+    y = _gated_norm(p, cfg, y, z, ctx) @ p["out_proj"]
+    if ctx is not None:
+        y = dist.tp_exit(y, ctx)
+    return y, (new_conv, new_state)
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, *, lead=(),
-               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               device=None, tp: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zero (conv_state (.., B, W-1, C) in ``dtype``, ssd_state
-    (.., B, H, N, P) f32), with ``lead`` stacked layers in front."""
+    (.., B, H, N, P) f32), with ``lead`` stacked layers in front; ``tp``:
+    a rank's block on a model axis of that size (its H/tp heads of the SSD
+    state, the conv carry whole)."""
     d_in, H, N, conv_ch = dims(cfg)
     P = cfg.ssm.head_dim
     return (torch.zeros((*lead, batch, cfg.ssm.conv_width - 1, conv_ch),
                         dtype=dtype, device=device),
-            torch.zeros((*lead, batch, H, N, P), dtype=torch.float32,
+            torch.zeros((*lead, batch, H // tp, N, P), dtype=torch.float32,
                         device=device))

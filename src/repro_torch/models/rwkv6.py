@@ -10,6 +10,29 @@ card); decode runs the one-token recurrence (``gla.gla_decode_step``).
 
 Parameters are the reference's keys; ``decay_base`` and ``faaaa`` are f32
 whatever the config's dtype, as in the reference.
+
+On a ``(data, model)`` mesh (a ``models/dist`` context) a rank computes its
+H/tp wkv heads, in Megatron's form. The layer norms, token shift, DDLerp
+(``maa_*``) and the decay LoRA's first product work on the whole d and
+are computed alike on every rank: the time-mix region is entered after
+``ln1`` (``dist.tp_enter``), and the leaves of that replicated part
+(``maa_*``, ``decay_w1``) enter through ``dist.tp_param``, as each rank's
+use of them reaches only its heads. ``wr``/``wk``/``wv``/``wg`` are cut
+over ``model`` by the rules and give the rank's heads; ``decay_w2``'s
+columns, ``decay_base``, ``faaaa`` and ``ln_x`` are taken for them
+(``dist.tp_block``); B4 runs with the bonus on the rank's heads, the
+per-head norm is local, and ``wo``'s rows leave through
+``dist.tp_exit``. In the channel-mix ``cm_wk``/``cm_wv`` are a Megatron
+pair entered at their input. ``cm_wr`` is cut over ``model`` and would
+give the receptance on the rank's d/tp channels only, while the gate
+multiplies the FFN's whole output: the port all-gathers ``cm_wr``'s
+columns (a d x d weight; gathering the (B, S, d) receptance instead
+moves more at the prefill and training lengths) and computes the whole
+receptance on every rank, outside the region, with the mixes. Every
+ZeRO-3 leaf is gathered over ``data`` before use. The rules cut the shift
+carries (B, d) along d and the wkv state along its heads: prefill keeps
+the rank's d-slice of the last position, and decode all-gathers the two
+carries over ``model`` before the shift.
 """
 from __future__ import annotations
 
@@ -20,7 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models import gla
+from repro_torch.models import dist, gla
 from repro_torch.models.blocks import dense_init, rmsnorm, rmsnorm_init
 
 Params = Dict[str, torch.Tensor]
@@ -95,10 +118,41 @@ def _ddlerp(p: Params, x: torch.Tensor, xs: torch.Tensor):
     return tuple(x + dx * mix[i] for i in range(5))         # order: w,k,v,r,g
 
 
-def _wkv_inputs(p: Params, cfg: ArchConfig, x: torch.Tensor,
+def _rank_view(p: Params, cfg: ArchConfig, ctx) -> Tuple[Params, int]:
+    """The layer as this rank computes it: (params, its wkv heads). Without
+    a context the layer itself. Under one (module docstring) the ZeRO-3
+    leaves gathered over ``data``; the time-mix's replicated region
+    (``maa_*``, ``decay_w1``) through ``dist.tp_param``, and
+    ``decay_w2``'s columns, ``decay_base``, ``faaaa`` and ``ln_x`` for the
+    rank's heads through ``dist.tp_block`` (gradients summed over
+    ``model``); ``wr``/``wk``/``wv``/``wg``/``cm_wk`` are the rank's
+    columns and ``wo``/``cm_wv`` its rows already; ``cm_wr``'s columns are
+    all-gathered over ``model`` (``dist.gather_split``)."""
+    H, _ = _hdims(cfg)
+    if ctx is None:
+        return p, H
+    d = cfg.d_model
+    mine = dict(p)
+    for k in ("maa_x", "maa_base", "maa_w1", "maa_w2", "decay_w1"):
+        mine[k] = dist.tp_param(p[k], ctx)
+    for k in ("maa_w1", "decay_w1", "wr", "wk", "wv", "wg", "cm_wk",
+              "cm_wr"):
+        mine[k] = dist.fsdp(mine[k], ctx, d, 0)
+    for k in ("wo", "cm_wv"):
+        mine[k] = dist.fsdp(p[k], ctx, d, 1)
+    mine["decay_w2"] = dist.tp_block(p["decay_w2"], ctx, 1)
+    mine["decay_base"] = dist.tp_block(p["decay_base"], ctx, 0)
+    mine["faaaa"] = dist.tp_block(p["faaaa"], ctx, 0)
+    mine["ln_x"] = {"scale": dist.tp_block(p["ln_x"]["scale"], ctx, 0)}
+    mine["cm_wr"] = dist.gather_split(mine["cm_wr"], ctx.mesh, ctx.tp_axis,
+                                      dim=1)
+    return mine, H // dist.tp_size(ctx)
+
+
+def _wkv_inputs(p: Params, cfg: ArchConfig, H: int, x: torch.Tensor,
                 shift_prev: Optional[torch.Tensor]):
-    H, P = _hdims(cfg)
-    B, S, d = x.shape
+    P = cfg.ssm.head_dim
+    B, S, _ = x.shape
     xs = _shift(x, shift_prev)
     xw, xk, xv, xr, xg = _ddlerp(p, x, xs)
     r = (xr @ p["wr"]).reshape(B, S, H, P).permute(0, 2, 1, 3)
@@ -109,30 +163,56 @@ def _wkv_inputs(p: Params, cfg: ArchConfig, x: torch.Tensor,
                       + (torch.tanh(xw @ p["decay_w1"])
                          @ p["decay_w2"]).float())
     logw = logw.reshape(B, S, H, P).permute(0, 2, 1, 3)     # (B,H,S,P)
-    return r, k, v, g, logw, x[:, -1, :].clone()
+    return r, k, v, g, logw
 
 
 def _time_mix_out(p: Params, cfg: ArchConfig, y: torch.Tensor,
                   g: torch.Tensor, B: int, S: int) -> torch.Tensor:
-    """Per-head normalization, gate, output projection. y: (B,H,S,P)."""
-    H, P = _hdims(cfg)
-    d = H * P
+    """Per-head normalization, gate, output projection. y: (B,H,S,P), the
+    rank's heads under a context (the norm is per head, so local)."""
+    H, P = y.shape[1], cfg.ssm.head_dim
     y = y.permute(0, 2, 1, 3).float()                        # (B,S,H,P)
     mean2 = (y * y).mean(dim=-1, keepdim=True)               # per-head RMS
-    y = (y * torch.rsqrt(mean2 + 64e-5)).reshape(B, S, d)
+    y = (y * torch.rsqrt(mean2 + 64e-5)).reshape(B, S, H * P)
     y = (y * p["ln_x"]["scale"].float()).to(g.dtype) * g
     return y @ p["wo"]
 
 
 def _channel_mix(p: Params, x: torch.Tensor,
-                 shift_prev: Optional[torch.Tensor]):
+                 shift_prev: Optional[torch.Tensor], ctx):
+    """Squared-ReLU FFN gated by the receptance. Under a context the FFN
+    is a Megatron region entered at its input ``xk`` (``cm_wk`` columns,
+    ``cm_wv`` rows, partial sums left through ``dist.tp_exit``) and the
+    shift, the mixes and the receptance (``cm_wr`` gathered whole) stay
+    replicated, as the gate multiplies the FFN's whole output."""
     xs = _shift(x, shift_prev)
     dx = xs - x
     xk = x + dx * p["cm_maa_k"]
     xr = x + dx * p["cm_maa_r"]
-    h = torch.square(F.relu(xk @ p["cm_wk"]))
-    return (torch.sigmoid(xr @ p["cm_wr"]) * (h @ p["cm_wv"]),
-            x[:, -1, :].clone())
+    if ctx is not None:
+        xk = dist.tp_enter(xk, ctx)
+    kv = torch.square(F.relu(xk @ p["cm_wk"])) @ p["cm_wv"]
+    if ctx is not None:
+        kv = dist.tp_exit(kv, ctx)
+    return torch.sigmoid(xr @ p["cm_wr"]) * kv
+
+
+def _last(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The last position's (B, d) shift carry; under a context the rank's
+    d/tp slice of it (the rules cut the carries along d)."""
+    last = x[:, -1, :]
+    if ctx is not None:
+        dl, r = last.shape[-1] // dist.tp_size(ctx), dist.tp_rank(ctx)
+        last = last[:, r * dl:(r + 1) * dl]
+    return last.clone()
+
+
+def _whole(carry: Optional[torch.Tensor], ctx) -> Optional[torch.Tensor]:
+    """A shift carry as ``_shift`` reads it: under a context the ranks'
+    d-slices all-gathered over ``model``."""
+    if carry is None or ctx is None:
+        return carry
+    return dist.all_gather(carry, ctx.mesh, ctx.tp_axis, dim=-1)
 
 
 RwkvCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # (shift_tm, shift_cm, state)
@@ -145,35 +225,45 @@ def rwkv6_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
     Prefill: cache=None (or a carry when continuing). Decode: x is
     (B, 1, d) and cache is the (shift_tm, shift_cm, wkv_state) triple,
-    only read; the new triple is returned."""
+    only read; the new triple is returned. Under a ``dist`` context the
+    cache is the rank's block of it (module docstring)."""
+    ctx = dist.current()
     B, S, d = x.shape
     st_tm, st_cm, wkv = cache if cache is not None else (None, None, None)
+    p, H = _rank_view(params, cfg, ctx)
 
     xn = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    r, k, v, g, logw, last_tm = _wkv_inputs(params, cfg, xn, st_tm)
+    last_tm = _last(xn, ctx)
+    if ctx is not None:
+        xn = dist.tp_enter(xn, ctx)
+    r, k, v, g, logw = _wkv_inputs(p, cfg, H, xn, _whole(st_tm, ctx))
     if S == 1 and wkv is not None:
         y, new_wkv = gla.gla_decode_step(
             r[:, :, 0], k[:, :, 0], v[:, :, 0], logw[:, :, 0], wkv,
-            bonus=params["faaaa"])
+            bonus=p["faaaa"])
         y = y[:, :, None, :]                                 # (B,H,1,P)
     else:
-        y, new_wkv = ops.ssm_scan(r, k, v, logw, bonus=params["faaaa"],
+        y, new_wkv = ops.ssm_scan(r, k, v, logw, bonus=p["faaaa"],
                                   initial_state=wkv)
-    x = x + _time_mix_out(params, cfg, y, g, B, S)
+    tm = _time_mix_out(p, cfg, y, g, B, S)
+    if ctx is not None:
+        tm = dist.tp_exit(tm, ctx)
+    x = x + tm
 
     xn2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    cm_out, last_cm = _channel_mix(params, xn2, st_cm)
-    x = x + cm_out
-    return x, (last_tm, last_cm, new_wkv)
+    x = x + _channel_mix(p, xn2, _whole(st_cm, ctx), ctx)
+    return x, (last_tm, _last(xn2, ctx), new_wkv)
 
 
 def init_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype, *, lead=(),
-               device=None) -> RwkvCache:
+               device=None, tp: int = 1) -> RwkvCache:
     """Zero (shift_tm (.., B, d), shift_cm (.., B, d) in ``dtype``, wkv
-    state (.., B, H, P, P) f32), with ``lead`` stacked layers in front."""
+    state (.., B, H, P, P) f32), with ``lead`` stacked layers in front;
+    ``tp``: a rank's block on a model axis of that size (d/tp of each
+    carry, H/tp heads of the state)."""
     H, P = _hdims(cfg)
-    d = cfg.d_model
+    d = cfg.d_model // tp
     return (torch.zeros((*lead, batch, d), dtype=dtype, device=device),
             torch.zeros((*lead, batch, d), dtype=dtype, device=device),
-            torch.zeros((*lead, batch, H, P, P), dtype=torch.float32,
+            torch.zeros((*lead, batch, H // tp, P, P), dtype=torch.float32,
                         device=device))

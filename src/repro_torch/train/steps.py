@@ -19,9 +19,13 @@ model tensor-parallel with the hooks ``constrain`` and
 step's loss is the global token count's (``lm.lm_loss``); a leaf's
 gradient is summed over every batch axis it is not cut along (``embed``,
 ``head``, the norms and the router over ``data``; the ZeRO-3 gather's
-backward already reduce-scatters the rest), the global norm and
-Adafactor's statistics span the ranks (``optim``), and the dirty-block
-telemetry sums the ranks' counts.
+backward already reduce-scatters the rest). A leaf whole over ``model``
+that a rank uses only in part (the Mamba2 and RWKV6 per-head leaves,
+``in_proj``'s columns) has its ``model`` sum in the forward, where the
+layer takes it through ``dist.tp_param`` / ``dist.tp_block``, not here.
+The global norm and Adafactor's statistics span the ranks (``optim``),
+and the dirty-block telemetry (B3 on the rank's slices, the SSM leaves'
+and Mamba2 projections' too) sums the ranks' counts.
 """
 from __future__ import annotations
 

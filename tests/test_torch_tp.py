@@ -14,7 +14,8 @@ architecture, on the duck-typed 16 x 16 and 2 x 16 x 16 meshes of
 Ranks: the f32 smoke configs of internlm2 (dense, block remat), qwen3
 (``qk_norm``), danube (a window of 8, so the ring wraps), qwen3-moe
 (``moe``) and kimi-k2 (``prefix_dense``, its own ``seq_shard``, full remat,
-Adafactor), weights from the JAX package's ``init_params`` carried across
+Adafactor), and on (2, 2) starcoder2, qwen2-vl (M-RoPE positions) and
+musicgen (a frontend prefix), weights from the JAX package's ``init_params`` carried across
 by ``models/convert.params_from_numpy``. Each rank cuts the train state,
 batch and cache with ``launch/sharding``; what it computes is gathered
 back (``gather_tree``): one train step's loss, grad norm, every leaf's
@@ -37,11 +38,6 @@ while the source steps; each destination slice bit-equal to the slice cut
 from the gathered source at the stop, the same rounds and stop reason on
 every rank, then a step on (1, 4).
 """
-import os
-import subprocess
-import sys
-import textwrap
-
 import numpy as np
 import pytest
 
@@ -223,21 +219,32 @@ def test_one_rank_collectives_are_identities(tmp_path, monkeypatch):
         tdist.destroy_process_group()
 
 
-def test_ssm_wirings_on_a_mesh_name_their_roadmap_item(tmp_path):
+def test_ssm_wirings_on_a_mesh_name_their_roadmap_item():
+    """The SSM and hybrid wirings run on a mesh (ROADMAP item 15a-ii,
+    ``tests/test_torch_tp_ssm.py``): ``lm._mesh_context`` takes the smoke
+    configs on (1, 4) and refuses only a width the model axis does not
+    divide (Mamba2 heads, RWKV heads and d) or ``seq_shard`` with a scan,
+    naming it. A fake group of 4 ranks in this process: the refusal comes
+    before any collective."""
     import torch.distributed as tdist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models import dist, lm
-    tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
-                             rank=0, world_size=1)
+    tdist.init_process_group("fake", store=FakeStore(), rank=0,
+                             world_size=4)
     try:
-        ctx = dist.model_context(meshlib.make_host_mesh(1, 1, device="cpu"))
-        for arch in ("zamba2_2p7b", "rwkv6_1p6b"):
+        ctx = dist.model_context(meshlib.make_host_mesh(1, 4, device="cpu"))
+        narrow = {"zamba2_2p7b": "Mamba2 heads", "rwkv6_1p6b": "RWKV heads"}
+        for arch, width in narrow.items():
             cfg = get_config(arch).smoke().replace(param_dtype="float32")
-            p = lm.init_params(cfg, 0, device="cpu")
-            batch = {"tokens": torch.zeros(1, 8, dtype=torch.int32)}
-            with dist.use(ctx), pytest.raises(NotImplementedError,
-                                               match="15a-ii"):
-                lm.forward(p, cfg, batch)
+            with dist.use(ctx):
+                assert lm._mesh_context(cfg) is ctx
+                with pytest.raises(NotImplementedError, match=width):
+                    lm._mesh_context(cfg.replace(d_model=96))   # 6, 3 heads
+            seq = dist.model_context(ctx.mesh, seq_shard=True)
+            with dist.use(seq), pytest.raises(NotImplementedError,
+                                              match="seq_shard"):
+                lm._mesh_context(cfg)
     finally:
         tdist.destroy_process_group()
 
@@ -245,132 +252,12 @@ def test_ssm_wirings_on_a_mesh_name_their_roadmap_item(tmp_path):
 # ---------------------------------------------------------------------------
 # four ranks
 # ---------------------------------------------------------------------------
-JAX_SCRIPT = textwrap.dedent("""
-    import os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    sys.path.insert(0, sys.argv[2])
-    import jax, jax.numpy as jnp, numpy as np
-    from jax.sharding import AxisType
-    from repro import optim
-    from repro.configs import get_config
-    from repro.launch import sharding
-    from repro.train import steps
-    import torch_dist_worker as W
-
-    inp = np.load(os.path.join(sys.argv[1], "inputs.npz"))
-
-    def subtree(prefix):
-        tree = {}
-        for k in inp.files:
-            if k.startswith(prefix + "/"):
-                node, parts = tree, k[len(prefix) + 1:].split("/")
-                for p in parts[:-1]:
-                    node = node.setdefault(p, {})
-                node[parts[-1]] = jnp.asarray(inp[k])
-        return tree
-
-    out = {}
-    for arch in W.TP_ARCHS:
-        cfg = W.tp_config(arch, get_config)
-        params = subtree(arch + "/params")
-        state = {"params": params, "opt": optim.init_opt_state(cfg, params),
-                 "step": jnp.zeros((), jnp.int32)}
-        batch = {k: jnp.asarray(inp[f"{arch}/{k}"])
-                 for k in ("tokens", "targets")}
-        prompt = {"tokens": jnp.asarray(inp[arch + "/prompt"])}
-        meshes = (W.TP_MESHES.items() if cfg.moe is None
-                  else [("local", None)])
-        for name, shape in meshes:
-            hooks, st, b, pb = {}, state, batch, prompt
-            if shape is not None:
-                # Auto axes: the default Explicit ones break the dense
-                # path at its embedding gather (ROADMAP C-10)
-                mesh = jax.make_mesh(shape, ("data", "model"),
-                                     axis_types=(AxisType.Auto,) * 2)
-                hooks = dict(
-                    constrain=sharding.make_constrain(mesh, cfg),
-                    constrain_logits=sharding.make_constrain_logits(mesh))
-                st = jax.device_put(state,
-                                    sharding.state_shardings(mesh, state))
-                b = jax.device_put(batch,
-                                   sharding.batch_shardings(mesh, batch))
-                pb = jax.device_put(prompt,
-                                    sharding.batch_shardings(mesh, prompt))
-            pre = f"{name}/{arch}"
-            grads = jax.jit(jax.grad(lambda p, b: steps.lm.lm_loss(
-                p, cfg, b, **hooks)[0]))(st["params"], b)
-            W.flat_tree(grads, pre + "/grads", out)
-            new, m = jax.jit(steps.make_train_step(cfg, **hooks))(st, b)
-            out[pre + "/step_loss"] = np.asarray(m["loss"])
-            out[pre + "/grad_norm"] = np.asarray(m["grad_norm"])
-            W.flat_tree(new, pre + "/state", out)
-            ckw = {"constrain": hooks["constrain"]} if hooks else {}
-            logits, cache = jax.jit(steps.make_prefill_step(
-                cfg, W.TP_CACHE, **ckw))(st["params"], pb)
-            out[pre + "/prefill_logits"] = np.asarray(logits)
-            W.flat_tree(cache, pre + "/prefill_cache", out)
-            if shape is not None:
-                cache = jax.device_put(
-                    cache, sharding.cache_shardings(mesh, cfg, cache))
-            decode = jax.jit(steps.make_decode_step(cfg, **ckw))
-            for t, tok in enumerate(inp[arch + "/decode"]):
-                _, logits, cache = decode(st["params"], jnp.asarray(tok),
-                                          cache)
-                out[f"{pre}/decode{t}_logits"] = np.asarray(logits)
-            W.flat_tree(cache, pre + "/decode_cache", out)
-    np.savez(os.path.join(sys.argv[1], "jax.npz"), **out)
-    print("JAX_TP_OK")
-""")
-
-
-def _numpy_tree(tree, prefix, out):
-    for k, v in tree.items():
-        key = f"{prefix}/{k}"
-        if isinstance(v, dict):
-            _numpy_tree(v, key, out)
-        else:
-            out[key] = np.asarray(v)
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Inputs written; the JAX subprocess and the four ranks run at once.
     Returns (the rank files, the JAX package's results)."""
-    work = tmp_path_factory.mktemp("tp")
-    rng = np.random.default_rng(0)
-    inp = {}
-    for seed, arch in enumerate(W.TP_ARCHS):
-        cfg = W.tp_config(arch, jax_config)
-        _numpy_tree(jax_lm.init_params(cfg, jax.random.key(seed + 1)),
-                    f"{arch}/params", inp)
-        V, shape = cfg.vocab_size, (W.TP_BATCH, W.TP_SEQ)
-        targets = rng.integers(0, V, shape, dtype=np.int32)
-        targets[0, :3] = -1                     # masked positions
-        inp[f"{arch}/tokens"] = rng.integers(0, V, shape, dtype=np.int32)
-        inp[f"{arch}/targets"] = targets
-        inp[f"{arch}/prompt"] = rng.integers(0, V, shape, dtype=np.int32)
-        inp[f"{arch}/decode"] = rng.integers(
-            0, V, (W.TP_DECODE, W.TP_BATCH, 1), dtype=np.int32)
-    np.savez(work / "inputs.npz", **inp)
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(W.ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                                 else []))
-    jx = subprocess.Popen([sys.executable, "-c", JAX_SCRIPT, str(work),
-                           os.path.dirname(W.__file__)],
-                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                          env=env, text=True)
-    try:
-        W.launch([("tp", 4)], work)
-        stdout, stderr = jx.communicate(timeout=W.LAUNCH_TIMEOUT)
-    finally:
-        if jx.poll() is None:
-            jx.kill()
-            jx.wait()
-    assert jx.returncode == 0 and "JAX_TP_OK" in stdout, stderr[-3000:]
-    ranks = [W.load("tp", 4, r, work) for r in range(4)]
-    return ranks, np.load(work / "jax.npz")
+    return W.run_tp_suite("tp", tmp_path_factory.mktemp("tp"),
+                          W.tp_inputs("tp", jax, jax_lm, jax_config))
 
 
 PARTS = {"train": ("grads", "state"),
@@ -416,6 +303,24 @@ def test_mesh_matches_local_path(run, mesh, arch, part):
         n_params = len(tree.leaves(lm.init_params(cfg, device="meta")))
         assert sum(k.startswith(f"{mesh}/{arch}/grads/")
                    for k in f.files) == n_params
+
+
+@pytest.mark.parametrize("part", list(PARTS))
+@pytest.mark.parametrize("arch", W.TP_EXTRA_ARCHS)
+def test_more_uniform_configs_on_2x2_match_local_path(run, arch, part):
+    """starcoder2 (GELU MLP), qwen2-vl (M-RoPE positions (3, B, S), cut by
+    ``batch_pspec``, and a frontend prefix) and musicgen (the prefix stub
+    frontend) on (2, 2) against the port's local path."""
+    ranks, _ = run
+    assert _held(ranks[0], f"2x2/{arch}", ranks[0], f"local/{arch}",
+                 part) >= (3 if part == "decode" else 2)
+
+
+@pytest.mark.parametrize("part", list(PARTS))
+@pytest.mark.parametrize("arch", W.TP_EXTRA_ARCHS)
+def test_more_uniform_configs_on_2x2_match_jax_package(run, arch, part):
+    ranks, jx = run
+    assert _held(ranks[0], f"2x2/{arch}", jx, f"2x2/{arch}", part) >= 2
 
 
 @pytest.mark.parametrize("part", list(PARTS))

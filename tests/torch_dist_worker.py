@@ -15,10 +15,18 @@ Suites:
   ``moe``   -- the expert-parallel MoE layer on a (2, 2) mesh against the
                port's local path, and at the config's capacity for the
                comparison with the JAX package;
-  ``tp``    -- the whole model (five wirings) on (2, 2) and (1, 4) meshes:
-               a train step's gradients and state, a prefill and decode
-               steps, gathered back, beside the port's local path (rank
-               0); then ``elastic.rescale`` from (2, 2) to (1, 4).
+  ``tp``    -- the whole model (five wirings) on (2, 2) and (1, 4) meshes,
+               three more uniform configs on (2, 2): a train step's
+               gradients and state, a prefill and decode steps, gathered
+               back, beside the port's local path (rank 0); then
+               ``elastic.rescale`` from (2, 2) to (1, 4);
+  ``tp_ssm`` -- the same for the SSM and hybrid wirings (zamba2, rwkv6, a
+               uniform Mamba2 stack) over a sequence that crosses a scan
+               chunk, the gradients of TP_MUTANTS' broken variants, and
+               zamba2's rescale.
+
+``run_tp_suite`` runs a "tp" suite's ranks beside the JAX package's
+GSPMD steps on the same inputs (``JAX_SCRIPT``).
 
 Run by hand: ``python tests/torch_dist_worker.py SUITE RANK WORLD WORKDIR``.
 """
@@ -306,12 +314,16 @@ def _moe_grads(torch, tdist, blocks, dist, mesh, ctx, cfg, full, x, name):
 
 
 # ---------------------------------------------------------------------------
-# suite "tp"
+# suites "tp" and "tp_ssm"
 # ---------------------------------------------------------------------------
 #: the five wirings the model on a mesh runs: dense, qk_norm, SWA, moe,
 #: prefix_dense with seq_shard and Adafactor
 TP_ARCHS = ("internlm2_1p8b", "qwen3_8b", "h2o_danube3_4b",
             "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b")
+#: more uniform configs, on (2, 2) only: a GELU MLP (starcoder2), M-RoPE
+#: positions (3, B, S) with a stub frontend prefix (qwen2-vl), the stub
+#: frontend prefix alone (musicgen)
+TP_EXTRA_ARCHS = ("starcoder2_7b", "qwen2_vl_2b", "musicgen_medium")
 TP_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 #: train batch, sequence (= prompt), decode cache and decode steps; the
 #: cache's window (20, or danube's 8) divides 4, so on (1, 4), where the 2
@@ -319,20 +331,198 @@ TP_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 TP_BATCH, TP_SEQ, TP_CACHE, TP_DECODE = 4, 16, 20, 2
 #: the elastic case: its arch, the pre-copy's block and source steps
 TP_ELASTIC = ("internlm2_1p8b", 256)
+#: the SSM and hybrid wirings: zamba2 (hybrid_shared: 2 groups of 5
+#: Mamba2 layers and the shared attention, 8 Mamba2 heads, 4 query and 2
+#: KV heads), rwkv6 (4 wkv heads) and a uniform Mamba2 stack
+TP_SSM_ARCHS = ("zamba2_2p7b", "rwkv6_1p6b", "mamba2_stack")
+#: a sequence that crosses the scan's chunk of 32 (the state carried into
+#: a second chunk); a cache of 52, which divides 4 (zamba2's ring cut
+#: along its window on (1, 4))
+TP_SSM_SEQ, TP_SSM_CACHE = 48, 52
+TP_SSM_ELASTIC = ("zamba2_2p7b", 256)
+#: mutations of the new gradient paths, each on (2, 2): (arch, name); the
+#: leaf names drop the ``model`` sum of that leaf's gradient
+#: (``dist.tp_block`` without ``tp_param``), ``norm_sum`` drops the gated
+#: norm's all-reduce, ``norm_sum_backward`` only its backward
+TP_MUTANTS = (("zamba2_2p7b", "A_log"), ("zamba2_2p7b", "conv_w"),
+              ("rwkv6_1p6b", "faaaa"), ("zamba2_2p7b", "norm_sum"),
+              ("zamba2_2p7b", "norm_sum_backward"))
 
 
 def tp_config(arch: str, pkg):
     """The f32 smoke config of ``arch`` in ``pkg`` (either package's
     ``get_config``), with what each case exercises: block remat
-    (internlm2), a window of 8 (danube: the ring wraps in prefill), and
-    kimi-k2's own ``seq_shard`` and full remat, which its smoke config
-    turns off."""
+    (internlm2, zamba2's groups, rwkv6's layers), a window of 8 (danube:
+    the ring wraps in prefill), and kimi-k2's own ``seq_shard`` and full
+    remat, which its smoke config turns off. ``mamba2_stack``: zamba2's
+    smoke widths as a uniform stack of 2 Mamba2 layers."""
+    if arch == "mamba2_stack":
+        return pkg("zamba2_2p7b").smoke().replace(
+            param_dtype="float32", block_pattern=("mamba",), num_layers=2)
     cfg = pkg(arch).smoke().replace(param_dtype="float32")
     return cfg.replace(**{"internlm2_1p8b": dict(remat="block"),
                           "h2o_danube3_4b": dict(sliding_window=8),
                           "kimi_k2_1t_a32b": dict(seq_shard=True,
                                                   remat="full"),
+                          "zamba2_2p7b": dict(remat="block"),
+                          "rwkv6_1p6b": dict(remat="block"),
                           }.get(arch, {}))
+
+
+def tp_cases(suite: str):
+    """The suite's (arch, mesh names) pairs, its sequence and its cache
+    length."""
+    if suite == "tp_ssm":
+        return ([(a, tuple(TP_MESHES)) for a in TP_SSM_ARCHS], TP_SSM_SEQ,
+                TP_SSM_CACHE)
+    return ([(a, tuple(TP_MESHES)) for a in TP_ARCHS]
+            + [(a, ("2x2",)) for a in TP_EXTRA_ARCHS], TP_SEQ, TP_CACHE)
+
+
+def tp_inputs(suite: str, jax, jax_lm, jax_config) -> dict:
+    """The suite's inputs from seeded numpy draws: each arch's weights from
+    the JAX package's ``init_params`` (flat), tokens, targets (3 masked),
+    a prompt and decode tokens; M-RoPE positions and a frontend prefix
+    where the config reads them."""
+    rng = np.random.default_rng(0)
+    inp: dict = {}
+    cases, seq, _ = tp_cases(suite)
+    for seed, (arch, _) in enumerate(cases):
+        cfg = tp_config(arch, jax_config)
+        flat_tree(jax_lm.init_params(cfg, jax.random.key(seed + 1)),
+                  f"{arch}/params", inp)
+        V, shape = cfg.vocab_size, (TP_BATCH, seq)
+        targets = rng.integers(0, V, shape, dtype=np.int32)
+        targets[0, :3] = -1                     # masked positions
+        inp[f"{arch}/tokens"] = rng.integers(0, V, shape, dtype=np.int32)
+        inp[f"{arch}/targets"] = targets
+        inp[f"{arch}/prompt"] = rng.integers(0, V, shape, dtype=np.int32)
+        inp[f"{arch}/decode"] = rng.integers(
+            0, V, (TP_DECODE, TP_BATCH, 1), dtype=np.int32)
+        if cfg.mrope:                           # t, h and w streams
+            t = np.arange(seq, dtype=np.int32)
+            inp[f"{arch}/positions"] = np.broadcast_to(
+                np.stack([t, t // 2, t % 5])[:, None], (3, *shape)).copy()
+        if cfg.frontend_prefix:
+            inp[f"{arch}/prefix_embeds"] = (0.5 * rng.standard_normal(
+                (TP_BATCH, cfg.frontend_prefix, cfg.d_model))).astype(
+                    np.float32)
+    return inp
+
+
+#: the JAX package's side, run as ``python -c JAX_SCRIPT WORKDIR TESTS
+#: SUITE`` with 4 forced host devices: for each case its GSPMD steps on a
+#: mesh of ``AxisType.Auto`` axes with the rules and hooks (the default
+#: Explicit axes break the dense path at its embedding gather, ROADMAP
+#: C-10), or its unsharded steps for a MoE config (ROADMAP C-9); writes
+#: ``WORKDIR/jax_SUITE.npz``
+JAX_SCRIPT = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path.insert(0, sys.argv[2])
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro import optim
+from repro.configs import get_config
+from repro.launch import sharding
+from repro.train import steps
+import torch_dist_worker as W
+
+suite = sys.argv[3]
+inp = np.load(os.path.join(sys.argv[1], "inputs.npz"))
+cases, _, cache_len = W.tp_cases(suite)
+EXTRA = ("positions", "prefix_embeds")
+
+
+def subtree(prefix):
+    tree = {}
+    for k in inp.files:
+        if k.startswith(prefix + "/"):
+            node, parts = tree, k[len(prefix) + 1:].split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = jnp.asarray(inp[k])
+    return tree
+
+
+out = {}
+for arch, mesh_names in cases:
+    cfg = W.tp_config(arch, get_config)
+    params = subtree(arch + "/params")
+    state = {"params": params, "opt": optim.init_opt_state(cfg, params),
+             "step": jnp.zeros((), jnp.int32)}
+    extra = {k: jnp.asarray(inp[f"{arch}/{k}"]) for k in EXTRA
+             if f"{arch}/{k}" in inp.files}
+    batch = {k: jnp.asarray(inp[f"{arch}/{k}"])
+             for k in ("tokens", "targets")}
+    batch.update(extra)
+    prompt = {"tokens": jnp.asarray(inp[arch + "/prompt"]), **extra}
+    meshes = ([(n, W.TP_MESHES[n]) for n in mesh_names] if cfg.moe is None
+              else [("local", None)])
+    for name, shape in meshes:
+        hooks, st, b, pb = {}, state, batch, prompt
+        if shape is not None:
+            mesh = jax.make_mesh(shape, ("data", "model"),
+                                 axis_types=(AxisType.Auto,) * 2)
+            hooks = dict(
+                constrain=sharding.make_constrain(mesh, cfg),
+                constrain_logits=sharding.make_constrain_logits(mesh))
+            st = jax.device_put(state, sharding.state_shardings(mesh, state))
+            b = jax.device_put(batch, sharding.batch_shardings(mesh, batch))
+            pb = jax.device_put(prompt,
+                                sharding.batch_shardings(mesh, prompt))
+        pre = f"{name}/{arch}"
+        grads = jax.jit(jax.grad(lambda p, b: steps.lm.lm_loss(
+            p, cfg, b, **hooks)[0]))(st["params"], b)
+        W.flat_tree(grads, pre + "/grads", out)
+        new, m = jax.jit(steps.make_train_step(cfg, **hooks))(st, b)
+        out[pre + "/step_loss"] = np.asarray(m["loss"])
+        out[pre + "/grad_norm"] = np.asarray(m["grad_norm"])
+        W.flat_tree(new, pre + "/state", out)
+        ckw = {"constrain": hooks["constrain"]} if hooks else {}
+        logits, cache = jax.jit(steps.make_prefill_step(
+            cfg, cache_len, **ckw))(st["params"], pb)
+        out[pre + "/prefill_logits"] = np.asarray(logits)
+        W.flat_tree(cache, pre + "/prefill_cache", out)
+        if shape is not None:
+            cache = jax.device_put(
+                cache, sharding.cache_shardings(mesh, cfg, cache))
+        decode = jax.jit(steps.make_decode_step(cfg, **ckw))
+        for t, tok in enumerate(inp[arch + "/decode"]):
+            _, logits, cache = decode(st["params"], jnp.asarray(tok), cache)
+            out[f"{pre}/decode{t}_logits"] = np.asarray(logits)
+        W.flat_tree(cache, pre + "/decode_cache", out)
+np.savez(os.path.join(sys.argv[1], f"jax_{suite}.npz"), **out)
+print("JAX_TP_OK")
+"""
+
+
+def run_tp_suite(suite: str, work, inputs: dict):
+    """``inputs`` written to ``work``; the JAX package's side
+    (``JAX_SCRIPT``) and four ranks of ``suite`` run at once. Returns (the
+    rank files, the JAX package's results)."""
+    work = pathlib.Path(work)
+    np.savez(work / "inputs.npz", **inputs)
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    jx = subprocess.Popen([sys.executable, "-c", JAX_SCRIPT, str(work),
+                           os.path.dirname(os.path.abspath(__file__)), suite],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          env=env, text=True)
+    try:
+        launch([(suite, 4)], work)
+        stdout, stderr = jx.communicate(timeout=LAUNCH_TIMEOUT)
+    finally:
+        if jx.poll() is None:
+            jx.kill()
+            jx.wait()
+    if jx.returncode != 0 or "JAX_TP_OK" not in stdout:
+        raise RuntimeError(f"the JAX side failed: {stderr[-3000:]}")
+    ranks = [load(suite, 4, r, work) for r in range(4)]
+    return ranks, np.load(work / f"jax_{suite}.npz")
 
 
 def _subtree(flat, prefix):
@@ -393,19 +583,21 @@ def _backward_on_another_thread(torch):
         torch.autograd.grad = grad
 
 
-def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None):
+def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None,
+            cache_len=TP_CACHE, grads_only=False):
     """One train step's gradient, loss, grad norm and new state, a prefill
     and the decode steps, on ``mesh`` (this rank's slices, gathered back)
-    or, without one, on the port's local path. Returns flat numpy
-    entries."""
+    or, without one, on the port's local path (``grads_only``: the loss
+    and gradient alone). Returns flat numpy entries."""
     from repro_torch.launch import sharding
     from repro_torch.models import dist, lm
     from repro_torch.train import (make_decode_step, make_grad_fn,
                                    make_prefill_step, make_train_step)
     out: dict = {}
     hooks, ctx = {}, None
-    gather = cut = (lambda spec_fn, t: t)
-    full_cache = lm.init_cache(cfg, TP_BATCH, TP_CACHE, device="cpu")
+    gather = (lambda spec_fn, t: t)
+    n_rows = prompt["tokens"].shape[0]
+    full_cache = lm.init_cache(cfg, n_rows, cache_len, device="cpu")
     if mesh is not None:
         hooks = dict(constrain=sharding.make_constrain(mesh, cfg),
                      constrain_logits=sharding.make_constrain_logits(mesh))
@@ -418,7 +610,7 @@ def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None):
         param_specs = sharding.param_specs(mesh, state["params"])
         cache_specs = sharding.cache_specs(mesh, cfg, full_cache)
         rows = sharding.batch_pspec(mesh, ("logits",), full_cache["pos"]
-                                    .new_zeros(TP_BATCH, 1))
+                                    .new_zeros(n_rows, 1))
         state = sharding.state_shardings(mesh, state)
         batch = sharding.batch_shardings(mesh, batch)
         prompt = sharding.batch_shardings(mesh, prompt)
@@ -431,12 +623,14 @@ def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None):
                                                            batch)
         out["loss"] = loss.numpy()
         flat_tree(gather(param_specs, grads), "grads", out)
+        if grads_only:
+            return out
         new, m = make_train_step(cfg, **hooks)(state, batch)
         out["step_loss"], out["grad_norm"] = m["loss"].numpy(), \
             m["grad_norm"].numpy()
         flat_tree(gather(state_specs, new), "state", out)
         logits, cache = make_prefill_step(
-            cfg, TP_CACHE, constrain=hooks.get("constrain", lm.Identity))(
+            cfg, cache_len, constrain=hooks.get("constrain", lm.Identity))(
                 state["params"], prompt)
     if mesh is not None:
         logits = sharding.gather_leaf(mesh, rows, logits)
@@ -466,8 +660,12 @@ def _tp_inputs(torch, inp, arch):
              "step": torch.zeros((), dtype=torch.int32)}
     t = {k: torch.as_tensor(inp[f"{arch}/{k}"])
          for k in ("tokens", "targets", "prompt", "decode")}
-    return (cfg, state, {"tokens": t["tokens"], "targets": t["targets"]},
-            {"tokens": t["prompt"]}, list(t["decode"]))
+    extra = {k: torch.as_tensor(inp[f"{arch}/{k}"])
+             for k in ("positions", "prefix_embeds")
+             if f"{arch}/{k}" in inp.files}
+    return (cfg, state, {"tokens": t["tokens"], "targets": t["targets"],
+                         **extra},
+            {"tokens": t["prompt"], **extra}, list(t["decode"]))
 
 
 def _clone_state(torch, state):
@@ -475,7 +673,7 @@ def _clone_state(torch, state):
     return tree.map(lambda t: t.clone(), state)
 
 
-def _tp_elastic(torch, inp, rank) -> dict:
+def _tp_elastic(torch, inp, rank, case=TP_ELASTIC, key="elastic") -> dict:
     """``elastic.rescale`` of the (2, 2) state onto (1, 4) while the source
     keeps stepping; the destination held bit for bit to the slices cut from
     the gathered source at the stop, then one step on (1, 4)."""
@@ -485,7 +683,7 @@ def _tp_elastic(torch, inp, rank) -> dict:
     from repro_torch.models import dist
     from repro_torch.runtime import elastic
     from repro_torch.train import make_grad_fn, make_train_step
-    arch, block = TP_ELASTIC
+    arch, block = case
     cfg, state, batch, _, _ = _tp_inputs(torch, inp, arch)
     src = meshlib.make_host_mesh(2, 2, device="cpu")
     dst = meshlib.make_host_mesh(1, 4, device="cpu")
@@ -524,41 +722,115 @@ def _tp_elastic(torch, inp, rank) -> dict:
         dst_loss = make_grad_fn(cfg, **d_hooks)(got["params"], b_dst)[0]
         _, m = make_train_step(cfg, **d_hooks)(got, b_dst)
     o = rep.precopy.outcome
-    return {"elastic/equal": np.asarray(equal),
-            "elastic/rounds": np.asarray(o.rounds),
-            "elastic/stop_reason": np.asarray(o.stop_reason),
-            "elastic/per_round": np.asarray(rep.precopy.per_round_dirty_bytes),
-            "elastic/devices": np.asarray([rep.src_devices,
-                                           rep.dst_devices]),
-            "elastic/src_loss": src_loss.numpy(),
-            "elastic/dst_loss": dst_loss.numpy(),
-            "elastic/dst_step_loss": m["loss"].numpy(),
-            "elastic/step": np.asarray(int(got["step"]))}
+    return {f"{key}/equal": np.asarray(equal),
+            f"{key}/rounds": np.asarray(o.rounds),
+            f"{key}/stop_reason": np.asarray(o.stop_reason),
+            f"{key}/per_round": np.asarray(
+                rep.precopy.per_round_dirty_bytes),
+            f"{key}/devices": np.asarray([rep.src_devices,
+                                          rep.dst_devices]),
+            f"{key}/src_loss": src_loss.numpy(),
+            f"{key}/dst_loss": dst_loss.numpy(),
+            f"{key}/dst_step_loss": m["loss"].numpy(),
+            f"{key}/step": np.asarray(int(got["step"]))}
+
+
+@contextlib.contextmanager
+def tp_mutant(name: str, params):
+    """One of TP_MUTANTS in force while the block runs (module-level
+    patches of ``models/dist``): a leaf's ``model`` sum dropped (the
+    ``dist.tp_block`` calls on that leaf's storage run without
+    ``tp_param``), or the gated norm's ``dist.tp_sum`` replaced by no sum
+    (``norm_sum``) or by a sum whose backward is the identity
+    (``norm_sum_backward``)."""
+    from repro_torch.models import dist
+    if name in ("norm_sum", "norm_sum_backward"):
+        orig_sum = dist.tp_sum
+
+        def no_sum(x, ctx):
+            return x
+
+        def forward_only(x, ctx):
+            return dist.reduce_from_tp(x, ctx.mesh, ctx.tp_axis)
+
+        dist.tp_sum = no_sum if name == "norm_sum" else forward_only
+        try:
+            yield
+        finally:
+            dist.tp_sum = orig_sum
+        return
+    leaf = (params["blocks"][name] if "blocks" in params
+            else params["mamba"]["mixer"][name])
+    ptr = leaf.untyped_storage().data_ptr()
+    orig_block, orig_param = dist.tp_block, dist.tp_param
+
+    def block(t, ctx, dim, ranges=None):
+        if t.untyped_storage().data_ptr() != ptr:
+            return orig_block(t, ctx, dim, ranges)
+        dist.tp_param = lambda t, ctx: t
+        try:
+            return orig_block(t, ctx, dim, ranges)
+        finally:
+            dist.tp_param = orig_param
+
+    dist.tp_block = block
+    try:
+        yield
+    finally:
+        dist.tp_block = orig_block
 
 
 def _tp_suite(rank: int, world: int, inp) -> dict:
     import torch
     with _backward_on_another_thread(torch):
-        return _tp_cases(torch, rank, inp)
+        return _tp_cases(torch, rank, inp, "tp")
 
 
-def _tp_cases(torch, rank: int, inp) -> dict:
+def _tp_ssm_suite(rank: int, world: int, inp) -> dict:
+    import torch
+    with _backward_on_another_thread(torch):
+        return _tp_cases(torch, rank, inp, "tp_ssm")
+
+
+def _tp_cases(torch, rank: int, inp, suite: str) -> dict:
     from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import dist
     out: dict = {}
+    cases, _, cache_len = tp_cases(suite)
     for name, shape in TP_MESHES.items():
         mesh = meshlib.make_host_mesh(*shape, device="cpu")
-        for arch in TP_ARCHS:
+        for arch, meshes in cases:
+            if name not in meshes:
+                continue
             cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp, arch)
             got = _tp_run(torch, cfg, state, batch, prompt, tokens,
-                          mesh=mesh)
+                          mesh=mesh, cache_len=cache_len)
             if rank == 0:
                 out.update({f"{name}/{arch}/{k}": v for k, v in got.items()})
-    if rank == 0:
-        for arch in TP_ARCHS:
+    if suite == "tp_ssm":
+        mesh = meshlib.make_host_mesh(*TP_MESHES["2x2"], device="cpu")
+        for arch, name in TP_MUTANTS:
             cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp, arch)
-            got = _tp_run(torch, cfg, state, batch, prompt, tokens)
-            out.update({f"local/{arch}/{k}": v for k, v in got.items()})
-    out.update(_tp_elastic(torch, inp, rank))
+            with tp_mutant(name, state["params"]):
+                got = _tp_run(torch, cfg, state, batch, prompt, tokens,
+                              mesh=mesh, cache_len=cache_len,
+                              grads_only=True)
+            if rank == 0:
+                out.update({f"mutant_{name}/{arch}/{k}": v
+                            for k, v in got.items()})
+    if rank == 0:
+        with dist.use(None):
+            for arch, _ in cases:
+                cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp,
+                                                               arch)
+                got = _tp_run(torch, cfg, state, batch, prompt, tokens,
+                              cache_len=cache_len)
+                out.update({f"local/{arch}/{k}": v for k, v in got.items()})
+    if suite == "tp_ssm":
+        out.update(_tp_elastic(torch, inp, rank, TP_SSM_ELASTIC,
+                               "elastic_ssm"))
+    else:
+        out.update(_tp_elastic(torch, inp, rank))
     return out
 
 
@@ -574,7 +846,7 @@ def main(argv) -> int:
     try:
         inp = np.load(workdir / "inputs.npz")
         out = {"shard": _shard_suite, "moe": _moe_suite,
-               "tp": _tp_suite}[suite](
+               "tp": _tp_suite, "tp_ssm": _tp_ssm_suite}[suite](
             rank, world, inp)
         tdist.barrier()
     finally:
