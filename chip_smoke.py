@@ -9,8 +9,8 @@ the MoE models (qwen3-moe-30b-a3b at full width and depth, also through
 the expert-parallel path, kimi-k2's prefix-dense wiring at full width),
 training of a full-width internlm2-1.8b and the live pre-copy of its
 training state, the model on a (data, model) mesh of ranks (dense, SSM
-and hybrid), and holds every hand-written kernel against its plain
-PyTorch version:
+and hybrid), the dry run of the production meshes and the examples, and
+holds every hand-written kernel against its plain PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
                ``csrc/dirty_delta.cu``, ``csrc/ssm_scan.cu`` and
@@ -216,6 +216,21 @@ PyTorch version:
                each held to the local step within its SSM_TP_F32 limit.
                The parent holds B4 and B5 at every per-rank shape the
                ranks launched them at.
+ 13. dryrun  — ``launch/dryrun.py`` on this machine, every cell a process
+               of its own, all at once: (a) five cells of the production
+               meshes through its CLI on fake cuda tensors (internlm2
+               train_4k single, rwkv6 train_4k multi, qwen3-moe
+               prefill_32k single, zamba2 long_500k multi, kimi-k2
+               decode_32k multi), each record ``ok`` with no kernel
+               library loaded or launched; (b) phase 12's rwkv6 train step
+               on a fake group of 4, its collective calls and input bytes
+               by kind equal to phase 12's rank 0 (its timed step less its
+               dirty-block telemetry); (c) phase 8's internlm2 train step
+               on one rank, its argument bytes equal to phase 8's state
+               and batch, its predicted peak printed beside the measured.
+ 14. examples — each ``examples/torch_*.py`` with ``--device cuda`` in a
+               process of its own (``torch_train_100m.py`` 60 steps);
+               each must exit 0 with its ``OK`` line.
 
 Every phase raises on failure. The kernels' launch counters are set to 0
 before each path (phases 3, 4 and each of its controller and scenario
@@ -1488,6 +1503,10 @@ def phase_ssm_kernel(torch, ref, gla, ssm_scan):
             line += f", against the step recurrence {err_ref:.6g}"
         if kind != "plain" and not step:
             ms = _median_ms(lambda: ssm_scan.ssm_scan(*ins, u, s0))
+            # the same launch through the custom op the model calls
+            # (``kernels/ops.py``): what its dispatch adds
+            op_ms = _median_ms(lambda: torch.ops.repro_torch.ssm_scan(
+                *ins, u, s0))
             plain = _median_ms(lambda: gla.gla_chunked(
                 *ins, bonus=u, initial_state=s0), 5)
             nbytes = (sum(_distinct_bytes(t) for t in ins)
@@ -1500,7 +1519,8 @@ def phase_ssm_kernel(torch, ref, gla, ssm_scan):
             bound, by = _bound_ms(TF32_SPLIT_PRODUCTS * flops, nbytes,
                                   PEAK_TF32_TENSOR_FLOPS)
             f32_bound, f32_by = _bound_ms(flops, nbytes)
-            line += (f"; kernel {ms:.4f} ms plain {plain:.4f} ms bound "
+            line += (f"; kernel {ms:.4f} ms (through the custom op "
+                     f"{op_ms:.4f} ms) plain {plain:.4f} ms bound "
                      f"{bound:.6g} ms ({by}, {nbytes / 1e9:.4f} GB; at the "
                      f"f32 CUDA-core peak {f32_bound:.6g} ms, {f32_by})")
             if record is None:
@@ -2143,6 +2163,9 @@ def phase_attention_kernel(torch, ref, fa):
         err, use = _attn_check(torch, ref, got, q, k, v, window,
                                f"{name}'s prefill shape")
         ms = _median_ms(lambda: fa.flash_attention(q, k, v, window))
+        # the same launch through the custom op the model calls
+        op_ms = _median_ms(lambda: torch.ops.repro_torch.flash_attention(
+            q, k, v, window))
         plain = _median_ms(lambda: ref.attention_chunked(q, k, v,
                                                          window=window), 5)
         lib = _median_ms(lambda: F.scaled_dot_product_attention(
@@ -2153,14 +2176,15 @@ def phase_attention_kernel(torch, ref, fa):
               f"{(B, H, Hkv, SERVE_PROMPT, D)} bf16 window "
               f"{window}: max_abs_err {err:.6g} against attention_ref "
               f"({use:.4f} of the limit), bit-equal on a second launch; "
-              f"kernel {ms:.4f} ms "
+              f"kernel {ms:.4f} ms (through the custom op {op_ms:.4f} ms) "
               f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.4f} of the "
               f"bound) plain {plain:.4f} ms sdpa {lib:.4f} ms (kernel / sdpa "
               f"{ms / lib:.4f}) bound {bound:.6g} ms ({by})")
         times[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=bound, bound_by=by, library_ms=lib)
         if record is None:
-            record = times[name]
+            record = dict(times[name])
+        times[name]["op_ms"] = op_ms
         del q, k, v, got
         torch.cuda.empty_cache()
     return record, times
@@ -2432,6 +2456,9 @@ def phase_train(torch, ops_mod, ref):
             total_launches[k] = total_launches.get(k, 0) + v
         row = {"step": i, "host_ms": 1e3 * host,
                "event_ms": a.elapsed_time(b), "tokens_per_s": tokens / host,
+               "batch_bytes": sum(t.numel() * t.element_size()
+                                  for t in batch.values()),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
                **{k: float(m[k]) for k in ("loss", "grad_norm", "lr",
                                            "dirty_fraction", "dirty_bytes")},
                "b5_launches": launches["flash_attention"],
@@ -2557,7 +2584,8 @@ def phase_train(torch, ops_mod, ref):
     del dest, m, live
     torch.cuda.empty_cache()
     return total_launches, mig_launches, {
-        "params": n, "state_gb": v_mem / 1e9, "batch": TRAIN_BATCH,
+        "params": n, "state_gb": v_mem / 1e9, "state_bytes": v_mem,
+        "batch": TRAIN_BATCH,
         "first_step": first,
         "seq": TRAIN_SEQ, "steps": steps, "split_ms": split,
         "split_step_ms": whole, "migration_batch": mig_batch,
@@ -3673,12 +3701,17 @@ def _capturing_attention(ops_mod, seen):
 
 
 @contextlib.contextmanager
-def _collective_ms(torch, tdist, box):
-    """Host ms and bytes of every collective call by kind while the block
-    runs, the card synchronised before and after each (gloo stages CUDA
-    tensors through the host)."""
+def _collective_ms(torch, tdist, box, telemetry=None):
+    """Host ms, calls and input bytes of every collective call by kind
+    while the block runs, the card synchronised before and after each
+    (gloo stages CUDA tensors through the host). With ``telemetry`` the
+    calls made inside ``train.steps.dirty_block_stats`` also go there (they
+    stay in ``box``)."""
+    from repro_torch.train import steps as steps_mod
     names = ("all_reduce", "all_gather_into_tensor", "all_to_all_single")
     orig = {n: getattr(tdist, n) for n in names}
+    stats = steps_mod.dirty_block_stats
+    boxes = [box]
 
     def wrap(n):
         def run(*args, **kw):
@@ -3686,21 +3719,32 @@ def _collective_ms(torch, tdist, box):
             t = time.perf_counter()
             out = orig[n](*args, **kw)
             torch.cuda.synchronize()
-            rec = box.setdefault(n, {"ms": 0.0, "calls": 0, "bytes": 0})
-            rec["ms"] += 1e3 * (time.perf_counter() - t)
-            rec["calls"] += 1
             t0 = args[1] if n != "all_reduce" else args[0]
-            rec["bytes"] += t0.numel() * t0.element_size()
+            for b in boxes:
+                rec = b.setdefault(n, {"ms": 0.0, "calls": 0, "bytes": 0})
+                rec["ms"] += 1e3 * (time.perf_counter() - t)
+                rec["calls"] += 1
+                rec["bytes"] += t0.numel() * t0.element_size()
             return out
         return run
 
+    def stats_apart(*args, **kw):
+        boxes.append(telemetry)
+        try:
+            return stats(*args, **kw)
+        finally:
+            boxes.pop()
+
     for n in names:
         setattr(tdist, n, wrap(n))
+    if telemetry is not None:
+        steps_mod.dirty_block_stats = stats_apart
     try:
         yield
     finally:
         for n in names:
             setattr(tdist, n, orig[n])
+        steps_mod.dirty_block_stats = stats
 
 
 def _tp_state(torch, cfg, mesh):
@@ -3842,7 +3886,7 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
                 raise AssertionError(f"rank {rank}: the mesh's first step "
                                      f"{k} {got[k]} against the local "
                                      f"step's {first[k]} (phase 8)")
-        rows, coll = [], {}
+        rows, coll, telemetry = [], {}, {}
         for n_step in range(steps):
             i = int(state["step"])
             b = batch(i)
@@ -3853,8 +3897,9 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
             e = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             # the last step times every collective (gloo moves a CUDA
-            # tensor through the host, which syncs the card anyway)
-            timer = _collective_ms(torch, tdist, coll) \
+            # tensor through the host, which syncs the card anyway), those
+            # of its dirty-block telemetry also apart
+            timer = _collective_ms(torch, tdist, coll, telemetry) \
                 if n_step == steps - 1 else contextlib.nullcontext()
             with counted(), timer:
                 a.record()
@@ -3878,7 +3923,8 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
             if not math.isfinite(row["loss"]):
                 raise AssertionError(f"rank {rank} {arch} mesh step {i}: "
                                      f"loss {row['loss']}")
-    out.update(steps=rows, collectives=coll)
+    out.update(steps=rows, collectives=coll,
+               collectives_telemetry=telemetry)
     del state
     return out
 
@@ -4547,6 +4593,227 @@ def phase_ssm_tp_ranks(torch, ops_mod):
                       "b4_shapes": sorted(scans), "b5_shapes": sorted(seen)}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run on the card's machine; phase 14: the examples
+# ---------------------------------------------------------------------------
+#: (arch, shape, mesh) cells of ``launch/dryrun.py`` traced on fake cuda
+DRYRUN_CELLS = (("internlm2_1p8b", "train_4k", "single"),
+                ("rwkv6_1p6b", "train_4k", "multi"),
+                ("qwen3_moe_30b_a3b", "prefill_32k", "single"),
+                ("zamba2_2p7b", "long_500k", "multi"),
+                ("kimi_k2_1t_a32b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 600
+#: the functions phase 12 wraps -> the dry run's collective kinds
+COLLECTIVE_KINDS = {"all_gather_into_tensor": "all-gather",
+                    "all_reduce": "all-reduce",
+                    "all_to_all_single": "all-to-all"}
+#: one cell of any shape (``dryrun.run_custom``) in a process of its own:
+#: argv[1] the source root, argv[2] JSON (arch, name, seq, batch, mode,
+#: mesh, the ``(data, model)`` shape or null for one rank)
+_CUSTOM_CELL = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+a = json.loads(sys.argv[2])
+rec = dryrun.run_custom(get_config(a["arch"]), ShapeConfig(
+    a["name"], a["seq"], a["batch"], a["mode"]), a["mesh"], "cuda")
+print("DRYRUN " + json.dumps(rec))
+"""
+
+
+def _children(cmds: dict, timeout: float, cwd) -> dict:
+    """Run every command of ``cmds`` at once with ``src`` on the path, each
+    one's output into a file in ``cwd``; returns key -> (output, exit
+    code, its wall seconds). Raises when ``timeout`` passes with one still
+    running, and kills what is left on the way out."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs, t0 = {}, time.perf_counter()
+    for i, (key, cmd) in enumerate(cmds.items()):
+        log = pathlib.Path(cwd) / f"child{i}.log"
+        with open(log, "w") as f:
+            procs[key] = (subprocess.Popen(cmd, stdout=f,
+                                           stderr=subprocess.STDOUT,
+                                           env=env, cwd=str(cwd)), log)
+    walls = {}
+    try:
+        while len(walls) < len(procs):
+            for key, (p, _) in procs.items():
+                if key not in walls and p.poll() is not None:
+                    walls[key] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"still running after {timeout} s: "
+                                     f"{[k for k in procs if k not in walls]}")
+            time.sleep(0.1)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {key: (log.read_text(), p.returncode, walls[key])
+            for key, (p, log) in procs.items()}
+
+
+def _dryrun_line(what: str, rec: dict) -> str:
+    mem = rec["memory"]
+    return (f"[dryrun] {what}: flops {rec['flops']:.6e} hbm_bytes "
+            f"{rec['hbm_bytes']:.6e} coll_total "
+            f"{rec['collectives'].get('total', 0.0):.6e} temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.4f} GB args "
+            f"{mem['argument_size_in_bytes'] / 1e9:.4f} GB alias "
+            f"{mem['alias_size_in_bytes'] / 1e9:.4f} GB ops {rec['ops']} "
+            f"trace_s {rec['trace_s']:.4f}")
+
+
+def phase_dryrun(train_times: dict, ssm_tp_times: dict) -> dict:
+    """Phase 13: ``launch/dryrun.py`` on this machine, every cell a process
+    of its own (the fake process group never meets this process's or the
+    gloo ranks' groups), all at once. (a) DRYRUN_CELLS through the CLI on
+    fake cuda tensors: each record ``ok``, no kernel library loaded or
+    launched in its process. (b) Phase 12's rwkv6 train step (full depth,
+    bf16, TRAIN_BATCH x TRAIN_SEQ, TP_MESH) on a fake group of 4: its
+    collective calls and raw input bytes by kind equal rank 0's record of
+    its timed step in phase 12, less that step's dirty-block telemetry
+    (which the dry run does not trace). (c) Phase 8's internlm2 train step
+    on one rank: its argument bytes equal phase 8's state plus batch, byte
+    for byte; its predicted peak (arguments + temp) is printed beside the
+    step's measured ``max_memory_allocated`` (a finding, not a gate)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        cmds = {cell: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", cell[0], "--shape", cell[1], "--mesh",
+                       cell[2], "--device", "cuda", "--out", tmp]
+                for cell in DRYRUN_CELLS}
+        custom = {
+            "collectives": dict(arch=RWKV_ARCH, name="phase12_train",
+                                seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                                mode="train", mesh=list(TP_MESH)),
+            "memory": dict(arch=TRAIN_ARCH, name="phase8_train",
+                           seq=TRAIN_SEQ, batch=TRAIN_BATCH, mode="train",
+                           mesh=None)}
+        for key, spec in custom.items():
+            cmds[key] = [sys.executable, "-c", _CUSTOM_CELL,
+                         str(ROOT / "src"), json.dumps(spec)]
+        t0 = time.perf_counter()
+        runs = _children(cmds, DRYRUN_TIMEOUT, tmp)
+        wall = time.perf_counter() - t0
+        failed = {str(k): text[-3000:] for k, (text, code, _) in runs.items()
+                  if code}
+        if failed:
+            raise AssertionError(f"dry-run processes failed: {failed}")
+        records = {}
+        for cell in DRYRUN_CELLS:
+            rec = json.loads((pathlib.Path(tmp) / f"{'_'.join(cell)}.json")
+                             .read_text())
+            if not rec["ok"] or rec["device"] != "cuda" or \
+                    rec["kernels_loaded"]:
+                raise AssertionError(f"dry-run cell {cell}: {rec}")
+            records[" ".join(cell)] = rec
+            print(_dryrun_line(f"{' '.join(cell)} ({rec['devices']} ranks,"
+                               f" rank 0, fake cuda, {rec['mode']})", rec)
+                  + f", process {runs[cell][2]:.4f} s")
+    for key in custom:
+        line = [ln for ln in runs[key][0].splitlines()
+                if ln.startswith("DRYRUN ")][-1]
+        records[key] = json.loads(line[len("DRYRUN "):])
+        if records[key]["kernels_loaded"]:
+            raise AssertionError(f"dry run {key} loaded a kernel library")
+
+    # (b) collectives against phase 12's rank 0
+    got = records["collectives"]
+    print(_dryrun_line(f"{RWKV_ARCH} train {TRAIN_BATCH} x {TRAIN_SEQ} on "
+                       f"{TP_MESH} (a fake group of {TP_RANKS})", got))
+    tr = ssm_tp_times["ranks"][0]["rwkv6_train"]
+    real = {}
+    for name, rec in tr["collectives"].items():
+        tele = tr["collectives_telemetry"].get(name, {"calls": 0,
+                                                      "bytes": 0})
+        real[COLLECTIVE_KINDS[name]] = (rec["calls"] - tele["calls"],
+                                        rec["bytes"] - tele["bytes"])
+    fake = {k: (got["collective_calls"][k], got["collective_input_bytes"][k])
+            for k in got["collective_calls"]}
+    print(f"[dryrun] {RWKV_ARCH} train step's collectives (calls, input "
+          f"bytes): dry run {fake}; phase 12's rank 0 {real} (its timed "
+          f"step less the telemetry's "
+          f"{ {k: v['calls'] for k, v in tr['collectives_telemetry'].items()} }"
+          f" calls)")
+    if fake != real:
+        raise AssertionError(f"the dry run's collectives {fake} differ from "
+                             f"phase 12's rank 0 {real}")
+
+    # (c) memory against phase 8's step
+    got = records["memory"]
+    mem = got["memory"]
+    print(_dryrun_line(f"{TRAIN_ARCH} train {TRAIN_BATCH} x {TRAIN_SEQ} on "
+                       f"one rank", got))
+    rows = train_times["steps"]
+    want = train_times["state_bytes"] + rows[0]["batch_bytes"]
+    if mem["argument_size_in_bytes"] != want:
+        raise AssertionError(f"dry run's argument bytes "
+                             f"{mem['argument_size_in_bytes']} against phase "
+                             f"8's state and batch {want}")
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = max(r["peak_bytes"] for r in rows)
+    print(f"[dryrun] {TRAIN_ARCH} train step: arguments "
+          f"{mem['argument_size_in_bytes']} bytes equal phase 8's state "
+          f"{train_times['state_bytes']} + batch {rows[0]['batch_bytes']}; "
+          f"predicted peak (arguments + temp) {predicted / 1e9:.4f} GB "
+          f"against phase 8's max_memory_allocated {measured / 1e9:.4f} GB "
+          f"(with telemetry), ratio {predicted / measured:.4f}")
+    print(f"[dryrun] phase 13: {len(cmds)} processes at once, "
+          f"{wall:.4f} s wall")
+    return {"wall_s": wall, "cells": records,
+            "phase12_collectives": {k: list(v) for k, v in real.items()},
+            "predicted_peak_bytes": predicted,
+            "measured_peak_bytes": measured,
+            "peak_ratio": predicted / measured}
+
+
+#: (file, extra arguments, its OK line); train_100m 30 steps: the failure
+#: at step 15 comes before its first checkpoint (25), so it restarts from
+#: step 0 and saves one checkpoint (a 60-step run spends ~2 minutes
+#: compressing and restoring its 0.9 GB states)
+EXAMPLES = (("torch_quickstart.py", (), "quickstart OK"),
+            ("torch_serve_migration.py", (),
+             "serving migration OK (replica exact, decode resumed)"),
+            ("torch_train_100m.py", ("--steps", "30"), "train_100m OK"),
+            ("torch_elastic_rescale.py", (), "elastic rescale OK"))
+
+
+def phase_examples() -> dict:
+    """Phase 14: each ``examples/torch_*.py`` with ``--device cuda``, a
+    process each, all at once on the card; each must exit 0 with its
+    ``OK`` line. Returns each one's wall seconds."""
+    import tempfile
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        cmds = {}
+        for name, extra, _ in EXAMPLES:
+            args = list(extra)
+            if name == "torch_train_100m.py":
+                args += ["--ckpt", str(pathlib.Path(tmp) / "ckpt")]
+            cmds[name] = [sys.executable, str(ROOT / "examples" / name),
+                          "--device", "cuda", *args]
+        runs = _children(cmds, 900, tmp)
+        for name, extra, ok in EXAMPLES:
+            text, code, wall = runs[name]
+            lines = [ln.strip() for ln in text.splitlines()]
+            if code or ok not in lines:
+                raise AssertionError(f"example {name} exited {code}:\n"
+                                     f"{text[-3000:]}")
+            walls[name] = wall
+            print(f"[examples] {name} --device cuda {' '.join(extra)}: "
+                  f"{wall:.4f} s, '{ok}'")
+            for ln in lines:
+                if any(w in ln for w in ("period=", "rounds", "params:",
+                                         "loss ", "restarts", "resumed")):
+                    print(f"[examples]   {ln.strip()}")
+    print(f"[examples] phase 14: {len(EXAMPLES)} processes at once, "
+          f"{max(walls.values()):.4f} s wall")
+    return walls
+
+
 def main() -> int:
     # phase 8's pre-copy holds the 26.5 GB training state twice beside a
     # step's transients, which fits the card only in segments that grow in
@@ -4620,6 +4887,10 @@ def main() -> int:
     tp_launches, tp_times = phase_tp_ranks(torch, ops,
                                            train_times["first_step"])
     ssm_tp_launches, ssm_tp_times = phase_ssm_tp_ranks(torch, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_times = phase_dryrun(train_times, ssm_tp_times)
+    example_walls = phase_examples()
 
     sources = {"dft_power": ("src/repro_torch/kernels/csrc/dft_power.cu",
                              "src/repro/kernels/dft.py:141",
@@ -4660,6 +4931,9 @@ def main() -> int:
     print("[dist] " + json.dumps(dist_times))
     print("[tp] " + json.dumps(tp_times))
     print("[ssm-tp] " + json.dumps(ssm_tp_times))
+    print("[dryrun] " + json.dumps({k: v for k, v in dryrun_times.items()
+                                    if k != "cells"}))
+    print("[examples] " + json.dumps(example_walls))
     print(_card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,12 +40,23 @@ requires a gradient: the same forward as above, and a plain PyTorch
 backward (the VJP of the chunked plain version, recomputed), as the JAX
 package differentiates its XLA functions and never a kernel. With grad
 off the path is the one above.
+
+B4 and B5 are reached through operators of the dispatcher
+(``repro_torch::ssm_scan``, ``repro_torch::flash_attention``). On a real
+CUDA tensor the op runs the same wrapper (``_ss.ssm_scan``,
+``_fa.flash_attention``), which launches the kernel or raises. Under
+``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) the op's fake form
+gives the output's shape, dtype and strides; no library is built or
+touched. Each op has a flop formula for ``torch.utils.flop_counter``: B5
+4 D flops per causal (query, key) pair inside the window, B4 the products
+of its chunked form (equal to the count of ``models/gla.gla_chunked``).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import autocorr as _ac
 from repro_torch.kernels import dft as _dft
@@ -205,6 +216,79 @@ def block_deltas(news: Sequence[torch.Tensor], olds: Sequence[torch.Tensor],
     return out
 
 
+# ---------------------------------------------------------------------------
+# B4 and B5 as dispatcher operators: the kernel on a real CUDA tensor, a
+# fake form under FakeTensorMode, a flop formula. Registered with
+# ``torch.library.Library`` (a kernel at the CUDA key), not with
+# ``torch.library.custom_op``, whose first call imports the compiler stack
+# (seconds, on a process's first prefill or train step).
+# ---------------------------------------------------------------------------
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("ssm_scan(Tensor q, Tensor k, Tensor v, Tensor log_decay, "
+            "Tensor? bonus, Tensor? initial_state) -> (Tensor, Tensor)")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, int window) "
+            "-> Tensor")
+
+
+def _ssm_scan_cuda(q, k, v, log_decay, bonus, initial_state):
+    return _ss.ssm_scan(q, k, v, log_decay, bonus, initial_state)
+
+
+def _flash_attention_cuda(q, k, v, window):
+    """B5's output in its (B, S, H, D) memory order."""
+    return _fa.flash_attention(q, k, v, window).transpose(1, 2)
+
+
+_LIB.impl("ssm_scan", _ssm_scan_cuda, "CUDA")
+_LIB.impl("flash_attention", _flash_attention_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssm_scan")
+def _(q, k, v, log_decay, bonus, initial_state):
+    B, H, S, Dk = q.shape
+    Dv = v.shape[-1]
+    return (q.new_empty((B, H, S, Dv), dtype=torch.float32),
+            q.new_empty((B, H, Dk, Dv), dtype=torch.float32))
+
+
+@torch.library.register_fake("repro_torch::flash_attention")
+def _(q, k, v, window):
+    B, H, S, D = q.shape
+    return q.new_empty((B, S, H, D))
+
+
+def attention_pairs(S: int, window: int) -> int:
+    """Causal (query, key) pairs of S positions, trimmed to the window
+    when one is set."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def scan_flops(B: int, H: int, S: int, Dk: int, Dv: int, rwkv: bool) -> int:
+    """The products of the chunked scan (chunks of ``gla.CHUNK``, S padded
+    to a multiple), 2 flops each: a chunk's q k^T and its scores times v
+    (Q^2 Dk and Q^2 Dv), its state summary and its inter-chunk read-out
+    (Q Dk Dv each), and RWKV's bonus diagonal (Q Dk)."""
+    Q = gla.CHUNK
+    per_chunk = Q * Q * (Dk + Dv) + 2 * Q * Dk * Dv + (Q * Dk if rwkv else 0)
+    return 2 * B * H * -(-S // Q) * per_chunk
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _attention_flops(q_shape, k_shape, v_shape, window, *args,
+                     out_shape=None, **kwargs) -> int:
+    B, H, S, D = q_shape
+    return 4 * D * B * H * attention_pairs(S, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def _scan_flops(q_shape, k_shape, v_shape, log_decay_shape, bonus_shape,
+                *args, out_shape=None, **kwargs) -> int:
+    B, H, S, Dk = q_shape
+    return scan_flops(B, H, S, Dk, v_shape[-1], bonus_shape is not None)
+
+
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              log_decay: torch.Tensor, *, bonus: Optional[torch.Tensor] = None,
              initial_state: Optional[torch.Tensor] = None
@@ -221,7 +305,8 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _ssm_scan(q, k, v, log_decay, bonus, initial_state):
     if _device_type(q) == "cuda":
-        return _ss.ssm_scan(q, k, v, log_decay, bonus, initial_state)
+        return torch.ops.repro_torch.ssm_scan(q, k, v, log_decay, bonus,
+                                              initial_state)
     return gla.gla_chunked(q, k, v, log_decay, bonus=bonus,
                            initial_state=initial_state)
 
@@ -238,7 +323,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     def forward(q, k, v):
         if _device_type(q) == "cuda":
-            return _fa.flash_attention(q, k, v, window)
+            return torch.ops.repro_torch.flash_attention(
+                q, k, v, window).transpose(1, 2)
         return ref.attention_chunked(q, k, v, window=window, chunk=chunk)
 
     if _needs_grad(q, k, v):

@@ -572,11 +572,13 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     each leaf the rank's block (``launch/sharding.cache_pspec``): a ring's
     KV heads, or where ``model`` does not divide them its slots of the
     window; the Mamba2 SSD and RWKV6 wkv states' heads, the RWKV6 shift
-    carries' d-slices, the Mamba2 conv carry whole."""
+    carries' d-slices, the Mamba2 conv carry whole. ``"meta"`` gives
+    shapes and dtypes only, as ``init_params``."""
     from repro_torch.launch.sharding import kv_split
     mode = wiring_mode(cfg)
     ctx = _mesh_context(cfg)
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if device is not None
+           and torch.device(device).type == "meta" else resolve_device(device))
     W, Hkv = _kv_window(cfg, cache_len), cfg.num_kv_heads
     tp = dist.tp_size(ctx)
     has_ring = mode != "uniform" or cfg.block_pattern[0] in ("attn", "moe")

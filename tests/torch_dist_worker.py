@@ -24,6 +24,10 @@ Suites:
                uniform Mamba2 stack) over a sequence that crosses a scan
                chunk, the gradients of TP_MUTANTS' broken variants, and
                zamba2's rescale.
+  ``trace`` -- the dry run's cells of TRACE_ARCHS on a (2, 2) mesh of real
+               tensors, each step counted by ``launch/trace_analysis``;
+  ``trace_fake`` -- one process, no gloo group: the same cells traced by
+               ``launch/dryrun.trace`` as rank 0 of a fake group of 4.
 
 ``run_tp_suite`` runs a "tp" suite's ranks beside the JAX package's
 GSPMD steps on the same inputs (``JAX_SCRIPT``).
@@ -834,19 +838,133 @@ def _tp_cases(torch, rank: int, inp, suite: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# suites "trace" and "trace_fake"
+# ---------------------------------------------------------------------------
+#: the dry run held against real ranks: a dense wiring with block remat, an
+#: RWKV6 stack (B4's plain path, over a sequence that crosses a scan chunk)
+#: and a MoE wiring (its all-to-alls), smoke widths, f32
+TRACE_ARCHS = ("internlm2_1p8b", "rwkv6_1p6b", "qwen3_moe_30b_a3b")
+TRACE_BATCH, TRACE_SEQ = 4, 48
+TRACE_MESH = (2, 2)
+
+
+def trace_cases():
+    """((arch, mode) -> (config, shape)) of the trace suites."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    out = {}
+    for arch in TRACE_ARCHS:
+        cfg = get_config(arch).smoke().replace(param_dtype="float32",
+                                               remat="block")
+        for mode in ("train", "prefill", "decode"):
+            out[arch, mode] = (cfg, ShapeConfig(f"smoke_{mode}", TRACE_SEQ,
+                                                TRACE_BATCH, mode))
+    return out
+
+
+#: the cells test_torch_dryrun.py also has the JAX package's analyzer count:
+#: internlm2's smoke config as it is (bf16), remat none and block
+ANALYZER_BATCH, ANALYZER_SEQ = 4, 64
+
+
+def analyzer_cases():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    return {(f"analyzer_{remat}", mode): (
+        get_config("internlm2_1p8b").smoke().replace(remat=remat),
+        ShapeConfig(f"smoke_{mode}", ANALYZER_SEQ, ANALYZER_BATCH, mode))
+        for remat in ("none", "block") for mode in ("prefill", "train")}
+
+
+def trace_record(prefix: str, got: dict) -> dict:
+    """A traced cell's counts as flat npz entries."""
+    out = {f"{prefix}/{k}": np.float64(got[k])
+           for k in ("flops", "ops", "hbm_bytes", "hbm_write_bytes")}
+    for key in ("collective_calls", "collective_input_bytes"):
+        for kind, v in got[key].items():
+            out[f"{prefix}/{key}/{kind}"] = np.int64(v)
+    for kind, v in got["collectives"].items():
+        out[f"{prefix}/collectives/{kind}"] = np.float64(v)
+    for k, v in got["memory"].items():
+        out[f"{prefix}/memory/{k}"] = np.int64(v)
+    return out
+
+
+def _filled(torch, tree):
+    """Values for real step arguments made empty: small normal floats (a
+    fixed seed), zero integers."""
+    g = torch.Generator().manual_seed(0)
+
+    def fill(t):
+        if t.dtype.is_floating_point:
+            t.copy_(0.02 * torch.randn(t.shape, generator=g))
+        else:
+            t.zero_()
+        return t
+
+    from repro_torch.launch import sharding
+    return sharding.walk(lambda p, t: fill(t), tree)
+
+
+def _trace_suite(rank: int, world: int, inp) -> dict:
+    """Each cell's step on this rank's real slices, counted."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.trace_analysis import analyze
+    from repro_torch.models import dist
+    mesh = meshlib.make_host_mesh(*TRACE_MESH, device="cpu")
+    out = {}
+    for (arch, mode), (cfg, shape) in trace_cases().items():
+        _, args = dryrun.cell_args(cfg, shape, mesh, torch.device("cpu"))
+        args = _filled(torch, args)
+        fn, ctx = dryrun.step_fn(cfg, shape, mode, mesh)
+        with dist.use(ctx):
+            res, a = analyze(fn, *args)
+        t = a.totals()
+        out.update(trace_record(f"{arch}/{mode}", {
+            **t, "ops": a.ops, "memory": a.memory(args, res),
+            "collectives": {k[5:]: v for k, v in t.items()
+                            if k.startswith("coll_")},
+            "collective_calls": {k: r["calls"]
+                                 for k, r in a.collectives.items()},
+            "collective_input_bytes": {k: r["input_bytes"]
+                                       for k, r in a.collectives.items()}}))
+    return out
+
+
+def _trace_fake_suite(rank: int, world: int, inp) -> dict:
+    """The same cells traced by the dry run on fake tensors, rank 0 of a
+    fake group of 4."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for (name, mode), (cfg, shape) in [*trace_cases().items(),
+                                       *analyzer_cases().items()]:
+        out.update(trace_record(f"{name}/{mode}", dryrun.run_custom(
+            cfg, shape, TRACE_MESH, "cpu")))
+    return out
+
+
 def main(argv) -> int:
     suite, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), \
         pathlib.Path(argv[3])
     import torch
     import torch.distributed as tdist
     torch.set_num_threads(1)
+    if suite == "trace_fake":
+        np.savez(workdir / f"{suite}{world}_rank{rank}.npz",
+                 **_trace_fake_suite(rank, world, None))
+        return 0
     store = workdir / f"store_{suite}_{world}"
     tdist.init_process_group("gloo", init_method=f"file://{store}",
                              rank=rank, world_size=world)
     try:
-        inp = np.load(workdir / "inputs.npz")
+        inp = (np.load(workdir / "inputs.npz")
+               if (workdir / "inputs.npz").exists() else None)
         out = {"shard": _shard_suite, "moe": _moe_suite,
-               "tp": _tp_suite, "tp_ssm": _tp_ssm_suite}[suite](
+               "tp": _tp_suite, "tp_ssm": _tp_ssm_suite,
+               "trace": _trace_suite}[suite](
             rank, world, inp)
         tdist.barrier()
     finally:
