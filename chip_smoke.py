@@ -9,7 +9,8 @@ the MoE models (qwen3-moe-30b-a3b at full width and depth, also through
 the expert-parallel path, kimi-k2's prefix-dense wiring at full width),
 training of a full-width internlm2-1.8b and the live pre-copy of its
 training state, the model on a (data, model) mesh of ranks (dense, SSM
-and hybrid), the dry run of the production meshes and the examples, and
+and hybrid, and attention whose heads the model axis does not divide),
+the dry run of the production meshes and the examples, and
 holds every hand-written kernel against its plain PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
@@ -216,13 +217,37 @@ holds every hand-written kernel against its plain PyTorch version:
                each held to the local step within its SSM_TP_F32 limit.
                The parent holds B4 and B5 at every per-rank shape the
                ranks launched them at.
+ 15. heads-tp — after phase 12 (run before 13 and 14): the attention on
+               a model axis that does not divide its heads. The parent
+               first runs starcoder2's local first step (4 layers, bf16)
+               and frees it; then eight gloo ranks on a (1, 8) mesh, where
+               neither qwen2-vl's 12 nor starcoder2's 36 query heads (nor
+               their 2 and 4 KV heads) divide the model axis, so every
+               rank computes every head through B5 on weights gathered
+               over ``model`` (``blocks.head_split`` "replicated"): one f32
+               prefill and AdamW step of each, 2 layers deep over 4 x 512,
+               last logits, loss, grad norm, first moments and params
+               within TP_F32_TOL of the local path on the card; one
+               starcoder2 train step 4 layers deep (4 x 2,048, bf16, block
+               remat, 8 B5 launches), its loss and grad norm held to the
+               local step within TP_TRAIN_RTOL, every collective timed;
+               qwen2-vl at full width and depth (28 layers, bf16) prefills
+               4 x 4,096 (28 B5 launches a rank; the ring of 4,104 cut
+               along its window) and decodes 4 greedy steps, collectives
+               timed by kind, the tokens held to the local path's where
+               its top-2 margin exceeds TP_GREEDY_MARGIN. The parent holds
+               B5 at every shape the ranks launched it at and at
+               musicgen's (4, 24, 24, 2,048, 64), its shape on the
+               production mesh.
  13. dryrun  — ``launch/dryrun.py`` on this machine, every cell a process
-               of its own, all at once: (a) five cells of the production
+               of its own, all at once: (a) six cells of the production
                meshes through its CLI on fake cuda tensors (internlm2
                train_4k single, rwkv6 train_4k multi, qwen3-moe
                prefill_32k single, zamba2 long_500k multi, kimi-k2
-               decode_32k multi), each record ``ok`` with no kernel
-               library loaded or launched; (b) phase 12's rwkv6 train step
+               decode_32k multi, qwen2-vl decode_32k single), each record
+               ``ok`` with no kernel library loaded or launched and the
+               attention's head split it should state (qwen2-vl
+               "replicated"); (b) phase 12's rwkv6 train step
                on a fake group of 4, its collective calls and input bytes
                by kind equal to phase 12's rank 0 (its timed step less its
                dirty-block telemetry); (c) phase 8's internlm2 train step
@@ -237,8 +262,8 @@ before each path (phases 3, 4 and each of its controller and scenario
 runs, 5's prefill and migration, 6's two prefills and its migration, 7's
 prefill, 8's counted steps, its migration, its card-against-CPU steps,
 its trainers and its incremental checkpoints, 9's two counted prefills,
-10's sharded ticks in each rank and its one-rank prefill, 11's and 12's
-mesh steps, prefills, decode steps and 11's rescale in each rank) and
+10's sharded ticks in each rank and its one-rank prefill, 11's, 12's and
+15's mesh steps, prefills, decode steps and 11's rescale in each rank) and
 read after
 it: each kernel of the path must have run in it. The last lines are the
 card (``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
@@ -257,6 +282,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
@@ -3835,13 +3861,15 @@ def _check_launches(n: dict, want: dict, what: str) -> None:
 
 
 def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
-              layers=None, steps=TP_STEPS, held=tuple(TP_TRAIN_RTOL)):
+              layers=None, steps=TP_STEPS, held=tuple(TP_TRAIN_RTOL),
+              mesh_shape=TP_MESH, warmup=True):
     """The full-width trainer of phase 8 (``arch``, full depth or
-    ``layers`` deep) on a TP_MESH mesh: a warm-up step whose ``held``
-    metrics are held to the local first step (``first``; the others are
-    reported beside it), then ``steps`` counted steps, the last with
-    every collective timed. Each step launches B5 and B4 twice a layer
-    that runs them (block remat) and B3 on the rank's slices."""
+    ``layers`` deep) on a ``mesh_shape`` mesh: a warm-up step whose
+    ``held`` metrics are held to the local first step (``first``; the
+    others are reported beside it), then ``steps`` counted steps, the last
+    with every collective timed; without ``warmup`` the first counted step
+    is the one held. Each step launches B5 and B4 twice a layer that runs
+    them (block remat) and B3 on the rank's slices."""
     import torch.distributed as tdist
     from repro_torch import tree
     from repro_torch.configs import get_config
@@ -3854,7 +3882,7 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
-    mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
+    mesh = meshlib.make_host_mesh(*mesh_shape, device=TP_DEVICE)
     ctx, hooks = _tp_setup(cfg, mesh)
     want = {k: 2 * n for k, n in _kernel_layers(cfg).items()}
     t0 = time.perf_counter()
@@ -3870,14 +3898,7 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
     def batch(i):
         return sharding.batch_shardings(mesh, _tp_batch(torch, corpus, i))
 
-    with dist.use(ctx):
-        t0 = time.perf_counter()
-        with counted():
-            state, m = step(state, batch(0))
-        _check_launches(ops_mod.launch_counts(), want,
-                        f"rank {rank} {arch} warm-up step")
-        torch.cuda.synchronize()
-        out["warmup_s"] = time.perf_counter() - t0
+    def hold(m):
         got = {k: float(m[k]) for k in ("loss", "grad_norm")}
         out["first"] = got
         for k in held:
@@ -3885,7 +3906,19 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
             if not abs(got[k] - first[k]) <= tol * abs(first[k]):
                 raise AssertionError(f"rank {rank}: the mesh's first step "
                                      f"{k} {got[k]} against the local "
-                                     f"step's {first[k]} (phase 8)")
+                                     f"step's {first[k]}")
+
+    with dist.use(ctx):
+        out["warmup_s"] = 0.0
+        if warmup:
+            t0 = time.perf_counter()
+            with counted():
+                state, m = step(state, batch(0))
+            _check_launches(ops_mod.launch_counts(), want,
+                            f"rank {rank} {arch} warm-up step")
+            torch.cuda.synchronize()
+            out["warmup_s"] = time.perf_counter() - t0
+            hold(m)
         rows, coll, telemetry = [], {}, {}
         for n_step in range(steps):
             i = int(state["step"])
@@ -3920,6 +3953,8 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             rows.append(row)
             _check_launches(n, want, f"rank {rank} {arch} mesh step {i}")
+            if not warmup and n_step == 0:
+                hold(m)
             if not math.isfinite(row["loss"]):
                 raise AssertionError(f"rank {rank} {arch} mesh step {i}: "
                                      f"loss {row['loss']}")
@@ -3930,13 +3965,18 @@ def _tp_train(torch, ops_mod, counted, first, rank, arch=TRAIN_ARCH,
 
 
 def _tp_serve(torch, ops_mod, counted, rank, arch=TRAIN_ARCH, dtype=None,
-              hold=True, prompt_len=TP_PROMPT):
+              hold=True, prompt_len=TP_PROMPT, mesh_shape=TP_MESH,
+              cache_len=None, collectives=False):
     """Prefill 4 x ``prompt_len`` of ``arch`` (in ``dtype``, else the
-    config's) on the mesh (the cache in the rank's layout; B5 and B4 once a layer
-    that runs them), then TP_DECODE greedy steps; rank 0 then runs the
-    local path teacher-forced with the mesh's tokens and holds every token
-    whose local top-2 margin exceeds TP_GREEDY_MARGIN (without ``hold``
-    it counts the tokens that differ there instead)."""
+    config's) on a ``mesh_shape`` mesh (the cache, of ``cache_len`` or
+    the prompt and the decode steps, in the rank's layout; B5 and B4 once a
+    layer that runs them), then TP_DECODE greedy steps; rank 0 then runs
+    the local path teacher-forced with the mesh's tokens and holds every
+    token whose local top-2 margin exceeds TP_GREEDY_MARGIN (without
+    ``hold`` it counts the tokens that differ there instead). With
+    ``collectives`` every collective of the prefill and of the decode
+    steps is timed by kind (``_collective_ms``), and each part's peak
+    read."""
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as meshlib
@@ -3944,29 +3984,40 @@ def _tp_serve(torch, ops_mod, counted, rank, arch=TRAIN_ARCH, dtype=None,
     from repro_torch.models import dist, lm
     from repro_torch.train import make_decode_step, make_prefill_step
 
+    import torch.distributed as tdist
     cfg = get_config(arch)
     if dtype:
         cfg = cfg.replace(param_dtype=dtype)
-    mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
+    cache_len = cache_len or prompt_len + TP_DECODE
+    mesh = meshlib.make_host_mesh(*mesh_shape, device=TP_DEVICE)
     ctx, hooks = _tp_setup(cfg, mesh)
+    dec_ctx = dist.model_context(mesh, False,
+                                 kv_window=lm._kv_window(cfg, cache_len))
     params = _tp_state(torch, cfg, mesh)["params"]
     g = torch.Generator(device=TP_DEVICE).manual_seed(SEED + 11)
     prompt = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, prompt_len),
                            generator=g, device=TP_DEVICE, dtype=torch.int32)
     rows = sharding.batch_pspec(mesh, ("logits",), prompt[:, :1])
     mine = sharding.batch_shardings(mesh, {"tokens": prompt})
-    prefill = make_prefill_step(cfg, prompt_len + TP_DECODE,
-                                constrain=hooks["constrain"])
+    prefill = make_prefill_step(cfg, cache_len, constrain=hooks["constrain"])
     decode = make_decode_step(cfg, constrain=hooks["constrain"])
     out, logits_all, toks = {}, [], []
+    coll = {"prefill": {}, "decode": {}}
+
+    def timer(part):
+        return (_collective_ms(torch, tdist, coll[part]) if collectives
+                else contextlib.nullcontext())
+
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with counted(), dist.use(ctx):
+    with counted(), dist.use(ctx), timer("prefill"):
         logits, cache = prefill(params, mine)
     _check_launches(ops_mod.launch_counts(), _kernel_layers(cfg),
                     f"rank {rank} {arch} prefill")
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["cache_gb"] = sum(t.numel() * t.element_size()
                           for t in tree.leaves(cache)) / 1e9
     dec_ms = []
@@ -3980,17 +4031,19 @@ def _tp_serve(torch, ops_mod, counted, rank, arch=TRAIN_ARCH, dtype=None,
         tok = sharding.batch_shardings(mesh, {"tokens": nxt})["tokens"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with counted(), dist.use(dist.model_context(mesh, False)):
+        with counted(), dist.use(dec_ctx), timer("decode"):
             _, logits, cache = decode(params, tok, cache)
         torch.cuda.synchronize()
         dec_ms.append(1e3 * (time.perf_counter() - t0))
     out["decode_ms"] = dec_ms
+    out["collectives"] = coll
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["tokens"] = torch.cat(toks, 1).tolist()
     del params, cache
     torch.cuda.empty_cache()
     if rank == 0:                      # the local path, alone on the card
         full_p = lm.init_params(cfg, SEED, device=TP_DEVICE)
-        pre = make_prefill_step(cfg, prompt_len + TP_DECODE)
+        pre = make_prefill_step(cfg, cache_len)
         dec = make_decode_step(cfg)
         want, cache = pre(full_p, {"tokens": prompt})
         held = ties = differ = 0
@@ -4023,22 +4076,25 @@ def _tp_serve(torch, ops_mod, counted, rank, arch=TRAIN_ARCH, dtype=None,
 
 
 def _tp_f32(torch, counted, rank, arch=TRAIN_ARCH, layers=TP_F32_LAYERS,
-            tol=TP_F32_TOL):
-    """One f32 AdamW step of ``arch`` at full width, ``layers`` deep, on
-    the mesh against the local step on the card: rank 0 compares every
-    gathered leaf and returns the verdict, within ``tol``, as ``ok`` (the
-    parent raises on it after printing)."""
+            tol=TP_F32_TOL, mesh_shape=TP_MESH, logits=False):
+    """One f32 AdamW step of ``arch`` at full width, ``layers`` deep, on a
+    ``mesh_shape`` mesh against the local step on the card: rank 0
+    compares every gathered leaf and returns the verdict, within ``tol``,
+    as ``ok`` (the parent raises on it after printing). With ``logits`` a
+    prefill of the step's batch first, its last logits held to the local
+    prefill's within ``tol`` of their largest magnitude
+    (``logits_err``)."""
     from repro_torch import optim, tree
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticCorpus
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharding
     from repro_torch.models import dist, lm
-    from repro_torch.train import make_train_step
+    from repro_torch.train import make_prefill_step, make_train_step
 
     cfg = get_config(arch).replace(num_layers=layers,
                                    param_dtype="float32")
-    mesh = meshlib.make_host_mesh(*TP_MESH, device=TP_DEVICE)
+    mesh = meshlib.make_host_mesh(*mesh_shape, device=TP_DEVICE)
     ctx, hooks = _tp_setup(cfg, mesh)
     corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TP_F32_SEQ, seed=SEED)
     b = _tp_batch(torch, corpus, 0)
@@ -4047,12 +4103,25 @@ def _tp_f32(torch, counted, rank, arch=TRAIN_ARCH, layers=TP_F32_LAYERS,
     params = sharding.param_shardings(mesh, full)
     mine = {"params": params, "opt": optim.init_opt_state(cfg, params),
             "step": zero}
+    prompt = {k: v for k, v in b.items() if k != "targets"}
+    if logits:
+        rows = sharding.batch_pspec(mesh, ("logits",), b["tokens"][:, :1])
+        with counted(), dist.use(ctx):
+            last, _ = make_prefill_step(cfg, TP_F32_SEQ,
+                                        constrain=hooks["constrain"])(
+                params, sharding.batch_shardings(mesh, prompt))
+        last = sharding.gather_leaf(mesh, rows, last)
     with counted(), dist.use(ctx):
         got, mg = make_train_step(cfg, **hooks)(
             mine, sharding.batch_shardings(mesh, b))
     del mine, params
-    want = mw = None
+    want = mw = logits_err = None
     if rank == 0:
+        if logits:
+            ref_last, _ = make_prefill_step(cfg, TP_F32_SEQ)(full, prompt)
+            logits_err = float((last - ref_last).abs().max()) / max(
+                float(ref_last.abs().max()), 1e-30)
+            del ref_last
         want, mw = make_train_step(cfg)(
             {"params": full, "opt": optim.init_opt_state(cfg, full),
              "step": zero}, b)
@@ -4091,8 +4160,10 @@ def _tp_f32(torch, counted, rank, arch=TRAIN_ARCH, layers=TP_F32_LAYERS,
         bad = [k for k in ("loss", "grad_norm")
                if abs(out[k] - out["want_" + k]) > tol * abs(
                    out["want_" + k])]
+        out["logits_err"] = logits_err
         out["ok"] = not (bad or errs["param"] > tol or
-                         errs["moment"] > tol or errs["settled"] < 1)
+                         errs["moment"] > tol or errs["settled"] < 1
+                         or (logits and not logits_err <= tol))
         out["tol"] = tol
     del got, want
     torch.cuda.empty_cache()
@@ -4594,6 +4665,208 @@ def phase_ssm_tp_ranks(torch, ops_mod):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the attention on a model axis that does not divide its heads
+# ---------------------------------------------------------------------------
+HEADS_RANKS = 8
+HEADS_MESH = (1, 8)                  # ("data", "model")
+HEADS_SERVE_ARCH = "qwen2_vl_2b"     # 12 query heads, 2 KV heads
+HEADS_TRAIN_ARCH = "starcoder2_7b"   # 36 query heads, 4 KV heads
+HEADS_TRAIN_LAYERS = 4
+# the serving cache: the prompt, the decode steps and 4 slots more, so
+# that the model axis cuts the ring (2 KV heads) along its window
+HEADS_CACHE = TP_PROMPT + 8
+# musicgen's 24 heads on the production mesh's 16-wide model axis (every
+# rank all of them): its B5 shape, held on the card here; the (1, 8) mesh
+# divides its heads, so its wiring on a mesh is held by the CPU tests
+HEADS_MHA_SHAPE = (TRAIN_BATCH, 24, 24, TRAIN_SEQ, 64, "torch.bfloat16", 0)
+
+
+def phase_heads_first(torch):
+    """The local first step phase 15's mesh step is held to: starcoder2
+    HEADS_TRAIN_LAYERS deep, bf16, seeded as the ranks seed theirs, batch
+    0 of TRAIN_BATCH x TRAIN_SEQ, on the card before the ranks start (its
+    state freed after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config(HEADS_TRAIN_ARCH).replace(num_layers=HEADS_TRAIN_LAYERS)
+    state = init_train_state(cfg, SEED, device="cuda")
+    corpus = SyntheticCorpus(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    state, m = make_train_step(cfg, telemetry=True)(
+        state, _train_batch(torch, corpus, 0))
+    first = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    print(f"[heads-tp] {HEADS_TRAIN_ARCH} {HEADS_TRAIN_LAYERS} layers, the "
+          f"local first step on the card: loss {first['loss']:.6f}, grad "
+          f"norm {first['grad_norm']:.6f}")
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return first
+
+
+def _heads_rank(rank: int, world: int, workdir: str):
+    """One rank of phase 15, spawned on the card shared with the others as
+    in phase 11, on a HEADS_MESH mesh where neither model's heads divide
+    the model axis (``blocks.head_split`` "replicated"): the f32 checks of
+    both at TP_F32_LAYERS (logits, the step's loss, grad norm, first
+    moments and params against the local path), then one starcoder2 train
+    step HEADS_TRAIN_LAYERS deep (bf16) held to the local first step, then
+    qwen2-vl served at full width and depth (bf16, its ring cut along the
+    window) with its collectives timed. Writes ``rank<r>.json``; any
+    failure but the f32 verdicts (which the parent reads) raises."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import kv_split
+    from repro_torch.models import blocks, lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    work = pathlib.Path(workdir)
+    first = json.loads((work / "first_step.json").read_text())
+    tp = HEADS_MESH[1]
+    for arch in (HEADS_SERVE_ARCH, HEADS_TRAIN_ARCH):
+        if blocks.head_split(get_config(arch), tp) != "replicated":
+            raise AssertionError(f"{arch}: heads cut on a model axis of {tp}")
+    serve = get_config(HEADS_SERVE_ARCH)
+    if kv_split(types.SimpleNamespace(shape={"model": tp}),
+                serve.num_kv_heads,
+                lm._kv_window(serve, HEADS_CACHE)) != "window":
+        raise AssertionError("phase 15's ring is not cut along its window")
+    tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                             rank=rank, world_size=world)
+
+    def freed():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        counted = _Counted(ops)
+        # the f32 checks first: they take each rank's first CUDA and gloo
+        # calls, which the timed step and prefill after them do not pay
+        out = {}
+        for arch in (HEADS_SERVE_ARCH, HEADS_TRAIN_ARCH):
+            out[f"{arch}_f32"] = _tp_f32(torch, counted, rank, arch,
+                                         mesh_shape=HEADS_MESH, logits=True)
+            freed()
+        out["train"] = _tp_train(torch, ops, counted, first, rank,
+                                 HEADS_TRAIN_ARCH, layers=HEADS_TRAIN_LAYERS,
+                                 steps=1, mesh_shape=HEADS_MESH,
+                                 warmup=False)
+        freed()
+        out["serve"] = _tp_serve(torch, ops, counted, rank, HEADS_SERVE_ARCH,
+                                 mesh_shape=HEADS_MESH, cache_len=HEADS_CACHE,
+                                 collectives=True)
+        out["launches"] = counted.total
+        out["b5_shapes"] = sorted(counted.seen)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _coll_line(coll: dict) -> str:
+    return ", ".join(f"{k} {v['calls']} calls {v['ms']:.4f} ms "
+                     f"{v['bytes'] / 1e9:.4f} GB" for k, v in coll.items())
+
+
+def phase_heads_tp(torch, ops_mod):
+    """Phase 15: the local first step (``phase_heads_first``), then
+    HEADS_RANKS ranks spawned on the one card (``_heads_rank``) on a
+    HEADS_MESH mesh whose model axis divides neither qwen2-vl's 12 nor
+    starcoder2's 36 query heads, nor their 2 and 4 KV heads: every rank
+    computes every head through B5. The parent joins every rank (a failed
+    rank fails the run), requires the f32 checks within TP_F32_TOL, then
+    holds B5 at every shape the ranks launched it at and at musicgen's
+    production shape (HEADS_MHA_SHAPE). Returns (the ranks' launches
+    together, numbers to keep)."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_first = time.perf_counter()
+    first = phase_heads_first(torch)
+    t_first = time.perf_counter() - t_first
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_heads_") as tmp:
+        work = pathlib.Path(tmp)
+        (work / "first_step.json").write_text(json.dumps(first))
+        t0 = time.perf_counter()
+        mp.start_processes(_heads_rank, args=(HEADS_RANKS, tmp),
+                           nprocs=HEADS_RANKS, join=True,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(HEADS_RANKS)]
+    launches = {op: 0 for op in ops_mod.launch_counts()}
+    for rec in ranks:
+        for op, n in rec["launches"].items():
+            launches[op] += n
+    for r, rec in enumerate(ranks):
+        tr, sv = rec["train"], rec["serve"]
+        row = tr["steps"][0]
+        print(f"[heads-tp] rank {r} {HEADS_TRAIN_ARCH} {HEADS_TRAIN_LAYERS} "
+              f"layers on {HEADS_MESH} (data, model), attention replicated, "
+              f"bf16, AdamW, block remat, {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens: state {tr['state_gb']:.4f} GB a rank, init "
+              f"{tr['init_s']:.4f} s; its one step: host "
+              f"{row['host_ms']:.4f} ms, events {row['event_ms']:.4f} ms, "
+              f"{row['tokens_per_s']:.1f} tokens/s, loss {row['loss']:.6f} "
+              f"grad norm {row['grad_norm']:.6f} (local: "
+              f"{first['loss']:.6f}, {first['grad_norm']:.6f}), B5 "
+              f"{row['b5_launches']}, B3 {row['b3_launches']}, peak "
+              f"{row['peak_gb']:.4f} GB; collectives "
+              + _coll_line(tr["collectives"]))
+        print(f"[heads-tp] rank {r} {HEADS_SERVE_ARCH} full width and depth "
+              f"on {HEADS_MESH}, attention replicated, bf16: prefill "
+              f"{TRAIN_BATCH} x {TP_PROMPT} {sv['prefill_s']:.4f} s (peak "
+              f"{sv['prefill_peak_gb']:.4f} GB), cache block "
+              f"{sv['cache_gb']:.4f} GB (ring of {HEADS_CACHE} cut along "
+              f"its window); decode ms "
+              f"{[round(t, 4) for t in sv['decode_ms']]}; peak "
+              f"{sv['peak_gb']:.4f} GB; prefill collectives "
+              + _coll_line(sv["collectives"]["prefill"])
+              + "; decode collectives "
+              + _coll_line(sv["collectives"]["decode"]))
+        print(f"[heads-tp] rank {r}: peak {rec['peak_gb']:.4f} GB, launches "
+              f"{rec['launches']}, B5 shapes {rec['b5_shapes']}")
+    sv = ranks[0]["serve"]
+    print(f"[heads-tp] {HEADS_SERVE_ARCH} greedy tokens {sv['tokens']}: "
+          f"equal to the local path's at {sv['greedy_held']} positions whose"
+          f" margin exceeds {TP_GREEDY_MARGIN} ({sv['greedy_ties']} near "
+          f"ties not held); logits max abs err "
+          f"{sv['logits_max_abs_err']:.6g}")
+    bad = []
+    for arch in (HEADS_SERVE_ARCH, HEADS_TRAIN_ARCH):
+        f32 = ranks[0][f"{arch}_f32"]
+        print(f"[heads-tp] {arch} f32, {TP_F32_LAYERS} layers, "
+              f"{TRAIN_BATCH} x {TP_F32_SEQ}: last logits err "
+              f"{f32['logits_err']:.6g} of their peak, loss "
+              f"{f32['loss']:.8f} (local {f32['want_loss']:.8f}), grad norm "
+              f"{f32['grad_norm']:.8f} (local {f32['want_grad_norm']:.8f}), "
+              f"first moment err {f32['moment']:.6g} of its leaf's peak, "
+              f"params err {f32['param']:.6g} of their leaf's peak on the "
+              f"{f32['settled'] / f32['elements']:.4f} settled (limit "
+              f"{f32['tol']})")
+        if not f32["ok"]:
+            bad.append(arch)
+    print(f"[heads-tp] {HEADS_RANKS} gloo ranks on one card: {wall:.4f} s "
+          f"wall, spawn included; the local first step {t_first:.4f} s")
+    if bad:
+        raise AssertionError(f"f32 checks on the mesh against the local "
+                             f"path beyond {TP_F32_TOL}: {bad}")
+    seen = {tuple(s) for rec in ranks for s in rec["b5_shapes"]}
+    _hold_attention(torch, seen | {HEADS_MHA_SHAPE}, "heads-tp")
+    return launches, {"ranks_wall_s": wall, "first": first, "ranks": ranks,
+                      "b5_shapes": sorted(seen)}
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the dry run on the card's machine; phase 14: the examples
 # ---------------------------------------------------------------------------
 #: (arch, shape, mesh) cells of ``launch/dryrun.py`` traced on fake cuda
@@ -4601,7 +4874,10 @@ DRYRUN_CELLS = (("internlm2_1p8b", "train_4k", "single"),
                 ("rwkv6_1p6b", "train_4k", "multi"),
                 ("qwen3_moe_30b_a3b", "prefill_32k", "single"),
                 ("zamba2_2p7b", "long_500k", "multi"),
-                ("kimi_k2_1t_a32b", "decode_32k", "multi"))
+                ("kimi_k2_1t_a32b", "decode_32k", "multi"),
+                ("qwen2_vl_2b", "decode_32k", "single"))
+#: the cells whose attention the model axis replicates (``blocks.head_split``)
+DRYRUN_REPLICATED = {"qwen2_vl_2b"}
 DRYRUN_TIMEOUT = 600
 #: the functions phase 12 wraps -> the dry run's collective kinds
 COLLECTIVE_KINDS = {"all_gather_into_tensor": "all-gather",
@@ -4706,12 +4982,15 @@ def phase_dryrun(train_times: dict, ssm_tp_times: dict) -> dict:
         for cell in DRYRUN_CELLS:
             rec = json.loads((pathlib.Path(tmp) / f"{'_'.join(cell)}.json")
                              .read_text())
+            split = ("replicated" if cell[0] in DRYRUN_REPLICATED
+                     else None if cell[0] == RWKV_ARCH else "heads")
             if not rec["ok"] or rec["device"] != "cuda" or \
-                    rec["kernels_loaded"]:
+                    rec["kernels_loaded"] or rec["attention"] != split:
                 raise AssertionError(f"dry-run cell {cell}: {rec}")
             records[" ".join(cell)] = rec
             print(_dryrun_line(f"{' '.join(cell)} ({rec['devices']} ranks,"
-                               f" rank 0, fake cuda, {rec['mode']})", rec)
+                               f" rank 0, fake cuda, {rec['mode']}, "
+                               f"attention {rec['attention']})", rec)
                   + f", process {runs[cell][2]:.4f} s")
     for key in custom:
         line = [ln for ln in runs[key][0].splitlines()
@@ -4889,6 +5168,9 @@ def main() -> int:
     ssm_tp_launches, ssm_tp_times = phase_ssm_tp_ranks(torch, ops)
     gc.collect()
     torch.cuda.empty_cache()
+    heads_launches, heads_times = phase_heads_tp(torch, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
     dryrun_times = phase_dryrun(train_times, ssm_tp_times)
     example_walls = phase_examples()
 
@@ -4912,7 +5194,7 @@ def main() -> int:
              ssm_prefill, ssm_migrate, rwkv_launches, dense_launches,
              train_launches, train_mig_launches, *check_launches.values(),
              trainer_launches, inc_launches, *moe_launches, dist_launches,
-             tp_launches, ssm_tp_launches)
+             tp_launches, ssm_tp_launches, heads_launches)
     kernels = []
     for name, (src, replaces, op) in sources.items():
         launches = sum(path[op] for path in paths)
@@ -4931,6 +5213,7 @@ def main() -> int:
     print("[dist] " + json.dumps(dist_times))
     print("[tp] " + json.dumps(tp_times))
     print("[ssm-tp] " + json.dumps(ssm_tp_times))
+    print("[heads-tp] " + json.dumps(heads_times))
     print("[dryrun] " + json.dumps({k: v for k, v in dryrun_times.items()
                                     if k != "cells"}))
     print("[examples] " + json.dumps(example_walls))

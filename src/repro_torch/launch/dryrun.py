@@ -29,6 +29,17 @@ backward would abort the process (the autograd engine's CUDA thread).
 (``models/gla.gla_chunked``, ``kernels/ref.attention_chunked``); the
 record's ``device`` says which.
 
+The record's ``attention`` says how the mesh's ``model`` axis holds the
+attention (``models/blocks.head_split``): ``"heads"`` (each rank its H/tp
+query heads) or ``"replicated"`` (qwen2-vl's 12, musicgen's 24 and
+starcoder2's 36 query heads on the 16-wide axis: every rank computes all H
+heads on weights gathered over ``model``); null for an attention-free model
+or without a mesh. A replicated cell's flops, bytes and collectives are the
+port's program: H heads a rank and the four weights' gathers. The
+reference's numbers for such a cell are GSPMD's choice of layout for the
+cut that does not fall on head boundaries, which the port does not copy
+(a deviation, ROADMAP).
+
 What the reference records and the port does not: ``compile_s`` and
 ``xla_cost_analysis`` (there is no compiler; ``lower_s`` becomes
 ``trace_s``) and ``generated_code_size_in_bytes``. Refused options:
@@ -70,7 +81,7 @@ from repro_torch.launch import sharding
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import input_specs
 from repro_torch.launch.trace_analysis import analyze
-from repro_torch.models import dist
+from repro_torch.models import blocks, dist, lm
 from repro_torch.train import (make_decode_step, make_prefill_step,
                                make_train_step)
 
@@ -156,9 +167,12 @@ def step_fn(cfg: ArchConfig, shape: ShapeConfig, mode: str, mesh):
     hooks.pop("constrain_logits", None)
     if mode == "prefill":
         return make_prefill_step(cfg, cache_len=shape.seq_len, **hooks), ctx
-    # decode: one position cannot be split over the model axis
+    # decode: one position cannot be split over the model axis; the rings
+    # hold a cache of ``seq_len``
     return make_decode_step(cfg, **hooks), (
-        None if ctx is None else dataclasses.replace(ctx, seq_shard=False))
+        None if ctx is None else dataclasses.replace(
+            ctx, seq_shard=False,
+            kv_window=lm._kv_window(cfg, shape.seq_len)))
 
 
 def refuse_without_cuda_build(mode: str, device: torch.device) -> None:
@@ -193,7 +207,11 @@ def trace(cfg: ArchConfig, shape: ShapeConfig, mesh, device) -> dict:
         memory = a.memory(args, out)
     t = a.totals()
     coll = {k[5:]: v for k, v in t.items() if k.startswith("coll_")}
-    return {"mode": mode, "memory": memory, "flops": t["flops"],
+    heads = None
+    if mesh is not None and not cfg.attention_free:
+        heads = blocks.head_split(cfg, dist.tp_size(ctx))
+    return {"mode": mode, "attention": heads, "memory": memory,
+            "flops": t["flops"],
             "flops_by_op": a.flops_by_op,
             "hbm_bytes": t["hbm_bytes"],
             "hbm_write_bytes": t["hbm_write_bytes"], "collectives": coll,
@@ -249,6 +267,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
            "devices": int(mesh.size()), "rank": 0, "device": device,
            **got, "kernels_loaded": _untouched_kernels(), "ok": True}
     print(f"[dryrun] {arch} {shape_name} {mesh_name} {device} OK "
+          f"attention={rec['attention']} "
           f"flops={rec['flops']:.4e} hbm={rec['hbm_bytes']:.4e} "
           f"coll={rec['collectives'].get('total', 0):.4e} "
           f"temp={mem['temp_size_in_bytes'] / 2**30:.4f}GiB "

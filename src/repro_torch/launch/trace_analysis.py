@@ -33,6 +33,19 @@ per-device program):
                  the bytes allocated during the step and still live (every
                  storage an op created, freed when its last reference goes)
 
+A step's counts depend on its program alone, not on what the process ran
+before it. Two things would otherwise leak in. Ops on the ``meta`` device
+are shape-only bookkeeping (``train/steps.param_leaf_specs`` builds a meta
+parameter tree on its first call for a config, then caches the specs):
+they hold no memory and move no bytes, and are not counted. A real process
+group's backend (gloo) runs a collective on a thread of its own, which
+keeps the collective's tensors until it has finished with them; when the
+program has already dropped a temporary, that thread's release frees it at
+a time the scheduler picks, and the peak would vary from run to run. So
+the mode runs each collective on copies of its tensors (``_on_copies``):
+every storage of the program is freed on the program's thread, where the
+fake group (which keeps nothing) frees it too.
+
 ``analyze(fn, *args)`` runs ``fn(*args)`` under the mode and returns (its
 output, the record) with the keys of the reference's ``analyze``.
 """
@@ -43,7 +56,7 @@ from typing import Any, Dict, Iterator, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
 
 # op name -> (kind, where its output is, where its input is): an argument
@@ -94,6 +107,31 @@ def nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
+def _on_copies(func, args, kwargs):
+    """Collective ``func`` run on copies of its tensors, waited, and the
+    copies written back: the backend keeps only the copies, so a storage of
+    the program is freed when the program drops it, on the program's
+    thread. Inside the mode's dispatch, so the copies are not counted."""
+    pairs: list = []
+
+    def copy(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        pairs.append((t, t.clone()))
+        return pairs[-1][1]
+
+    cargs, ckwargs = tree_map(copy, (args, kwargs))
+    out = func(*cargs, **ckwargs)
+    for w in tree_leaves(out):
+        if isinstance(w, torch.ScriptObject):
+            w.wait()
+    for t, c in pairs:
+        t.copy_(c)
+    mine = {id(c): t for t, c in pairs}
+    return tree_map(lambda o: mine.get(id(o), o)
+                    if isinstance(o, torch.Tensor) else o, out)
+
+
 class TraceAnalysis(TorchDispatchMode):
     """Counts one step's roofline terms as it runs (module docstring)."""
 
@@ -133,10 +171,15 @@ class TraceAnalysis(TorchDispatchMode):
     # -- the mode -------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        coll = _COLLECTIVES.get(func.name())
+        out = (func(*args, **kwargs) if coll is None
+               else _on_copies(func, args, kwargs))
         if func.is_view or func in _ALIASES:
             return out
         outs = list(_tensors(out))
+        seen = [*outs, *_tensors((args, kwargs))]
+        if seen and all(t.device.type == "meta" for t in seen):
+            return out                     # shape-only work
         for t in outs:
             self._allocated(t)
         self.peak_bytes = max(self.peak_bytes, self._live_bytes)
@@ -152,7 +195,6 @@ class TraceAnalysis(TorchDispatchMode):
             self.flops += n
             name = str(func._overloadpacket)
             self.flops_by_op[name] = self.flops_by_op.get(name, 0) + n
-        coll = _COLLECTIVES.get(func.name())
         if coll is not None:
             self._collective(coll, args, out)
         return out

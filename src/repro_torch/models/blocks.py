@@ -35,7 +35,10 @@ partial products leave the region through ``dist.tp_exit``. A rank
 computes its H/tp query heads and the KV heads they read (kernel B5 takes
 them as they are); its decode reads its block of the KV ring, the KV heads
 (``launch/sharding.kv_split``) or, where ``model`` does not divide them,
-the ring's window, whose per-slice softmax sums are merged over ``model``.
+the ring's window, whose per-slice softmax sums are merged over ``model``,
+or, cut neither way, the whole ring. Where ``model`` does not cut the
+heads (``head_split``), every rank computes all of them on the gathered
+weights (``_attention_replicated``).
 """
 from __future__ import annotations
 
@@ -108,9 +111,11 @@ def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
     if cfg.mrope:
         sections = cfg.mrope_sections
         assert sum(sections) == half, (sections, half)
-        axis_of_band = torch.repeat_interleave(
-            torch.arange(3, device=positions.device),
-            torch.tensor(sections, device=positions.device))
+        # from the sections' sizes on the host: a repeat count read from a
+        # tensor is a shape that a trace on fake tensors cannot know
+        axis_of_band = torch.tensor(
+            [a for a, n in enumerate(sections) for _ in range(n)],
+            device=positions.device)
         pos_per_band = pos[axis_of_band]                     # (half, B, S)
         return torch.einsum("hbs,h->bsh", pos_per_band, inv_freq)
     return pos[..., None] * inv_freq                         # (B, S, half)
@@ -167,65 +172,170 @@ def multihead_attention(
         return _attention_tp(params, cfg, x, angles, kv_cache, cache_pos,
                              ctx)
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, angles)
-    k = apply_rope(k, angles)
-    scale = hd ** -0.5
-    g = H // Hkv
-
+    q, k, v = _qkv(params, cfg, x, angles)
     if kv_cache is None:
         # ---- prefill: causal (+SWA) attention, B5 on the card ---------------
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2),
                                   window=cfg.sliding_window,
                                   chunk=min(cfg.attn_chunk, S))
-        return (out.transpose(1, 2).reshape(B, S, H * hd) @ params["wo"],
+        return (out.transpose(1, 2).reshape(B, S, -1) @ params["wo"],
                 (k, v))
-
     # ---- decode: write one token into the (ring) cache, in place -----------
-    ck, cv = kv_cache
+    out = _decode_whole(cfg, q, k, v, kv_cache, cache_pos)
+    return out @ params["wo"], kv_cache
+
+
+def _qkv(params: Params, cfg: ArchConfig, x: torch.Tensor,
+         angles: torch.Tensor):
+    """Every head's q, k, v (B, S, heads, hd) from whole weights: the
+    projections, ``qk_norm``, rotary on q and k."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    return apply_rope(q, angles), apply_rope(k, angles), v
+
+
+def _decode_whole(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, ring, cache_pos, kv=None) -> torch.Tensor:
+    """One token's decode against a ring that holds every slot of the
+    window: ``k``/``v`` (B, 1, heads, hd), the heads the ring holds, written
+    into slot ``cache_pos`` % W in place; the query heads ``q`` (B, 1, n,
+    hd) read the ring's KV heads ``kv`` = [kv0, kv1) (all of them by
+    default) in GQA groups. Returns (B, 1, n hd)."""
+    ck, cv = ring
+    B, _, n, hd = q.shape
     W = ck.shape[1]
     slot = torch.remainder(cache_pos, W).long()
     ck.index_copy_(1, slot.view(1), k.to(ck.dtype))
     cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
-    qh = q.reshape(B, 1, Hkv, g, hd)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * scale
+    kv0, kv1 = kv or (0, ck.shape[2])
+    ck, cv = ck[:, :, kv0:kv1], cv[:, :, kv0:kv1]
+    qh = q.reshape(B, 1, kv1 - kv0, n // (kv1 - kv0), hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * hd ** -0.5
     logits = torch.where(_decode_valid(cfg, W, cache_pos, slot,
-                                       torch.arange(W, device=x.device)),
+                                       torch.arange(W, device=q.device)),
                          logits, MASK_FILL)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv).reshape(B, 1, H * hd)
-    return out @ params["wo"], (ck, cv)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, cv).reshape(B, 1, n * hd)
+
+
+def _decode_window(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, ring, cache_pos, ctx) -> torch.Tensor:
+    """One token's decode against the rank's block of a ring cut along its
+    window over ``model`` (``launch/sharding.kv_split`` "window"): slots
+    [r Wl, (r+1) Wl) of the W = Wl tp, every KV head. The rank that holds
+    the token's slot writes ``k``/``v`` there; every query head ``q`` (B,
+    1, H, hd) attends to the rank's slots, and the blocks' softmax sums are
+    merged over ``model``. Returns every head's output (B, 1, H hd), the
+    same on every rank."""
+    from repro_torch.models import dist
+    mesh, ax = ctx.mesh, ctx.tp_axis
+    tp, r = dist.tp_size(ctx), dist.tp_rank(ctx)
+    ck, cv = ring
+    B, _, H, hd = q.shape
+    Hkv = ck.shape[2]
+    Wl = ck.shape[1]
+    W = Wl * tp
+    slot = torch.remainder(cache_pos, W).long()
+    here = slot - r * Wl                    # the slot in this rank's block
+    mine = (here >= 0) & (here < Wl)
+    li = here.clamp(0, Wl - 1).view(1)
+    for c, t in ((ck, k), (cv, v)):
+        c.index_copy_(1, li, torch.where(mine, t.to(c.dtype),
+                                         c.index_select(1, li)))
+    qh = q.reshape(B, 1, Hkv, H // Hkv, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * hd ** -0.5
+    idx = r * Wl + torch.arange(Wl, device=q.device)
+    logits = torch.where(_decode_valid(cfg, W, cache_pos, slot, idx),
+                         logits, MASK_FILL)
+    # log-sum-exp merge over the window's blocks: the max over every block
+    # first, then each block's exp-sums and P.V summed over ``model``
+    top = dist.all_reduce_max(logits.amax(dim=-1, keepdim=True), mesh, ax)
+    p = torch.exp(logits - top)
+    denom = dist.reduce_from_tp(p.sum(dim=-1), mesh, ax)      # (B, h, g, 1)
+    pv = dist.reduce_from_tp(
+        torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float()), mesh, ax)
+    out = (pv / denom.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
+    return out.reshape(B, 1, H * hd)
+
+
+def _decode_valid(cfg: ArchConfig, W: int, cache_pos, slot, idx):
+    """Which ring slots ``idx`` (of a ring of ``W``) hold tokens the new
+    one attends to, as the local decode decides."""
+    if cfg.sliding_window > 0:
+        abs_pos = torch.where(idx <= slot, cache_pos - slot + idx,
+                              cache_pos - slot + idx - W)
+        return (abs_pos >= 0) & (abs_pos > cache_pos - cfg.sliding_window)
+    return idx < cache_pos + 1
+
+
+def head_split(cfg: ArchConfig, tp: int) -> str:
+    """How the attention sits on a ``model`` axis of ``tp`` ranks:
+    ``"heads"`` where the axis divides the query heads and each rank's
+    block of H/tp heads is whole GQA groups of its KV heads, or lies in one
+    group (B5 reads query head h from KV head h // group), so a rank
+    computes its own heads (``_attention_tp``); else ``"replicated"``:
+    ``launch/sharding``'s cuts of ``wq``/``wk``/``wv``/``wo`` do not fall on
+    head boundaries, or leave the weights whole, and every rank computes
+    every head (``_attention_replicated``), as GSPMD computes the
+    reference's layout there. Read from the config and the mesh alone,
+    before any launch."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if tp == 1:
+        return "heads"
+    if H % tp:
+        return "replicated"
+    Hq, g = H // tp, H // Hkv
+    return "heads" if Hq % g == 0 or g % Hq == 0 else "replicated"
+
+
+def ring_split(cfg: ArchConfig, ctx, Wl: int) -> Optional[str]:
+    """How ``model`` cut the rank's decode ring of ``Wl`` slots
+    (``launch/sharding.kv_split`` of the whole ring): ``"heads"``,
+    ``"window"`` or None (the whole ring on every rank). The whole ring's
+    window is ``ctx.kv_window`` where the caller set it; without it, a
+    block of ``Wl`` slots that ``model`` divides is a window's block (a
+    whole ring the axis divides would be cut along its window), and any
+    other block is ambiguous, refused."""
+    from repro_torch.launch.sharding import kv_split
+    from repro_torch.models import dist
+    tp, Hkv = dist.tp_size(ctx), cfg.num_kv_heads
+    if Hkv % tp == 0:
+        return "heads"
+    W = ctx.kv_window
+    if W is None:
+        if Wl % tp:
+            raise ValueError(
+                f"decode on a model axis of {tp}: a ring block of {Wl} slots "
+                f"is a whole ring or 1/{tp} of a ring of {Wl * tp} cut along "
+                "its window; set the context's kv_window "
+                "(dist.model_context)")
+        W = Wl * tp
+    where = kv_split(ctx.mesh, Hkv, W)
+    if Wl != (W // tp if where == "window" else W):
+        raise ValueError(f"decode: a ring block of {Wl} slots is not the "
+                         f"rank's block of a ring of {W} cut by {where}")
+    return where
 
 
 def _kv_block(cfg: ArchConfig, tp: int, r: int) -> Tuple[int, int]:
     """The KV heads [kv0, kv1) that rank ``r`` of ``tp``'s query heads
-    [r H/tp, (r+1) H/tp) read. Raises where ``model`` does not divide the
-    query heads, or where those query heads are not whole GQA groups of
-    their KV heads (B5 reads query head h from KV head h // group)."""
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    if H % tp:
-        raise ValueError(f"tensor parallelism: the model axis ({tp}) does "
-                         f"not divide the {H} query heads")
-    Hq, g = H // tp, H // Hkv
-    kv0, kv1 = (r * Hq) // g, ((r + 1) * Hq - 1) // g + 1
-    if Hq % (kv1 - kv0) or (kv1 - kv0 > 1 and Hq // (kv1 - kv0) != g):
-        raise ValueError(f"tensor parallelism: {Hq} query heads a rank do "
-                         f"not form whole groups of {g} over KV heads "
-                         f"{kv0}..{kv1 - 1}")
-    return kv0, kv1
+    [r H/tp, (r+1) H/tp) read, under ``head_split`` "heads"."""
+    Hq, g = cfg.num_heads // tp, cfg.num_heads // cfg.num_kv_heads
+    return (r * Hq) // g, ((r + 1) * Hq - 1) // g + 1
 
 
 def _attention_tp(params: Params, cfg: ArchConfig, x: torch.Tensor,
                   angles: torch.Tensor, kv_cache, cache_pos, ctx):
-    """``multihead_attention`` on this rank under ``ctx``: its H/tp query
-    heads and the KV heads they read (``_kv_block``).
+    """``multihead_attention`` on this rank under ``ctx``: under
+    ``head_split`` "heads" its H/tp query heads and the KV heads they read
+    (``_kv_block``), else ``_attention_replicated``.
 
     ``params`` are the rank's slices (``launch/sharding``): ``wq`` the
     columns of its heads; ``wk``/``wv`` those of its KV heads where
@@ -235,13 +345,17 @@ def _attention_tp(params: Params, cfg: ArchConfig, x: torch.Tensor,
     (and training) runs B5 on the rank's heads over the whole sequence
     (with ``seq_shard`` ``dist.tp_enter`` gathers it) and returns the K/V
     in the rank's ring layout: its KV heads, or all of them where the ring
-    is cut along its window. Decode reads the rank's block of the ring:
-    its KV heads, or (``kv_split`` "window") the ring's slots [r W/tp,
-    (r+1) W/tp) with every head, softmax sums merged over ``model``."""
-    from repro_torch.launch.sharding import kv_split
+    is not cut by heads. Decode reads the rank's block of the ring
+    (``ring_split``): its KV heads; the ring's slots [r W/tp, (r+1) W/tp)
+    with every head, softmax sums merged over ``model``
+    (``_decode_window``); or the whole ring (``_decode_whole``) on the
+    rank's heads."""
     from repro_torch.models import dist
-    mesh, ax = ctx.mesh, ctx.tp_axis
     tp, r = dist.tp_size(ctx), dist.tp_rank(ctx)
+    if head_split(cfg, tp) == "replicated":
+        return _attention_replicated(params, cfg, x, angles, kv_cache,
+                                     cache_pos, ctx)
+    mesh, ax = ctx.mesh, ctx.tp_axis
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kv0, kv1 = _kv_block(cfg, tp, r)
     Hq = H // tp
@@ -270,7 +384,9 @@ def _attention_tp(params: Params, cfg: ArchConfig, x: torch.Tensor,
             t = rmsnorm(norms[norm], t, cfg.norm_eps)
         return t
 
-    by_window = kv_cache is not None and not own_kv
+    where = None if kv_cache is None else ring_split(cfg, ctx,
+                                                     kv_cache[0].shape[1])
+    by_window = where == "window"
     if by_window:                          # every query head, see below
         wq = dist.all_gather(wq, mesh, ax, dim=1)
     q = apply_rope(project(wq, H if by_window else Hq,
@@ -286,63 +402,81 @@ def _attention_tp(params: Params, cfg: ArchConfig, x: torch.Tensor,
             window=cfg.sliding_window, chunk=min(cfg.attn_chunk, S))
         o = out.transpose(1, 2).reshape(B, S, Hq * hd) @ wo
         return dist.tp_exit(o, ctx), (k, v)
-
-    # ---- decode ------------------------------------------------------------
-    ck, cv = kv_cache
-    scale = hd ** -0.5
-    if not by_window:
-        g = Hq // (kv1 - kv0)
-        W = ck.shape[1]
-        slot = torch.remainder(cache_pos, W).long()
-        ck.index_copy_(1, slot.view(1), k.to(ck.dtype))
-        cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
-        qh = q.reshape(B, 1, kv1 - kv0, g, hd)
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * scale
-        logits = torch.where(_decode_valid(cfg, W, cache_pos, slot,
-                                           torch.arange(W, device=x.device)),
-                             logits, MASK_FILL)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv)
-        o = out.reshape(B, 1, Hq * hd) @ wo
-        return dist.tp_exit(o, ctx), (ck, cv)
-    if kv_split(mesh, Hkv, ck.shape[1] * tp) != "window":
-        raise ValueError("tensor-parallel decode: the KV ring is cut neither "
-                         "by heads nor by window (launch/sharding.kv_split)")
-    Wl = ck.shape[1]
-    W = Wl * tp
-    slot = torch.remainder(cache_pos, W).long()
-    here = slot - r * Wl                    # the slot in this rank's block
-    mine = (here >= 0) & (here < Wl)
-    li = here.clamp(0, Wl - 1).view(1)
-    for ring, t in ((ck, k), (cv, v)):
-        ring.index_copy_(1, li, torch.where(mine, t.to(ring.dtype),
-                                            ring.index_select(1, li)))
-    g = H // Hkv
-    qh = q.reshape(B, 1, Hkv, g, hd)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * scale
-    idx = r * Wl + torch.arange(Wl, device=x.device)
-    logits = torch.where(_decode_valid(cfg, W, cache_pos, slot, idx),
-                         logits, MASK_FILL)
-    # log-sum-exp merge over the window's blocks: the max over every block
-    # first, then each block's exp-sums and P.V summed over ``model``
-    top = dist.all_reduce_max(logits.amax(dim=-1, keepdim=True), mesh, ax)
-    p = torch.exp(logits - top)
-    denom = dist.reduce_from_tp(p.sum(dim=-1), mesh, ax)      # (B, h, g, 1)
-    pv = dist.reduce_from_tp(
-        torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float()), mesh, ax)
-    out = (pv / denom.permute(0, 3, 1, 2)[..., None]).to(x.dtype)
-    o = out.reshape(B, 1, H * hd)[..., r * Hq * hd:(r + 1) * Hq * hd] @ wo
-    return dist.tp_exit(o, ctx), (ck, cv)
+    if by_window:
+        out = _decode_window(cfg, q, k, v, kv_cache, cache_pos, ctx)
+        out = out[..., r * Hq * hd:(r + 1) * Hq * hd]
+    else:                                  # the rank's KV heads, or all
+        out = _decode_whole(cfg, q, k, v, kv_cache, cache_pos,
+                            (kv0 - lo, kv1 - lo))
+    return dist.tp_exit(out @ wo, ctx), kv_cache
 
 
-def _decode_valid(cfg: ArchConfig, W: int, cache_pos, slot, idx):
-    """Which ring slots ``idx`` (of a ring of ``W``) hold tokens the new
-    one attends to, as the local decode decides."""
-    if cfg.sliding_window > 0:
-        abs_pos = torch.where(idx <= slot, cache_pos - slot + idx,
-                              cache_pos - slot + idx - W)
-        return (abs_pos >= 0) & (abs_pos > cache_pos - cfg.sliding_window)
-    return idx < cache_pos + 1
+def _attention_replicated(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                          angles: torch.Tensor, kv_cache, cache_pos, ctx):
+    """``multihead_attention`` on this rank under ``head_split``
+    "replicated": every rank computes all H query heads and all Hkv KV
+    heads (B5 on the card), on the whole weights, as GSPMD computes the
+    reference where the rules cut ``wq``/``wk``/``wv``/``wo`` across head
+    boundaries (qwen2-vl's 1,536 ``wq`` columns over 16 ranks: 96 columns,
+    0.75 of a head, a rank) or leave them whole.
+
+    The collectives, and why each backward is what it is:
+
+    * each weight's ZeRO-3 shard is all-gathered over ``data``
+      (``dist.fsdp``; backward a reduce-scatter, since each ``data`` rank
+      saw other tokens), then its ``model`` block over ``model`` by
+      ``dist.gather_split``, whose backward keeps the rank's own block of
+      the gradient and sums nothing: every ``model`` rank runs the same
+      computation on the same tokens, so each already holds the whole
+      gradient of the gathered weight, and the all-gather's transpose (a
+      reduce-scatter) would give tp times it;
+    * ``q_norm``/``k_norm`` are used as they are, without ``tp_param``'s
+      sum over ``model``, for the same reason;
+    * the region is entered and left without a collective: its input is
+      the stream every ``model`` rank holds alike and its output is whole
+      on every rank, so ``tp_exit``'s all-reduce would sum tp equal copies
+      and ``tp_enter``'s backward tp equal gradients. With ``seq_shard``
+      the stream's blocks are gathered along the sequence by
+      ``gather_split`` (backward: the rank's block of the whole gradient)
+      and the output cut back by ``dist.split`` (backward: the blocks'
+      gradients gathered).
+
+    Prefill returns every KV head over the whole sequence; ``lm`` writes
+    the rank's block of the ring from it. Decode reads the ring as
+    ``ring_split`` says ``model`` cut it: along its window
+    (``_decode_window``), or not at all (the whole ring on every rank,
+    ``_decode_whole``, the local decode); a ring is not cut by heads where
+    the heads are replicated (``model`` dividing the KV heads divides the
+    query heads in whole groups)."""
+    from repro_torch.models import dist
+    mesh, ax = ctx.mesh, ctx.tp_axis
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def whole(w, cols, data_dim):
+        w = dist.fsdp(w, ctx, d, data_dim)
+        tp_dim = 1 - data_dim
+        if w.shape[tp_dim] == cols:
+            return w
+        return dist.gather_split(w, mesh, ax, dim=tp_dim)
+
+    full = {"wq": whole(params["wq"], H * hd, 0),
+            "wk": whole(params["wk"], Hkv * hd, 0),
+            "wv": whole(params["wv"], Hkv * hd, 0),
+            "wo": whole(params["wo"], H * hd, 1)}
+    if cfg.qk_norm:
+        full.update(q_norm=params["q_norm"], k_norm=params["k_norm"])
+    seq = ctx.seq_shard and kv_cache is None
+    if seq:
+        x = dist.gather_split(x, mesh, ax, dim=1)
+    if kv_cache is None or ring_split(cfg, ctx, kv_cache[0].shape[1]) is None:
+        with dist.use(None):                   # the local path
+            o, kv = multihead_attention(full, cfg, x, angles,
+                                        kv_cache=kv_cache,
+                                        cache_pos=cache_pos)
+        return (dist.split(o, mesh, ax, dim=1) if seq else o), kv
+    out = _decode_window(cfg, *_qkv(full, cfg, x, angles), kv_cache,
+                         cache_pos, ctx)
+    return out @ full["wo"], kv_cache
 
 
 # ---------------------------------------------------------------------------

@@ -76,6 +76,10 @@ class DistContext:
     # dim over 'data' instead of ZeRO-3; ``blocks._moe_ffn_sharded``
     # refuses True
     expert_inner_shard: bool = False
+    # decode: the whole window W of the KV rings, which tells a ring block
+    # that is a whole ring (``model`` divides neither its KV heads nor W)
+    # from 1/tp of a ring cut along its window (``blocks.ring_split``)
+    kv_window: Optional[int] = None
 
 
 _state = threading.local()
@@ -90,16 +94,19 @@ def constrain_heads(x: torch.Tensor) -> torch.Tensor:
     ``constrain_heads`` is a GSPMD layout hint (shard a head-major tensor
     over the batch and model axes); a rank running eager code already
     holds its batch block, and a tensor-parallel layer computes only its
-    own block of heads (``blocks.multihead_attention``), so the head split
-    it asks for is local by construction and there is no compiler to
-    hint."""
+    own block of heads, or every head where ``model`` does not cut them
+    (``blocks.head_split``), so the layout it asks for is local by
+    construction and there is no compiler to hint."""
     return x
 
 
-def model_context(mesh, seq_shard: bool = False) -> "DistContext":
+def model_context(mesh, seq_shard: bool = False,
+                  kv_window: Optional[int] = None) -> "DistContext":
     """The context of the model on ``mesh``: its batch axes, ``model`` the
-    tensor-parallel axis, the sequence split when ``seq_shard``."""
-    return DistContext(mesh, meshlib.batch_axes(mesh), seq_shard=seq_shard)
+    tensor-parallel axis, the sequence split when ``seq_shard``, and for
+    decode the KV rings' whole window (``DistContext.kv_window``)."""
+    return DistContext(mesh, meshlib.batch_axes(mesh), seq_shard=seq_shard,
+                       kv_window=kv_window)
 
 
 def tp_size(ctx: Optional[DistContext]) -> int:

@@ -57,7 +57,11 @@ the rank's heads (``models/mamba2``, ``models/rwkv6``), zamba2's shared
 attention block as the attention and MLP regions above, once a group
 (its gradient summed over the groups by autograd), its ring cut as the
 others. ``_mesh_context`` refuses a width that ``model`` does not divide,
-and ``seq_shard`` with SSM layers.
+and ``seq_shard`` with SSM layers; the attention's heads are the exception:
+where ``model`` does not cut them (``blocks.head_split``) every rank
+computes them all on the gathered weights
+(``blocks._attention_replicated``), and a ring cut neither by heads nor by
+window is whole on every rank.
 """
 from __future__ import annotations
 
@@ -94,14 +98,13 @@ def _mesh_context(cfg: ArchConfig) -> Optional[dist.DistContext]:
     """The ``dist`` context, once the config is known to run on it: every
     width the rules cut over ``model`` must divide it, or it would stay
     whole on every rank (the rules' fallback) and a region's exit would sum
-    its copies."""
+    its copies. The attention is the exception: where ``model`` does not
+    cut its heads (``blocks.head_split``) every rank computes them all."""
     ctx = dist.current()
     if ctx is None:
         return None
     kinds = set(cfg.block_pattern)
     widths = {}
-    if kinds & set(ATTN_KINDS):
-        widths["query heads"] = cfg.num_heads
     if kinds & {"attn", "shared_attn"} or cfg.first_k_dense:
         widths["d_ff"] = cfg.d_ff
     if cfg.moe is not None:
@@ -468,16 +471,13 @@ def _stream(cfg: ArchConfig, params: Params, batch: Batch,
     return x
 
 
-def _ring_block(cfg: ArchConfig, ring: torch.Tensor, t: torch.Tensor,
-                src: Optional[torch.Tensor]):
+def _ring_block(ring: torch.Tensor, t: torch.Tensor,
+                src: Optional[torch.Tensor], lo: int):
     """A layer's prefill K/V ``t`` (B, S, heads, hd) as the slots of the
-    rank's ring block ``ring`` (B, W_r, heads, hd): the whole window, or on
-    a ring cut along its window the rank's slots."""
+    rank's ring block ``ring`` (B, W_r, heads, hd) that start at slot
+    ``lo`` of the window: the whole window (``lo`` 0), or on a ring cut
+    along its window the rank's slots."""
     S, Wr = t.shape[1], ring.shape[1]
-    ctx = dist.current()
-    lo = 0
-    if ctx is not None and cfg.num_kv_heads % dist.tp_size(ctx):
-        lo = dist.tp_rank(ctx) * Wr     # the ring cut along its window
     if src is None:
         n = max(0, min(S - lo, Wr))
         ring[:, :n] = t[:, lo:lo + n]
@@ -511,6 +511,9 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
     cache["pos"].fill_(S)
     W = _kv_window(cfg, cache_len)
     src = _ring_src(S, W, x.device)
+    ctx, lo = dist.current(), 0
+    if ctx is not None and _ring_cut(cfg, ctx, W) == "window":
+        lo = dist.tp_rank(ctx) * (W // dist.tp_size(ctx))
     for kind, lp, key, i in _layers(cfg, params):
         x, c, a = apply_block(kind, lp, cfg, x, angles, None, None)
         if a is not None:
@@ -518,7 +521,7 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
         if kind in ATTN_KINDS:
             rings = cache[key]
             for name, t in zip(("k", "v"), c):
-                _ring_block(cfg, rings[name][i], t, src)
+                _ring_block(rings[name][i], t, src, lo)
         else:
             for dst, t in zip(cache[key], c):
                 dst[i].copy_(t)
@@ -565,30 +568,36 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
 # ---------------------------------------------------------------------------
 # cache init
 # ---------------------------------------------------------------------------
+def _ring_cut(cfg: ArchConfig, ctx, W: int) -> Optional[str]:
+    """How ``model`` cuts a KV ring of window ``W`` under ``ctx``
+    (``launch/sharding.kv_split``): "heads", "window", or None (whole on
+    every rank, also without a context)."""
+    from repro_torch.launch.sharding import kv_split
+    if dist.tp_size(ctx) == 1:
+        return None
+    return kv_split(ctx.mesh, cfg.num_kv_heads, W)
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Empty decode cache at position 0: zero (L, B, W, Hkv, hd) rings and
     zero stacked layer states. On a mesh ``batch`` is the rank's rows and
     each leaf the rank's block (``launch/sharding.cache_pspec``): a ring's
     KV heads, or where ``model`` does not divide them its slots of the
-    window; the Mamba2 SSD and RWKV6 wkv states' heads, the RWKV6 shift
-    carries' d-slices, the Mamba2 conv carry whole. ``"meta"`` gives
-    shapes and dtypes only, as ``init_params``."""
-    from repro_torch.launch.sharding import kv_split
+    window, or where it divides neither the whole ring; the Mamba2 SSD and
+    RWKV6 wkv states' heads, the RWKV6 shift carries' d-slices, the Mamba2
+    conv carry whole. ``"meta"`` gives shapes and dtypes only, as
+    ``init_params``."""
     mode = wiring_mode(cfg)
     ctx = _mesh_context(cfg)
     dev = (torch.device("meta") if device is not None
            and torch.device(device).type == "meta" else resolve_device(device))
     W, Hkv = _kv_window(cfg, cache_len), cfg.num_kv_heads
-    tp = dist.tp_size(ctx)
-    has_ring = mode != "uniform" or cfg.block_pattern[0] in ("attn", "moe")
-    if tp > 1 and has_ring:
-        where = kv_split(ctx.mesh, Hkv, W)
-        if where is None:
-            raise ValueError(f"init_cache: the model axis ({tp}) divides "
-                             f"neither the {Hkv} KV heads nor the window "
-                             f"{W}; a ring replicated over it is not ported")
-        W, Hkv = (W, Hkv // tp) if where == "heads" else (W // tp, Hkv)
+    tp, where = dist.tp_size(ctx), _ring_cut(cfg, ctx, W)
+    if where == "heads":
+        Hkv //= tp
+    elif where == "window":
+        W //= tp
     shape = (W, Hkv, cfg.head_dim)
 
     def rings(n):

@@ -353,13 +353,47 @@ TP_MUTANTS = (("zamba2_2p7b", "A_log"), ("zamba2_2p7b", "conv_w"),
               ("zamba2_2p7b", "norm_sum_backward"))
 
 
+#: suite "tp_heads": the attention on a model axis that does not divide its
+#: heads, so every rank computes them all (``blocks.head_split``
+#: "replicated"): qwen2-vl (M-RoPE), starcoder2 (GELU MLP) and musicgen
+#: (MHA) with 6 query heads on (1, 4) (192 ``wq`` columns, cut at 1.5 heads
+#: a rank) and 3 query heads and 1 KV head on (2, 2) (96 columns, 1.5
+#: heads); musicgen keeps as many KV heads as query heads. Beside them
+#: starcoder2's 3 heads with ``seq_shard`` on (2, 2) (the stream's blocks
+#: gathered into the region and cut out of it), and internlm2's own 4
+#: heads on (1, 4), cut by heads, whose ring of 21 is whole on every rank.
+#: case -> (mesh, query heads, KV heads, other config fields)
+TP_HEADS_CASES = {
+    **{f"{a}_h{h}": (m, h, h if a == "musicgen_medium" else kv, {})
+       for a in ("qwen2_vl_2b", "starcoder2_7b", "musicgen_medium")
+       for m, h, kv in (("1x4", 6, 2), ("2x2", 3, 1))},
+    "starcoder2_7b_h3_seq": ("2x2", 3, 1, {"seq_shard": True}),
+    "internlm2_1p8b_h4": ("1x4", 4, 2, {})}
+TP_HEADS_CUT = ("internlm2_1p8b_h4",)        # the head-cut control
+#: the decode rings of suite "tp_heads": a cache of 20, which the model axis
+#: cuts along its window, and one of 21, which it cuts neither way (whole on
+#: every rank); three greedy steps through each
+TP_HEADS_RINGS = (("window_", 20), ("whole_", 21))
+TP_HEADS_DECODE = 3
+#: mutations of the replicated region's gradient, each on (1, 4) and
+#: qwen2-vl: "gather_sums" gathers the weights with ``dist.all_gather``,
+#: whose backward sums every rank's (whole) gradient; "exit_sums" leaves the
+#: region through ``dist.tp_exit``'s all-reduce
+TP_HEADS_MUTANTS = ("gather_sums", "exit_sums")
+
+
 def tp_config(arch: str, pkg):
     """The f32 smoke config of ``arch`` in ``pkg`` (either package's
     ``get_config``), with what each case exercises: block remat
     (internlm2, zamba2's groups, rwkv6's layers), a window of 8 (danube:
     the ring wraps in prefill), and kimi-k2's own ``seq_shard`` and full
     remat, which its smoke config turns off. ``mamba2_stack``: zamba2's
-    smoke widths as a uniform stack of 2 Mamba2 layers."""
+    smoke widths as a uniform stack of 2 Mamba2 layers. A case of
+    ``TP_HEADS_CASES``: its arch's smoke config with its heads."""
+    if arch in TP_HEADS_CASES:
+        _, h, kv, extra = TP_HEADS_CASES[arch]
+        return pkg(arch.split("_h")[0]).smoke().replace(
+            param_dtype="float32", num_heads=h, num_kv_heads=kv, **extra)
     if arch == "mamba2_stack":
         return pkg("zamba2_2p7b").smoke().replace(
             param_dtype="float32", block_pattern=("mamba",), num_layers=2)
@@ -374,13 +408,17 @@ def tp_config(arch: str, pkg):
 
 
 def tp_cases(suite: str):
-    """The suite's (arch, mesh names) pairs, its sequence and its cache
-    length."""
+    """The suite's (arch, mesh names) pairs, its sequence and its decode
+    rings ((key prefix, cache length), ...)."""
     if suite == "tp_ssm":
         return ([(a, tuple(TP_MESHES)) for a in TP_SSM_ARCHS], TP_SSM_SEQ,
-                TP_SSM_CACHE)
+                (("", TP_SSM_CACHE),))
+    if suite == "tp_heads":
+        return ([(a, (m,)) for a, (m, *_) in TP_HEADS_CASES.items()],
+                TP_SEQ, TP_HEADS_RINGS)
     return ([(a, tuple(TP_MESHES)) for a in TP_ARCHS]
-            + [(a, ("2x2",)) for a in TP_EXTRA_ARCHS], TP_SEQ, TP_CACHE)
+            + [(a, ("2x2",)) for a in TP_EXTRA_ARCHS], TP_SEQ,
+            (("", TP_CACHE),))
 
 
 def tp_inputs(suite: str, jax, jax_lm, jax_config) -> dict:
@@ -418,8 +456,9 @@ def tp_inputs(suite: str, jax, jax_lm, jax_config) -> dict:
 #: SUITE`` with 4 forced host devices: for each case its GSPMD steps on a
 #: mesh of ``AxisType.Auto`` axes with the rules and hooks (the default
 #: Explicit axes break the dense path at its embedding gather, ROADMAP
-#: C-10), or its unsharded steps for a MoE config (ROADMAP C-9); writes
-#: ``WORKDIR/jax_SUITE.npz``
+#: C-10), or its unsharded steps for a MoE config (ROADMAP C-9); a prefill
+#: and decode for each of the suite's rings, greedy in suite "tp_heads";
+#: writes ``WORKDIR/jax_SUITE.npz``
 JAX_SCRIPT = """
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -435,7 +474,8 @@ import torch_dist_worker as W
 
 suite = sys.argv[3]
 inp = np.load(os.path.join(sys.argv[1], "inputs.npz"))
-cases, _, cache_len = W.tp_cases(suite)
+cases, _, rings = W.tp_cases(suite)
+greedy = suite == "tp_heads"
 EXTRA = ("positions", "prefix_embeds")
 
 
@@ -485,18 +525,27 @@ for arch, mesh_names in cases:
         out[pre + "/grad_norm"] = np.asarray(m["grad_norm"])
         W.flat_tree(new, pre + "/state", out)
         ckw = {"constrain": hooks["constrain"]} if hooks else {}
-        logits, cache = jax.jit(steps.make_prefill_step(
-            cfg, cache_len, **ckw))(st["params"], pb)
-        out[pre + "/prefill_logits"] = np.asarray(logits)
-        W.flat_tree(cache, pre + "/prefill_cache", out)
-        if shape is not None:
-            cache = jax.device_put(
-                cache, sharding.cache_shardings(mesh, cfg, cache))
         decode = jax.jit(steps.make_decode_step(cfg, **ckw))
-        for t, tok in enumerate(inp[arch + "/decode"]):
-            _, logits, cache = decode(st["params"], jnp.asarray(tok), cache)
-            out[f"{pre}/decode{t}_logits"] = np.asarray(logits)
-        W.flat_tree(cache, pre + "/decode_cache", out)
+        for tag, cache_len in rings:
+            logits, cache = jax.jit(steps.make_prefill_step(
+                cfg, cache_len, **ckw))(st["params"], pb)
+            out[f"{pre}/{tag}prefill_logits"] = np.asarray(logits)
+            W.flat_tree(cache, f"{pre}/{tag}prefill_cache", out)
+            if shape is not None:
+                cache = jax.device_put(
+                    cache, sharding.cache_shardings(mesh, cfg, cache))
+            toks = ([jnp.argmax(logits, -1).astype(jnp.int32)[:, None]]
+                    if greedy else list(map(jnp.asarray,
+                                            inp[arch + "/decode"])))
+            for t in range(W.TP_HEADS_DECODE if greedy else len(toks)):
+                nxt, logits, cache = decode(st["params"], toks[t], cache)
+                out[f"{pre}/{tag}decode{t}_logits"] = np.asarray(logits)
+                if greedy:
+                    toks.append(nxt)
+            if greedy:
+                out[f"{pre}/{tag}tokens"] = np.asarray(
+                    jnp.concatenate(toks, 1))
+            W.flat_tree(cache, f"{pre}/{tag}decode_cache", out)
 np.savez(os.path.join(sys.argv[1], f"jax_{suite}.npz"), **out)
 print("JAX_TP_OK")
 """
@@ -588,11 +637,14 @@ def _backward_on_another_thread(torch):
 
 
 def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None,
-            cache_len=TP_CACHE, grads_only=False):
-    """One train step's gradient, loss, grad norm and new state, a prefill
-    and the decode steps, on ``mesh`` (this rank's slices, gathered back)
-    or, without one, on the port's local path (``grads_only``: the loss
-    and gradient alone). Returns flat numpy entries."""
+            rings=(("", TP_CACHE),), grads_only=False, greedy=False):
+    """One train step's gradient, loss, grad norm and new state, and for
+    each of ``rings`` ((key prefix, cache length), ...) a prefill and the
+    decode steps, on ``mesh`` (this rank's slices, gathered back) or,
+    without one, on the port's local path (``grads_only``: the loss and
+    gradient alone). ``greedy``: TP_HEADS_DECODE steps, each fed the
+    argmax of the logits before it (recorded as ``tokens``), instead of
+    ``tokens``. Returns flat numpy entries."""
     from repro_torch.launch import sharding
     from repro_torch.models import dist, lm
     from repro_torch.train import (make_decode_step, make_grad_fn,
@@ -600,8 +652,8 @@ def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None,
     out: dict = {}
     hooks, ctx = {}, None
     gather = (lambda spec_fn, t: t)
+    cut = (lambda t: t)
     n_rows = prompt["tokens"].shape[0]
-    full_cache = lm.init_cache(cfg, n_rows, cache_len, device="cpu")
     if mesh is not None:
         hooks = dict(constrain=sharding.make_constrain(mesh, cfg),
                      constrain_logits=sharding.make_constrain_logits(mesh))
@@ -610,18 +662,18 @@ def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None,
         def gather(specs, t):
             return sharding.gather_tree(mesh, specs, t)
 
+        def cut(t):
+            return sharding.batch_shardings(mesh, {"tokens": t})["tokens"]
+
         state_specs = sharding.state_specs(mesh, state)
         param_specs = sharding.param_specs(mesh, state["params"])
-        cache_specs = sharding.cache_specs(mesh, cfg, full_cache)
-        rows = sharding.batch_pspec(mesh, ("logits",), full_cache["pos"]
-                                    .new_zeros(n_rows, 1))
+        rows = sharding.batch_pspec(mesh, ("logits",),
+                                    torch.zeros(n_rows, 1))
         state = sharding.state_shardings(mesh, state)
         batch = sharding.batch_shardings(mesh, batch)
         prompt = sharding.batch_shardings(mesh, prompt)
-        tokens = [sharding.batch_shardings(mesh, {"tokens": t})["tokens"]
-                  for t in tokens]
     else:
-        state_specs = param_specs = cache_specs = rows = None
+        state_specs = param_specs = None
     with dist.use(ctx):
         loss, metrics, grads = make_grad_fn(cfg, **hooks)(state["params"],
                                                            batch)
@@ -633,23 +685,36 @@ def _tp_run(torch, cfg, state, batch, prompt, tokens, *, mesh=None,
         out["step_loss"], out["grad_norm"] = m["loss"].numpy(), \
             m["grad_norm"].numpy()
         flat_tree(gather(state_specs, new), "state", out)
-        logits, cache = make_prefill_step(
-            cfg, cache_len, constrain=hooks.get("constrain", lm.Identity))(
+    constrain = hooks.get("constrain", lm.Identity)
+    decode = make_decode_step(cfg, constrain=constrain)
+    for tag, cache_len in rings:
+        full_cache = lm.init_cache(cfg, n_rows, cache_len, device="meta")
+        cache_specs = (None if mesh is None
+                       else sharding.cache_specs(mesh, cfg, full_cache))
+        with dist.use(ctx):
+            logits, cache = make_prefill_step(cfg, cache_len,
+                                              constrain=constrain)(
                 state["params"], prompt)
-    if mesh is not None:
-        logits = sharding.gather_leaf(mesh, rows, logits)
-    out["prefill_logits"] = logits.numpy().copy()
-    flat_tree(gather(cache_specs, cache), "prefill_cache", out)
-    dec_ctx = None if ctx is None else dist.model_context(mesh, False)
-    with dist.use(dec_ctx):
-        decode = make_decode_step(cfg, constrain=hooks.get("constrain",
-                                                           lm.Identity))
-        for t, tok in enumerate(tokens):
-            _, logits, cache = decode(state["params"], tok, cache)
-            if mesh is not None:
-                logits = sharding.gather_leaf(mesh, rows, logits)
-            out[f"decode{t}_logits"] = logits.numpy().copy()
-    flat_tree(gather(cache_specs, cache), "decode_cache", out)
+        if mesh is not None:
+            logits = sharding.gather_leaf(mesh, rows, logits)
+        out[tag + "prefill_logits"] = logits.numpy().copy()
+        flat_tree(gather(cache_specs, cache), tag + "prefill_cache", out)
+        dec_ctx = None if ctx is None else dist.model_context(
+            mesh, False, kv_window=lm._kv_window(cfg, cache_len))
+        fed = ([logits.argmax(-1).to(torch.int32)[:, None]] if greedy
+               else list(tokens))
+        with dist.use(dec_ctx):
+            for t in range(TP_HEADS_DECODE if greedy else len(fed)):
+                nxt, logits, cache = decode(state["params"], cut(fed[t]),
+                                            cache)
+                if mesh is not None:
+                    logits = sharding.gather_leaf(mesh, rows, logits)
+                out[f"{tag}decode{t}_logits"] = logits.numpy().copy()
+                if greedy:
+                    fed.append(logits.argmax(-1).to(torch.int32)[:, None])
+        if greedy:
+            out[tag + "tokens"] = torch.cat(fed, 1).numpy()
+        flat_tree(gather(cache_specs, cache), tag + "decode_cache", out)
     return out
 
 
@@ -796,11 +861,45 @@ def _tp_ssm_suite(rank: int, world: int, inp) -> dict:
         return _tp_cases(torch, rank, inp, "tp_ssm")
 
 
+def _tp_heads_suite(rank: int, world: int, inp) -> dict:
+    import torch
+    with _backward_on_another_thread(torch):
+        return _tp_cases(torch, rank, inp, "tp_heads")
+
+
+@contextlib.contextmanager
+def tp_heads_mutant(name: str):
+    """One of TP_HEADS_MUTANTS in force while the block runs: a wrapper of
+    ``blocks._attention_replicated`` that gathers the weights with
+    ``dist.all_gather`` (``gather_sums``), or passes the region's output
+    through ``dist.tp_exit`` (``exit_sums``)."""
+    from repro_torch.models import blocks, dist
+    orig = blocks._attention_replicated
+
+    def mutant(params, cfg, x, angles, kv_cache, cache_pos, ctx):
+        if name == "exit_sums":
+            o, kv = orig(params, cfg, x, angles, kv_cache, cache_pos, ctx)
+            return dist.tp_exit(o, ctx), kv
+        split = dist.gather_split
+        dist.gather_split = dist.all_gather
+        try:
+            return orig(params, cfg, x, angles, kv_cache, cache_pos, ctx)
+        finally:
+            dist.gather_split = split
+
+    blocks._attention_replicated = mutant
+    try:
+        yield
+    finally:
+        blocks._attention_replicated = orig
+
+
 def _tp_cases(torch, rank: int, inp, suite: str) -> dict:
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models import dist
     out: dict = {}
-    cases, _, cache_len = tp_cases(suite)
+    cases, _, rings = tp_cases(suite)
+    kw = dict(rings=rings, greedy=suite == "tp_heads")
     for name, shape in TP_MESHES.items():
         mesh = meshlib.make_host_mesh(*shape, device="cpu")
         for arch, meshes in cases:
@@ -808,32 +907,33 @@ def _tp_cases(torch, rank: int, inp, suite: str) -> dict:
                 continue
             cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp, arch)
             got = _tp_run(torch, cfg, state, batch, prompt, tokens,
-                          mesh=mesh, cache_len=cache_len)
+                          mesh=mesh, **kw)
             if rank == 0:
                 out.update({f"{name}/{arch}/{k}": v for k, v in got.items()})
-    if suite == "tp_ssm":
-        mesh = meshlib.make_host_mesh(*TP_MESHES["2x2"], device="cpu")
-        for arch, name in TP_MUTANTS:
-            cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp, arch)
-            with tp_mutant(name, state["params"]):
-                got = _tp_run(torch, cfg, state, batch, prompt, tokens,
-                              mesh=mesh, cache_len=cache_len,
-                              grads_only=True)
-            if rank == 0:
-                out.update({f"mutant_{name}/{arch}/{k}": v
-                            for k, v in got.items()})
+    mutants = {"tp_ssm": [(arch, "2x2", name) for arch, name in TP_MUTANTS],
+               "tp_heads": [("qwen2_vl_2b_h6", "1x4", name)
+                            for name in TP_HEADS_MUTANTS]}.get(suite, [])
+    for arch, mesh_name, name in mutants:
+        mesh = meshlib.make_host_mesh(*TP_MESHES[mesh_name], device="cpu")
+        cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp, arch)
+        with (tp_heads_mutant(name) if suite == "tp_heads"
+              else tp_mutant(name, state["params"])):
+            got = _tp_run(torch, cfg, state, batch, prompt, tokens,
+                          mesh=mesh, grads_only=True)
+        if rank == 0:
+            out.update({f"mutant_{name}/{arch}/{k}": v
+                        for k, v in got.items()})
     if rank == 0:
         with dist.use(None):
             for arch, _ in cases:
                 cfg, state, batch, prompt, tokens = _tp_inputs(torch, inp,
                                                                arch)
-                got = _tp_run(torch, cfg, state, batch, prompt, tokens,
-                              cache_len=cache_len)
+                got = _tp_run(torch, cfg, state, batch, prompt, tokens, **kw)
                 out.update({f"local/{arch}/{k}": v for k, v in got.items()})
     if suite == "tp_ssm":
         out.update(_tp_elastic(torch, inp, rank, TP_SSM_ELASTIC,
                                "elastic_ssm"))
-    else:
+    elif suite == "tp":
         out.update(_tp_elastic(torch, inp, rank))
     return out
 
@@ -842,11 +942,20 @@ def _tp_cases(torch, rank: int, inp, suite: str) -> dict:
 # suites "trace" and "trace_fake"
 # ---------------------------------------------------------------------------
 #: the dry run held against real ranks: a dense wiring with block remat, an
-#: RWKV6 stack (B4's plain path, over a sequence that crosses a scan chunk)
-#: and a MoE wiring (its all-to-alls), smoke widths, f32
-TRACE_ARCHS = ("internlm2_1p8b", "rwkv6_1p6b", "qwen3_moe_30b_a3b")
+#: RWKV6 stack (B4's plain path, over a sequence that crosses a scan chunk),
+#: a MoE wiring (its all-to-alls) and qwen2-vl with 3 query heads and 1 KV
+#: head, which the model axis of 2 divides neither (the attention
+#: replicated over it), smoke widths, f32
+TRACE_ARCHS = ("internlm2_1p8b", "rwkv6_1p6b", "qwen3_moe_30b_a3b",
+               "qwen2_vl_2b_h3")
 TRACE_BATCH, TRACE_SEQ = 4, 48
 TRACE_MESH = (2, 2)
+#: suite "trace_history": one cell traced first in its process, again at
+#: once, then after another cell; the three records must be equal
+TRACE_HISTORY = (("qwen3_moe_30b_a3b", "train"),
+                 ("qwen3_moe_30b_a3b", "train"),
+                 ("internlm2_1p8b", "prefill"),
+                 ("qwen3_moe_30b_a3b", "train"))
 
 
 def trace_cases():
@@ -855,8 +964,11 @@ def trace_cases():
     from repro_torch.configs.base import ShapeConfig
     out = {}
     for arch in TRACE_ARCHS:
-        cfg = get_config(arch).smoke().replace(param_dtype="float32",
+        base = arch[:-len("_h3")] if arch.endswith("_h3") else arch
+        cfg = get_config(base).smoke().replace(param_dtype="float32",
                                                remat="block")
+        if base != arch:
+            cfg = cfg.replace(num_heads=3, num_kv_heads=1)
         for mode in ("train", "prefill", "decode"):
             out[arch, mode] = (cfg, ShapeConfig(f"smoke_{mode}", TRACE_SEQ,
                                                 TRACE_BATCH, mode))
@@ -907,30 +1019,35 @@ def _filled(torch, tree):
     return sharding.walk(lambda p, t: fill(t), tree)
 
 
-def _trace_suite(rank: int, world: int, inp) -> dict:
-    """Each cell's step on this rank's real slices, counted."""
-    import torch
+def _trace_real(torch, mesh, cfg, shape, mode) -> dict:
+    """One cell's step on this rank's real slices, counted."""
     from repro_torch.launch import dryrun
-    from repro_torch.launch import mesh as meshlib
     from repro_torch.launch.trace_analysis import analyze
     from repro_torch.models import dist
-    mesh = meshlib.make_host_mesh(*TRACE_MESH, device="cpu")
-    out = {}
-    for (arch, mode), (cfg, shape) in trace_cases().items():
-        _, args = dryrun.cell_args(cfg, shape, mesh, torch.device("cpu"))
-        args = _filled(torch, args)
-        fn, ctx = dryrun.step_fn(cfg, shape, mode, mesh)
-        with dist.use(ctx):
-            res, a = analyze(fn, *args)
-        t = a.totals()
-        out.update(trace_record(f"{arch}/{mode}", {
-            **t, "ops": a.ops, "memory": a.memory(args, res),
+    _, args = dryrun.cell_args(cfg, shape, mesh, torch.device("cpu"))
+    args = _filled(torch, args)
+    fn, ctx = dryrun.step_fn(cfg, shape, mode, mesh)
+    with dist.use(ctx):
+        res, a = analyze(fn, *args)
+    t = a.totals()
+    return {**t, "ops": a.ops, "memory": a.memory(args, res),
             "collectives": {k[5:]: v for k, v in t.items()
                             if k.startswith("coll_")},
             "collective_calls": {k: r["calls"]
                                  for k, r in a.collectives.items()},
             "collective_input_bytes": {k: r["input_bytes"]
-                                       for k, r in a.collectives.items()}}))
+                                       for k, r in a.collectives.items()}}
+
+
+def _trace_suite(rank: int, world: int, inp) -> dict:
+    """Each cell's step on this rank's real slices, counted."""
+    import torch
+    from repro_torch.launch import mesh as meshlib
+    mesh = meshlib.make_host_mesh(*TRACE_MESH, device="cpu")
+    out = {}
+    for (arch, mode), (cfg, shape) in trace_cases().items():
+        out.update(trace_record(f"{arch}/{mode}",
+                                _trace_real(torch, mesh, cfg, shape, mode)))
     return out
 
 
@@ -946,15 +1063,35 @@ def _trace_fake_suite(rank: int, world: int, inp) -> dict:
     return out
 
 
+def _trace_history_suite(rank: int, world: int, inp) -> dict:
+    """TRACE_HISTORY's cells in order, in a fresh process: on four real
+    ranks, or (``world`` 1) by the dry run on fake tensors."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    cases = trace_cases()
+    mesh = (meshlib.make_host_mesh(*TRACE_MESH, device="cpu") if world > 1
+            else None)
+    out = {}
+    for i, (arch, mode) in enumerate(TRACE_HISTORY):
+        cfg, shape = cases[arch, mode]
+        got = (_trace_real(torch, mesh, cfg, shape, mode) if mesh is not None
+               else dryrun.run_custom(cfg, shape, TRACE_MESH, "cpu"))
+        out.update(trace_record(f"{i}/{arch}/{mode}", got))
+    return out
+
+
 def main(argv) -> int:
     suite, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), \
         pathlib.Path(argv[3])
     import torch
     import torch.distributed as tdist
     torch.set_num_threads(1)
-    if suite == "trace_fake":
+    if suite == "trace_fake" or (suite == "trace_history" and world == 1):
+        fake = {"trace_fake": _trace_fake_suite,
+                "trace_history": _trace_history_suite}[suite]
         np.savez(workdir / f"{suite}{world}_rank{rank}.npz",
-                 **_trace_fake_suite(rank, world, None))
+                 **fake(rank, world, None))
         return 0
     store = workdir / f"store_{suite}_{world}"
     tdist.init_process_group("gloo", init_method=f"file://{store}",
@@ -964,7 +1101,9 @@ def main(argv) -> int:
                if (workdir / "inputs.npz").exists() else None)
         out = {"shard": _shard_suite, "moe": _moe_suite,
                "tp": _tp_suite, "tp_ssm": _tp_ssm_suite,
-               "trace": _trace_suite}[suite](
+               "tp_heads": _tp_heads_suite,
+               "trace": _trace_suite,
+               "trace_history": _trace_history_suite}[suite](
             rank, world, inp)
         tdist.barrier()
     finally:
