@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import DeviceLike, resolve_device
+from repro_torch.runtime import spans
 
 
 @dataclass
@@ -194,38 +195,44 @@ def fit_cycle_batch(classes_batch, *, min_period: int = 2,
     a host array (sent to ``device``). ``mesh`` splits the kernel stages'
     rows over its ranks (``core/shard.py``); the peak pick runs on the
     gathered spectra, so the fits are bit-identical."""
-    rows = _as_rows(classes_batch, device)
-    X = rows.to(torch.float32)
-    J, n = X.shape
-    if J == 0:
-        return []
-    cls_host = rows.cpu().numpy().astype(np.int8)
-    max_p = min(max_period or n // 2, n // 2)
-    if n < 2 * min_period:
-        return [_acyclic(cls_host[j]) for j in range(J)]
-    k_star, conf, found = _peak_pick(_spectra(X, mesh), n, min_period,
-                                     max_p, total_power=_total_power(X))
-    p0 = np.round(n / np.maximum(k_star, 1)).astype(np.int64)
-    periods = np.where(found, p0, 1)
-    if found.any():
-        sel = torch.as_tensor(np.flatnonzero(found), device=X.device)
-        periods[found] = _refine_period_batch(X[sel], p0[found], min_period,
-                                              max_p, mesh)
-    out: List[CycleModel] = []
-    for j in range(J):
-        if not found[j]:
-            out.append(_acyclic(cls_host[j]))
-            continue
-        period = int(periods[j])
-        cls = cls_host[j]
-        array_lm, array_nlm, profile = decompose(cls, period)
-        if folded:
-            profile = fold_profile(cls, period)
-            idx = np.arange(period)
-            array_lm, array_nlm = idx[profile == 1], idx[profile != 1]
-        out.append(CycleModel(period, float(conf[j]), profile, array_lm,
-                              array_nlm))
-    return out
+    with spans.span("cycles.fit"):
+        rows = _as_rows(classes_batch, device)
+        X = rows.to(torch.float32)
+        J, n = X.shape
+        if J == 0:
+            return []
+        with spans.span("cycles.to_host"):
+            cls_host = rows.cpu().numpy().astype(np.int8)
+        max_p = min(max_period or n // 2, n // 2)
+        if n < 2 * min_period:
+            return [_acyclic(cls_host[j]) for j in range(J)]
+        with spans.span("cycles.spectrum"):
+            k_star, conf, found = _peak_pick(_spectra(X, mesh), n,
+                                             min_period, max_p,
+                                             total_power=_total_power(X))
+        p0 = np.round(n / np.maximum(k_star, 1)).astype(np.int64)
+        periods = np.where(found, p0, 1)
+        if found.any():
+            with spans.span("cycles.refine"):
+                sel = torch.as_tensor(np.flatnonzero(found), device=X.device)
+                periods[found] = _refine_period_batch(X[sel], p0[found],
+                                                      min_period, max_p, mesh)
+        with spans.span("cycles.models"):
+            out: List[CycleModel] = []
+            for j in range(J):
+                if not found[j]:
+                    out.append(_acyclic(cls_host[j]))
+                    continue
+                period = int(periods[j])
+                cls = cls_host[j]
+                array_lm, array_nlm, profile = decompose(cls, period)
+                if folded:
+                    profile = fold_profile(cls, period)
+                    idx = np.arange(period)
+                    array_lm, array_nlm = idx[profile == 1], idx[profile != 1]
+                out.append(CycleModel(period, float(conf[j]), profile,
+                                      array_lm, array_nlm))
+            return out
 
 
 def fit_cycle(classes, *, min_period: int = 2,

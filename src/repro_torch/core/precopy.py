@@ -25,12 +25,14 @@ never moves a whole leaf, and only the dirty blocks cross to the
 destination.
 
 Time accounting is dual, as in the reference: wall-clock (real copies) and
-a bandwidth model (bytes / link bandwidth).
+a bandwidth model (bytes / link bandwidth). The recorder's spans
+(``runtime/spans.py``) split the wall clock: the round-0 clone, each
+round's step, scan and send, and the stop-and-copy pause.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
@@ -40,6 +42,7 @@ from repro_torch.core.strunk import (MigrationOutcome, XEN_MAX_ROUNDS,
                                      XEN_STOP_DIRTY_PAGES,
                                      XEN_STOP_TOTAL_FACTOR)
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import spans
 
 
 @dataclass(frozen=True)
@@ -84,6 +87,10 @@ def dirty_scan(live, shadow, block: int
     olds = [o if o.dtype == n.dtype else o.to(n.dtype)
             for n, o in zip(news, olds)]
     masks, counts = kops.dirty_blocks_many(news, olds, block=block)
+    if spans.enabled():
+        size = [n.numel() * n.element_size() for n in news]
+        spans.count("precopy.scan_bytes",
+                    (sum(size), sum(b for b, c in zip(size, counts) if c)))
     n_bytes = sum(c * block * n.element_size() for c, n in zip(counts, news))
     return masks, int(sum(counts)), int(n_bytes)
 
@@ -124,9 +131,6 @@ class PrecopyReport:
     wall_time: float
     per_round_dirty_bytes: List[int]
     v_mem: int
-    #: host seconds of each dirty scan, from a synced device to the scan's
-    #: own sync; the stop-and-copy's last
-    scan_seconds: List[float] = field(default_factory=list)
 
 
 def migrate(get_state: Callable[[], Any],
@@ -147,68 +151,73 @@ def migrate(get_state: Callable[[], Any],
     each takes the same stop decisions and reports the whole. Returns
     (destination_state, report).
     """
-    total = reduce or (lambda counts: counts)
-    t0 = time.monotonic()
-    place = placement or (lambda t: t)
-    live = get_state()
-    v_mem, = total([total_bytes(live)])
-    scan_seconds: List[float] = []
-
-    def scan(live):
-        _synchronize(live)                 # time the scan, not the step
-        t = time.perf_counter()
-        masks, n_dirty, n_bytes = dirty_scan(live, record, cfg.block_elems)
-        scan_seconds.append(time.perf_counter() - t)
-        return (masks, *total([n_dirty, n_bytes]))
-
-    # round 0: full copy (iterative-copy stage, first iteration)
-    local = tree.map(
-        lambda t: t.clone(memory_format=torch.contiguous_format), live)
-    shadow = place(local)
-    record = [d if (d.device, d.dtype) == (o.device, o.dtype) else o
-              for o, d in zip(tree.leaves(local), tree.leaves(shadow))]
-    del local
-    sent = v_mem
-    sim_t = v_mem / cfg.bandwidth
-    per_round = [v_mem]
-    rounds = 1
-    reason = "max_rounds"
-
-    while True:
-        if step_fn is not None:            # job keeps running during the copy
-            for _ in range(cfg.steps_per_round):
-                step_fn()
+    with spans.span("precopy.migrate"):
+        total = reduce or (lambda counts: counts)
+        t0 = time.monotonic()
+        place = placement or (lambda t: t)
         live = get_state()
-        masks, n_dirty, n_bytes = scan(live)
-        if n_dirty <= cfg.stop_dirty_blocks:
-            reason = "dirty_low"
-            break
-        if rounds >= cfg.max_rounds:
-            reason = "max_rounds"
-            break
-        if sent + n_bytes > cfg.stop_total_factor * v_mem:
-            reason = "total_cap"
-            break
-        _send(live, record, shadow, masks, cfg.block_elems)
+        v_mem, = total([total_bytes(live)])
+
+        def scan(live):
+            with spans.span("precopy.scan"):
+                masks, n_dirty, n_bytes = dirty_scan(live, record,
+                                                     cfg.block_elems)
+                return (masks, *total([n_dirty, n_bytes]))
+
+        # round 0: full copy (iterative-copy stage, first iteration)
+        with spans.span("precopy.clone"):
+            local = tree.map(
+                lambda t: t.clone(memory_format=torch.contiguous_format), live)
+            shadow = place(local)
+            record = [d if (d.device, d.dtype) == (o.device, o.dtype) else o
+                      for o, d in zip(tree.leaves(local), tree.leaves(shadow))]
+            del local
+        sent = v_mem
+        sim_t = v_mem / cfg.bandwidth
+        per_round = [v_mem]
+        rounds = 1
+        reason = "max_rounds"
+
+        while True:
+            with spans.span("precopy.round", rounds):
+                if step_fn is not None:    # job keeps running during the copy
+                    with spans.span("precopy.step"):
+                        for _ in range(cfg.steps_per_round):
+                            step_fn()
+                live = get_state()
+                masks, n_dirty, n_bytes = scan(live)
+                if n_dirty <= cfg.stop_dirty_blocks:
+                    reason = "dirty_low"
+                    break
+                if rounds >= cfg.max_rounds:
+                    reason = "max_rounds"
+                    break
+                if sent + n_bytes > cfg.stop_total_factor * v_mem:
+                    reason = "total_cap"
+                    break
+                with spans.span("precopy.send"):
+                    _send(live, record, shadow, masks, cfg.block_elems)
+            sent += n_bytes
+            sim_t += n_bytes / cfg.bandwidth
+            per_round.append(n_bytes)
+            rounds += 1
+
+        # stop-and-copy: job paused; transfer the final dirty set
+        with spans.span("precopy.stop_and_copy"):
+            live = get_state()
+            masks, n_dirty, n_bytes = scan(live)
+            with spans.span("precopy.send"):
+                _send(live, record, shadow, masks, cfg.block_elems)
+            _synchronize(shadow)
+        downtime = n_bytes / cfg.bandwidth
         sent += n_bytes
-        sim_t += n_bytes / cfg.bandwidth
+        sim_t += downtime
         per_round.append(n_bytes)
-        rounds += 1
 
-    # stop-and-copy: job paused; transfer the final dirty set
-    live = get_state()
-    masks, n_dirty, n_bytes = scan(live)
-    _send(live, record, shadow, masks, cfg.block_elems)
-    _synchronize(shadow)
-    downtime = n_bytes / cfg.bandwidth
-    sent += n_bytes
-    sim_t += downtime
-    per_round.append(n_bytes)
-
-    outcome = MigrationOutcome(total_time=sim_t, downtime=downtime,
-                               bytes_sent=float(sent), rounds=rounds,
-                               stop_reason=reason)
-    report = PrecopyReport(outcome=outcome, wall_time=time.monotonic() - t0,
-                           per_round_dirty_bytes=per_round, v_mem=v_mem,
-                           scan_seconds=scan_seconds)
-    return shadow, report
+        outcome = MigrationOutcome(total_time=sim_t, downtime=downtime,
+                                   bytes_sent=float(sent), rounds=rounds,
+                                   stop_reason=reason)
+        report = PrecopyReport(outcome=outcome,
+                               wall_time=time.monotonic() - t0,
+                               per_round_dirty_bytes=per_round, v_mem=v_mem)
+        return shadow, report

@@ -51,6 +51,7 @@ from repro_torch.core import characterize, cycles, postpone as pp
 from repro_torch.core import shard as shardlib
 from repro_torch.core.telemetry import TelemetryBuffer
 from repro_torch.kernels.backend import DeviceLike, resolve_device
+from repro_torch.runtime import spans
 
 
 def _pow2(n: int) -> int:
@@ -229,74 +230,81 @@ class SurveillanceEngine:
         """Recompute the cycle fit of every stale (or ``force``d) job in
         one batched pipeline per (classifier, window-length) group.
         Returns the number of jobs refit."""
-        jobs = ([self.jobs[i] for i in job_ids] if job_ids is not None
-                else list(self.jobs.values()))
-        if not jobs:
-            return 0
-        latest = self._latest_steps(jobs)
-        todo = [(job, ls) for job, ls in zip(jobs, latest)
-                if (force and ls >= 0
-                    and len(job.telemetry) >= self.min_samples)
-                or (not force and self._stale(job, ls))]
-        if not todo:
-            return 0
-        groups: Dict[tuple, List[tuple]] = {}
-        for job, ls in todo:
-            m = min(job.window, len(job.telemetry))
-            delta = int(ls) - job.fitted_step
-            # incremental classification: NB is stateless per sample, so a
-            # slid window only needs its NEW tail classified — the cached
-            # lm_series supplies the overlap (telemetry steps are assumed
-            # dense, one sample per step, as the recorder produces them)
-            splice = (job.fitted_step >= 0 and len(job.lm_series) == m
-                      and 0 <= delta < m)
-            tail = min(m, _pow2(max(delta, 1))) if splice else m
-            groups.setdefault((id(job.nb), m, tail), []).append((job, ls))
-        for (_, m, tail), entries in groups.items():
-            self._refresh_group([j for j, _ in entries],
-                                np.asarray([ls for _, ls in entries]),
-                                m, tail)
-        return len(todo)
+        with spans.span("surveillance.refresh"):
+            with spans.span("surveillance.select"):
+                jobs = ([self.jobs[i] for i in job_ids]
+                        if job_ids is not None else list(self.jobs.values()))
+                if not jobs:
+                    return 0
+                latest = self._latest_steps(jobs)
+                todo = [(job, ls) for job, ls in zip(jobs, latest)
+                        if (force and ls >= 0
+                            and len(job.telemetry) >= self.min_samples)
+                        or (not force and self._stale(job, ls))]
+                groups: Dict[tuple, List[tuple]] = {}
+                for job, ls in todo:
+                    m = min(job.window, len(job.telemetry))
+                    delta = int(ls) - job.fitted_step
+                    # incremental classification: NB is stateless per
+                    # sample, so a slid window only needs its NEW tail
+                    # classified — the cached lm_series supplies the overlap
+                    # (telemetry steps are assumed dense, one sample per
+                    # step, as the recorder produces them)
+                    splice = (job.fitted_step >= 0
+                              and len(job.lm_series) == m
+                              and 0 <= delta < m)
+                    tail = min(m, _pow2(max(delta, 1))) if splice else m
+                    groups.setdefault((id(job.nb), m, tail), []).append(
+                        (job, ls))
+            for (_, m, tail), entries in groups.items():
+                self._refresh_group([j for j, _ in entries],
+                                    np.asarray([ls for _, ls in entries]),
+                                    m, tail)
+            return len(todo)
 
     def _refresh_group(self, jobs: List[SurveilledJob],
                        latest: np.ndarray, m: int, tail: int) -> None:
-        G = len(jobs)
         dev = self.device
-        # masked gather: NaN dropout samples come back zero-filled (the
-        # batched NB/FFT stays finite) with their invalidity recorded, so
-        # starved rows can be demoted instead of fit to hole-filled data
-        W, counts, valid = TelemetryBuffer.window_matrix(
-            [j.telemetry for j in jobs], tail,
-            return_mask=True, device=dev)                  # (G, tail, F)
-        coverage = (valid.sum(dim=1).cpu().numpy()
-                    / np.maximum(counts, 1))
-        lm_tail = shardlib.classify_lm(jobs[0].nb, W, self.mesh)  # (G, tail)
-        if tail == m:
-            LM = lm_tail
-        else:
-            # splice: row i keeps its cached series shifted left by d_i
-            # samples and takes its last d_i samples from the new tail
-            d = torch.as_tensor(
-                [int(ls) - job.fitted_step for job, ls in zip(jobs, latest)],
-                device=dev)[:, None]
-            old = torch.stack([job.lm_series for job in jobs])
-            t = torch.arange(m, device=dev)[None, :]
-            src = torch.where(t < m - d, t + d, tail + t)
-            LM = torch.gather(torch.cat([old, lm_tail], dim=1), 1, src)
+        with spans.span("surveillance.gather"):
+            # masked gather: NaN dropout samples come back zero-filled (the
+            # batched NB/FFT stays finite) with their invalidity recorded,
+            # so starved rows can be demoted instead of fit to hole-filled
+            # data
+            W, counts, valid = TelemetryBuffer.window_matrix(
+                [j.telemetry for j in jobs], tail,
+                return_mask=True, device=dev)              # (G, tail, F)
+            coverage = (valid.sum(dim=1).cpu().numpy()
+                        / np.maximum(counts, 1))
+        with spans.span("surveillance.classify"):
+            lm_tail = shardlib.classify_lm(jobs[0].nb, W, self.mesh)
+            if tail == m:
+                LM = lm_tail                               # (G, m)
+            else:
+                # splice: row i keeps its cached series shifted left by d_i
+                # samples and takes its last d_i samples from the new tail
+                d = torch.as_tensor(
+                    [int(ls) - job.fitted_step
+                     for job, ls in zip(jobs, latest)],
+                    device=dev)[:, None]
+                old = torch.stack([job.lm_series for job in jobs])
+                t = torch.arange(m, device=dev)[None, :]
+                src = torch.where(t < m - d, t + d, tail + t)
+                LM = torch.gather(torch.cat([old, lm_tail], dim=1), 1, src)
         models = cycles.fit_cycle_batch(LM, folded=self.folded,
                                         mesh=self.mesh)
-        for i, (job, model, ls) in enumerate(zip(jobs, models, latest)):
-            if coverage[i] < self.min_coverage:
-                # blackout-starved window: a cycle fit over zero-filled
-                # holes is noise — demote to acyclic (same shape as the
-                # not-found branch of fit_cycle_batch) until telemetry
-                # recovers and a later refit sees real samples again
-                model = cycles._acyclic(LM[i].cpu().numpy())
-            job.model = model
-            job.lm_series = LM[i]
-            job.origin_step = int(ls) - m + 1
-            job.fitted_step = int(ls)
-        self._decide_cache = None       # packed Alg.2 operands went stale
+        with spans.span("surveillance.commit"):
+            for i, (job, model, ls) in enumerate(zip(jobs, models, latest)):
+                if coverage[i] < self.min_coverage:
+                    # blackout-starved window: a cycle fit over zero-filled
+                    # holes is noise — demote to acyclic (same shape as the
+                    # not-found branch of fit_cycle_batch) until telemetry
+                    # recovers and a later refit sees real samples again
+                    model = cycles._acyclic(LM[i].cpu().numpy())
+                job.model = model
+                job.lm_series = LM[i]
+                job.origin_step = int(ls) - m + 1
+                job.fitted_step = int(ls)
+            self._decide_cache = None   # packed Alg.2 operands went stale
 
     def refresh_model(self, job_id: str, *, force: bool = False
                       ) -> Optional[cycles.CycleModel]:
@@ -312,19 +320,22 @@ class SurveillanceEngine:
         invalidated only by register/unregister/refit, so an all-fresh
         tick does no per-job Python work past the staleness scan."""
         if self._decide_cache is None:
-            fitted = [j for j in self.jobs.values() if j.model is not None]
-            if not fitted:
-                self._decide_cache = ((), None, None, None, {})
-            else:
-                profiles, periods = pp.pack_fleet(
-                    [j.model for j in fitted], device=self.device)
-                origins = torch.as_tensor(
-                    [j.origin_step for j in fitted], dtype=torch.int64,
-                    device=self.device)
-                self._decide_cache = (tuple(j.job_id for j in fitted),
-                                      origins, profiles, periods,
-                                      {j.job_id: float(j.model.confidence)
-                                       for j in fitted})
+            with spans.span("surveillance.pack"):
+                fitted = [j for j in self.jobs.values()
+                          if j.model is not None]
+                if not fitted:
+                    self._decide_cache = ((), None, None, None, {})
+                else:
+                    profiles, periods = pp.pack_fleet(
+                        [j.model for j in fitted], device=self.device)
+                    origins = torch.as_tensor(
+                        [j.origin_step for j in fitted], dtype=torch.int64,
+                        device=self.device)
+                    self._decide_cache = (
+                        tuple(j.job_id for j in fitted), origins, profiles,
+                        periods,
+                        {j.job_id: float(j.model.confidence)
+                         for j in fitted})
         return self._decide_cache
 
     def next_trough(self, job_ids: List[str], now_step: int
@@ -357,20 +368,23 @@ class SurveillanceEngine:
         on first access (bit-identical values — the operands are captured
         at launch).
         """
-        refitted = self.refresh()
-        ids, origins, profiles, periods, conf = self._packed_fleet()
-        if not ids:
-            return TickResult({}, refitted, 0)
-        m_now = (now_step - origins).to(torch.int32)     # one vector op
-        remain = shardlib.postpone_rows(profiles, periods, m_now, self.mesh,
-                                        async_op=self.overlap)
-        J = len(ids)
+        with spans.span("surveillance.tick", now_step):
+            refitted = self.refresh()
+            ids, origins, profiles, periods, conf = self._packed_fleet()
+            if not ids:
+                return TickResult({}, refitted, 0)
+            J = len(ids)
+            with spans.span("surveillance.decide", now_step):
+                m_now = (now_step - origins).to(torch.int32)  # one vector op
+                remain = shardlib.postpone_rows(profiles, periods, m_now,
+                                                self.mesh,
+                                                async_op=self.overlap)
+                if not self.overlap:
+                    return TickResult(dict(zip(ids, remain.tolist())),
+                                      refitted, J, conf)
 
-        def materialize(ids=ids, remain=remain,
-                        lazy=self.overlap) -> Dict[str, int]:
-            dev = remain.wait() if lazy else remain
-            return dict(zip(ids, dev.tolist()))
+        def materialize(ids=ids, remain=remain) -> Dict[str, int]:
+            with spans.span("surveillance.decide", now_step):
+                return dict(zip(ids, remain.wait().tolist()))
 
-        if self.overlap:
-            return TickResult(None, refitted, J, conf, _thunk=materialize)
-        return TickResult(materialize(), refitted, J, conf)
+        return TickResult(None, refitted, J, conf, _thunk=materialize)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.backend import DeviceLike, resolve_device
+from repro_torch.runtime import spans
 
 DEFAULT_FIELDS: Tuple[str, ...] = (
     "step_time", "dirty_bytes", "dirty_fraction", "collective_bytes",
@@ -212,8 +213,8 @@ class FleetTelemetry:
     def record_fleet(self, step: int, values: np.ndarray) -> None:
         """Append one sample row per job. values: (J, F) ordered like
         ``fields``."""
-        values = np.asarray(values, np.float64)
-        with self._lock:
+        with spans.span("telemetry.record_fleet", step), self._lock:
+            values = np.asarray(values, np.float64)
             i = self._n % self.capacity                     # (J,)
             rows = np.arange(self.n_jobs)
             self._data[self._rows, self._dev(i)] = self._dev(values)

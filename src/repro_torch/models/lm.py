@@ -75,6 +75,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import dist, mamba2, rwkv6
+from repro_torch.runtime import spans
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
@@ -410,9 +411,10 @@ def _apply_unit(unit, cfg: ArchConfig, x: torch.Tensor,
     if ctx is not None:
         with dist.use(ctx):
             return _apply_unit(unit, cfg, x, angles, aux)
-    for kind, lp, _, _ in unit:
-        x, _, a = apply_block(kind, lp, cfg, x, angles, None, None,
-                              want_state=False)
+    for kind, lp, _, i in unit:
+        with spans.span("lm.block", (kind, i)):
+            x, _, a = apply_block(kind, lp, cfg, x, angles, None, None,
+                                  want_state=False)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -451,8 +453,9 @@ def forward(params: Params, cfg: ArchConfig, batch: Batch, *,
     ``cache_len`` (>= S; SWA archs use min(cache_len, window)), each layer's
     K/V or state written into it as the layer runs. On a mesh the cache is
     this rank's block of it (``init_cache``)."""
-    return _forward(params, cfg, batch, constrain=constrain,
-                    want_cache=want_cache, cache_len=cache_len)
+    with spans.span("lm.forward"):
+        return _forward(params, cfg, batch, constrain=constrain,
+                        want_cache=want_cache, cache_len=cache_len)
 
 
 def _stream(cfg: ArchConfig, params: Params, batch: Batch,
@@ -495,8 +498,9 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
     Each layer's aux loss is added in layer order."""
     _mesh_context(cfg)
     Bsz, S = batch["tokens"].shape
-    x = _stream(cfg, params, batch, constrain)
-    angles = _angles(cfg, _positions(cfg, batch, Bsz, S))
+    with spans.span("lm.embed"):
+        x = _stream(cfg, params, batch, constrain)
+        angles = _angles(cfg, _positions(cfg, batch, Bsz, S))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if not want_cache:
         for unit in _units(cfg, params):
@@ -515,7 +519,8 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
     if ctx is not None and _ring_cut(cfg, ctx, W) == "window":
         lo = dist.tp_rank(ctx) * (W // dist.tp_size(ctx))
     for kind, lp, key, i in _layers(cfg, params):
-        x, c, a = apply_block(kind, lp, cfg, x, angles, None, None)
+        with spans.span("lm.block", (kind, i)):
+            x, c, a = apply_block(kind, lp, cfg, x, angles, None, None)
         if a is not None:
             aux_total = aux_total + a
         if kind in ATTN_KINDS:
@@ -544,25 +549,29 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
         raise ValueError("decode_step: one position cannot be split over "
                          "the model axis; decode under a context without "
                          "seq_shard")
-    Bsz = token.shape[0]
-    pos = cache["pos"]
-    x = constrain(_lookup(cfg, params, token))
-    positions = pos.reshape(1, 1).expand(Bsz, 1)
-    if cfg.mrope:
-        positions = positions[None].expand(3, Bsz, 1)
-    angles = _angles(cfg, positions)
-    for kind, lp, key, i in _layers(cfg, params):
-        if kind in ATTN_KINDS:
-            x, _, _ = apply_block(kind, lp, cfg, x, angles,
-                                  (cache[key]["k"][i], cache[key]["v"][i]),
-                                  pos)
-        else:
-            state = tuple(t[i] for t in cache[key])
-            x, c, _ = apply_block(kind, lp, cfg, x, angles, state, pos)
-            for dst, t in zip(state, c):
-                dst.copy_(t)
-    logits = _head(cfg, params, x, whole=True)[:, 0]      # (B, V)
-    return logits, {**cache, "pos": pos + 1}
+    with spans.span("lm.decode_step"):
+        Bsz = token.shape[0]
+        pos = cache["pos"]
+        with spans.span("lm.embed"):
+            x = constrain(_lookup(cfg, params, token))
+            positions = pos.reshape(1, 1).expand(Bsz, 1)
+            if cfg.mrope:
+                positions = positions[None].expand(3, Bsz, 1)
+            angles = _angles(cfg, positions)
+        for kind, lp, key, i in _layers(cfg, params):
+            with spans.span("lm.block", (kind, i)):
+                if kind in ATTN_KINDS:
+                    x, _, _ = apply_block(
+                        kind, lp, cfg, x, angles,
+                        (cache[key]["k"][i], cache[key]["v"][i]), pos)
+                else:
+                    state = tuple(t[i] for t in cache[key])
+                    x, c, _ = apply_block(kind, lp, cfg, x, angles, state, pos)
+                    for dst, t in zip(state, c):
+                        dst.copy_(t)
+        with spans.span("lm.head"):
+            logits = _head(cfg, params, x, whole=True)[:, 0]  # (B, V)
+        return logits, {**cache, "pos": pos + 1}
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import precopy as jax_precopy  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.core import precopy, strunk  # noqa: E402
+from repro_torch.runtime import spans  # noqa: E402
 
 
 def _bits(t):
@@ -48,13 +49,19 @@ def test_migration_is_exact_with_live_updates():
 
     cfg = precopy.PrecopyConfig(block_elems=64, max_rounds=6,
                                 stop_dirty_blocks=0)
-    dest, report = precopy.migrate(lambda: state["v"], step, cfg)
+    spans.enable()
+    try:
+        dest, report = precopy.migrate(lambda: state["v"], step, cfg)
+    finally:
+        spans.disable()
+    recorded, _ = spans.drain()
     for a, b in zip(tree.leaves(dest), tree.leaves(state["v"])):
         assert _bits(a) == _bits(b), report
     assert calls["n"] >= 1
     assert report.outcome.rounds <= cfg.max_rounds
     assert report.outcome.bytes_sent >= report.v_mem
-    assert len(report.scan_seconds) == len(report.per_round_dirty_bytes)
+    scans = [s for s in recorded if s.name == "precopy.scan"]
+    assert len(scans) == len(report.per_round_dirty_bytes)
 
 
 def test_idle_job_single_round():
