@@ -9,14 +9,18 @@ autocorrelation search (``kernels.ops.autocorr_score``), and splits one
 cycle window into the ArrayLM / ArrayNLM moment sets (Algorithm 1).
 ``fold_profile`` is the 'alma-plus' phase-folded majority vote.
 
-Spectra, peak pick and lag scores stay on the series' device; periods,
-confidences and the per-job ``CycleModel`` objects come back to the host,
-as in the reference. Argmax ties pick the first index, as ``np.argmax``.
+Spectra, peak pick and lag scores stay on the series' device; periods
+and confidences come back to the host as whole arrays
+(``fit_cycle_rows``), and a row's ``CycleModel`` is built from them only
+when asked for (``model_view``; ``fit_cycle_batch`` builds one a row, as
+the reference does). ``profile_rows`` gives Algorithm 2's packed profiles
+straight from the rows. Argmax ties pick the first index, as
+``np.argmax``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -179,33 +183,36 @@ def fold_profile(classes: np.ndarray, period: int) -> np.ndarray:
     return (folded.mean(axis=0) >= 0.5).astype(np.int8)
 
 
-def _acyclic(row: np.ndarray) -> CycleModel:
-    return CycleModel(0, 0.0, np.asarray(
-        [1 if row.astype(np.float32).mean() >= 0.5 else 0], np.int8))
+class CycleFits(NamedTuple):
+    """Whole-array cycle fits of J rows. ``period``: (J,) int64, 0 where no
+    cycle was found; ``confidence``: (J,) f32, 0 there too; ``host``: the
+    (J, n) int8 rows on the host, from which ``model_view`` builds each
+    row's ``CycleModel``."""
+    period: np.ndarray
+    confidence: np.ndarray
+    host: np.ndarray
 
 
-def fit_cycle_batch(classes_batch, *, min_period: int = 2,
-                    max_period: Optional[int] = None,
-                    folded: bool = False,
-                    device: DeviceLike = None,
-                    mesh=None) -> List[CycleModel]:
+def fit_cycle_rows(classes_batch, *, min_period: int = 2,
+                   max_period: Optional[int] = None,
+                   device: DeviceLike = None, mesh=None) -> CycleFits:
     """Fleet-scale cycle recognition: one batched power spectrum, one
     batched peak pick, one batched autocorrelation refinement for all
-    jobs. ``classes_batch`` is a (J, n) tensor (which keeps its device) or
-    a host array (sent to ``device``). ``mesh`` splits the kernel stages'
-    rows over its ranks (``core/shard.py``); the peak pick runs on the
-    gathered spectra, so the fits are bit-identical."""
+    rows, with no per-row Python. ``classes_batch`` is a (J, n) tensor
+    (which keeps its device) or a host array (sent to ``device``).
+    ``mesh`` splits the kernel stages' rows over its ranks
+    (``core/shard.py``); the peak pick runs on the gathered spectra, so the
+    fits are bit-identical."""
     with spans.span("cycles.fit"):
         rows = _as_rows(classes_batch, device)
         X = rows.to(torch.float32)
         J, n = X.shape
-        if J == 0:
-            return []
         with spans.span("cycles.to_host"):
             cls_host = rows.cpu().numpy().astype(np.int8)
         max_p = min(max_period or n // 2, n // 2)
-        if n < 2 * min_period:
-            return [_acyclic(cls_host[j]) for j in range(J)]
+        if J == 0 or n < 2 * min_period:
+            return CycleFits(np.zeros(J, np.int64), np.zeros(J, np.float32),
+                             cls_host)
         with spans.span("cycles.spectrum"):
             k_star, conf, found = _peak_pick(_spectra(X, mesh), n,
                                              min_period, max_p,
@@ -218,21 +225,74 @@ def fit_cycle_batch(classes_batch, *, min_period: int = 2,
                 periods[found] = _refine_period_batch(X[sel], p0[found],
                                                       min_period, max_p, mesh)
         with spans.span("cycles.models"):
-            out: List[CycleModel] = []
-            for j in range(J):
-                if not found[j]:
-                    out.append(_acyclic(cls_host[j]))
-                    continue
-                period = int(periods[j])
-                cls = cls_host[j]
-                array_lm, array_nlm, profile = decompose(cls, period)
-                if folded:
-                    profile = fold_profile(cls, period)
-                    idx = np.arange(period)
-                    array_lm, array_nlm = idx[profile == 1], idx[profile != 1]
-                out.append(CycleModel(period, float(conf[j]), profile,
-                                      array_lm, array_nlm))
-            return out
+            return CycleFits(np.where(found, periods, 0),
+                             np.where(found, conf, np.float32(0)), cls_host)
+
+
+def model_view(row: np.ndarray, period: int, confidence: float, *,
+               folded: bool = False) -> CycleModel:
+    """One row's ``CycleModel`` from its fit: period 0 is acyclic, its
+    profile the row's majority (LM where at least half the samples are);
+    otherwise Algorithm 1's split of the first cycle, or with ``folded``
+    the phase-folded vote. Keeps nothing of ``row`` but copies."""
+    cls = np.array(row, np.int8)
+    if period == 0:
+        lm = 1 if len(cls) and 2 * int(cls.sum()) >= len(cls) else 0
+        return CycleModel(0, 0.0, np.asarray([lm], np.int8))
+    array_lm, array_nlm, profile = decompose(cls, period)
+    if folded:
+        profile = fold_profile(cls, period)
+        idx = np.arange(period)
+        array_lm, array_nlm = idx[profile == 1], idx[profile != 1]
+    return CycleModel(period, confidence, profile, array_lm, array_nlm)
+
+
+def profile_rows(rows: torch.Tensor, period: np.ndarray, *,
+                 folded: bool = False,
+                 lengths: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Algorithm 2's (J, P) int8 profiles of J fitted rows, in the layout
+    the reference's ``postpone.pack_fleet`` gives ``model_view``'s
+    profiles: P the longest period above 1 (1 without one), -1 past each
+    row's period and across rows of period <= 1. Whole-tensor ops on the rows' device.
+    ``rows``: (J, n) int8 LM series, the first ``lengths`` (J,) of each
+    valid (default n); ``period``: (J,) host. ``folded`` takes, for each
+    phase, the vote over the row's whole cycles: LM where at least half of
+    them are (``fold_profile``)."""
+    J, n = rows.shape
+    dev = rows.device
+    period = np.asarray(period, np.int64)
+    cyc = period > 1
+    P = int(period[cyc].max()) if cyc.any() else 1
+    if folded:
+        lengths = np.full(J, n) if lengths is None else np.asarray(lengths)
+        p = np.maximum(period, 1)
+        count = torch.as_tensor(lengths // p, device=dev)[:, None]
+        p = torch.as_tensor(p, device=dev)[:, None]
+        t = torch.arange(n, device=dev)[None, :]
+        whole = torch.where(t < count * p, rows.to(torch.int32), 0)
+        sums = torch.zeros((J, n), dtype=torch.int32, device=dev)
+        sums.scatter_add_(1, torch.remainder(t, p).expand(J, n), whole)
+        vote = (2 * sums >= count).to(torch.int8)
+        rows = torch.where(count > 0, vote, rows)
+    prof = rows[:, :P]
+    idx = torch.arange(P, device=dev)[None, :]
+    per = torch.as_tensor(period, device=dev)[:, None]
+    keep = (idx < per) & torch.as_tensor(cyc, device=dev)[:, None]
+    return torch.where(keep, prof, torch.full_like(prof, -1))
+
+
+def fit_cycle_batch(classes_batch, *, min_period: int = 2,
+                    max_period: Optional[int] = None,
+                    folded: bool = False,
+                    device: DeviceLike = None,
+                    mesh=None) -> List[CycleModel]:
+    """``fit_cycle_rows`` as a list of ``CycleModel`` objects, one a row
+    (``model_view``)."""
+    fits = fit_cycle_rows(classes_batch, min_period=min_period,
+                          max_period=max_period, device=device, mesh=mesh)
+    return [model_view(fits.host[j], int(fits.period[j]),
+                       float(fits.confidence[j]), folded=folded)
+            for j in range(len(fits.period))]
 
 
 def fit_cycle(classes, *, min_period: int = 2,

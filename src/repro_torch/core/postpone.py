@@ -10,11 +10,9 @@ device (the surveillance tick's decide stage).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core.cycles import CycleModel
-from repro_torch.kernels.backend import DeviceLike, resolve_device
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -56,22 +54,3 @@ def postpone_batch(profiles: torch.Tensor, periods: torch.Tensor,
     return torch.where(periods <= 1, torch.zeros_like(remain),
                        remain).to(torch.int32)
 
-
-def pack_fleet(models, *, n_jobs=None, p_max=None,
-               device: DeviceLike = None) -> tuple:
-    """CycleModels -> padded (profiles (J, P) int8, periods (J,) int32)
-    tensors on ``device`` for ``postpone_batch``. ``n_jobs``/``p_max`` pad
-    the job/period axes beyond the fleet's own extent; padding rows have
-    period 0 and all-(-1) profiles, which decide to RemainTime 0."""
-    p_req = max((m.period for m in models if m.period > 1), default=1)
-    p_max = max(p_max or 1, p_req, 1)
-    n_jobs = max(n_jobs or len(models), len(models))
-    profiles = np.full((n_jobs, p_max), -1, np.int8)
-    periods = np.zeros(n_jobs, np.int32)
-    for j, m in enumerate(models):
-        periods[j] = m.period
-        if m.period > 1:
-            profiles[j, : m.period] = m.profile_lm
-    dev = resolve_device(device)
-    return (torch.as_tensor(profiles, device=dev),
-            torch.as_tensor(periods, device=dev))

@@ -19,17 +19,24 @@ engine's device (the card unless the caller asks for the CPU):
   3. recognize  — one batched power spectrum (the DFT kernel, mean removal
                   fused) + one shared candidate-lag autocorrelation
                   refinement (the autocorr kernel), in
-                  ``cycles.fit_cycle_batch``;
+                  ``cycles.fit_cycle_rows``;
   4. decide     — Algorithm 2 fleet-wide (``postpone.postpone_batch``).
+
+Every job's fit lives in one fleet-wide store, a row a job
+(``_FitStore``): period, confidence, fitted and origin steps as host
+arrays, the LM series as one int8 tensor on the device with its host copy.
+The staleness scan, the grouping, the commit of a refit and the packing of
+Algorithm 2's operands are whole-array operations on it, with no Python
+per job when every job records into a ``FleetTelemetry``. A job's
+``CycleModel`` is a view of its row, built when first read after a refit.
 
 Staleness epochs make the tick incremental: a job's cycle fit is only
 recomputed once its window has advanced >= period/4 samples since the last
 fit (``acyclic_refit`` samples while no cycle is known). The packed Alg. 2
-operands are cached and invalidated only by register/unregister/refit, so
-a tick over an all-fresh fleet does no per-job Python work past the
-staleness scan. ``overlap=True`` returns the ``TickResult`` before the
-decide is copied to the host: the device runs Alg. 2 while the caller goes
-on, and ``.remain`` materializes on first access (bit-identical values).
+operands are cached and invalidated only by register/unregister/refit.
+``overlap=True`` returns the ``TickResult`` before the decide is copied to
+the host: the device runs Alg. 2 while the caller goes on, and ``.remain``
+materializes on first access (bit-identical values).
 
 ``shards=k`` splits the row stages (classify, spectrum, lag scores,
 Algorithm 2) over the first k ranks of the initialised
@@ -41,7 +48,7 @@ when ``.remain`` is first read.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,33 +61,246 @@ from repro_torch.kernels.backend import DeviceLike, resolve_device
 from repro_torch.runtime import spans
 
 
-def _pow2(n: int) -> int:
-    return 1 << max(0, int(n - 1).bit_length())
+def _pow2(n: np.ndarray) -> np.ndarray:
+    """Smallest power of two >= n, for n >= 1 (``frexp`` gives the bit
+    length of n - 1, exactly for integers below 2**53)."""
+    return np.left_shift(1, np.frexp(np.asarray(n) - 1)[1]).astype(np.int64)
 
 
-@dataclass
+class _FitStore:
+    """Every registered job's fit state, one row a job in registration
+    order: the host columns of ``COLUMNS``, and the LM series as one
+    (rows, width) int8 tensor on the engine's device (``lm``) with its host
+    copy (``lm_host``), each row valid up to its ``length``.
+
+    A refit writes its rows in place; ``lm_series`` hands out copies. The
+    rows grow by doubling (amortised O(1) registration). A job that leaves
+    takes a copy of its fit into a store of one row of its own, for a
+    handle still held (``release``); its row is reclaimed at the next
+    reallocation, which keeps only the live rows, so the store holds at
+    most twice the live fleet."""
+
+    #: column -> (dtype, value of a fresh row)
+    COLUMNS = {
+        "live": (np.bool_, False),
+        "fit": (np.bool_, False),        # has a model
+        "fitted": (np.int64, -1),        # latest step at the last fit
+        "origin": (np.int64, 0),         # first step of the fit's window
+        "period": (np.int64, 0),         # 0: acyclic
+        "confidence": (np.float64, 0.0),
+        "length": (np.int64, 0),         # samples in the LM series
+        "stamp": (np.int64, 0),          # the commit that wrote the row
+        "window": (np.int64, 0),
+        "nb": (np.int64, -1),            # index into ``nbs``
+        "fleet": (np.int64, -1),         # index into ``fleets``; -1: foreign
+        "index": (np.int64, -1),         # the job's row in its fleet
+        "ids": (object, None),
+        "jobs": (object, None),
+    }
+
+    def __init__(self, device: torch.device, folded: bool):
+        self.device, self.folded = device, folded
+        self.n = self.cap = self.width = 0
+        self.commits = 0
+        for name, (dtype, _) in self.COLUMNS.items():
+            setattr(self, name, np.zeros(0, dtype))
+        self.lm = torch.zeros((0, 0), dtype=torch.int8, device=device)
+        self.lm_host = np.zeros((0, 0), np.int8)
+        # the objects themselves are kept, so their id()s stay unique
+        self.nbs: List[characterize.NaiveBayes] = []
+        self.fleets: List = []
+        self._interned: Dict[int, int] = {}
+
+    def _intern(self, obj, into: List) -> int:
+        k = self._interned.get(id(obj))
+        if k is None:
+            k = self._interned[id(obj)] = len(into)
+            into.append(obj)
+        return k
+
+    def _take(self, src: "_FitStore", keep: np.ndarray, cap: int,
+              width: int) -> None:
+        """Holds ``src``'s rows ``keep``, renumbered from 0, in fresh
+        arrays of ``cap`` rows and ``width`` samples; their jobs, and the
+        classifiers and fleets they use, go with them."""
+        host = src.lm_host[keep]
+        lm = src.lm[torch.as_tensor(keep, device=src.device)]
+        cols = {name: getattr(src, name)[keep] for name in self.COLUMNS}
+        nbs, fleets = src.nbs, src.fleets
+        self.n, self.cap, self.width = len(keep), cap, width
+        for name, (dtype, fresh) in self.COLUMNS.items():
+            col = np.full(cap, fresh, dtype)
+            col[:self.n] = cols[name]
+            setattr(self, name, col)
+        self.lm_host = np.zeros((cap, width), np.int8)
+        self.lm_host[:self.n, :host.shape[1]] = host
+        self.lm = torch.zeros((cap, width), dtype=torch.int8,
+                              device=self.device)
+        self.lm[:self.n, :lm.shape[1]] = lm
+        for col, objs, into in (("nb", nbs, "nbs"),
+                                ("fleet", fleets, "fleets")):
+            c = getattr(self, col)[:self.n]
+            used, c[c >= 0] = np.unique(c[c >= 0], return_inverse=True)
+            setattr(self, into, [objs[k] for k in used])
+        self._interned = {id(o): k for objs in (self.nbs, self.fleets)
+                          for k, o in enumerate(objs)}
+        for row, job in enumerate(self.jobs[:self.n]):
+            job.row, job._store = row, self
+
+    def add(self, job: "SurveilledJob") -> int:
+        """A fresh row for ``job``, at the end; returns it."""
+        if self.n == self.cap or job.window > self.width:
+            live = self.live_rows()
+            grow = self.n == self.cap and 2 * len(live) > self.cap
+            self._take(self, live, max(64, 2 * self.cap if grow
+                                       else self.cap),
+                       max(self.width, job.window))
+        row, self.n = self.n, self.n + 1
+        fleet = getattr(job.telemetry, "fleet", None)
+        if fleet is not None:
+            self.fleet[row] = self._intern(fleet, self.fleets)
+            self.index[row] = job.telemetry.index
+        self.live[row], self.ids[row], self.jobs[row] = True, job.job_id, job
+        self.window[row] = job.window
+        self.nb[row] = self._intern(job.nb, self.nbs)
+        return row
+
+    def release(self, job: "SurveilledJob") -> None:
+        """Frees ``job``'s row: the job keeps a copy of its fit in a store
+        of one row of its own."""
+        row = job.row
+        _FitStore(self.device, self.folded)._take(
+            self, np.asarray([row]), 1, self.width)
+        job._store.jobs[0] = None
+        self.live[row] = False
+        self.ids[row] = self.jobs[row] = None
+
+    def live_rows(self) -> np.ndarray:
+        return np.flatnonzero(self.live[:self.n])
+
+    def telemetry(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Each row's latest telemetry step (-1: none) and samples held:
+        one call a fleet, one a foreign buffer."""
+        latest = np.full(len(rows), -1, np.int64)
+        held = np.zeros(len(rows), np.int64)
+        fleet = self.fleet[rows]
+        for k in np.unique(fleet):
+            at = np.flatnonzero(fleet == k)
+            if k >= 0:
+                store, index = self.fleets[k], self.index[rows[at]]
+                latest[at] = store.latest_steps()[index]
+                held[at] = np.minimum(store._n[index], store.capacity)
+                continue
+            for i in at:                 # foreign buffers, one by one
+                buf = self.jobs[rows[i]].telemetry
+                latest[i], held[i] = buf.latest_step(), len(buf)
+        return latest, held
+
+    def gather(self, rows: np.ndarray, n: int, device: torch.device):
+        """The rows' last ``n`` samples, as ``TelemetryBuffer.window_matrix``
+        with ``return_mask``; one fleet's rows in one fleet gather."""
+        fleet = self.fleet[rows]
+        if fleet[0] >= 0 and (fleet == fleet[0]).all():
+            W, counts, valid = self.fleets[fleet[0]].window_matrix(
+                n, rows=self.index[rows], return_mask=True)
+            return W.to(device), counts, valid.to(device)
+        return TelemetryBuffer.window_matrix(
+            [self.jobs[r].telemetry for r in rows], n, return_mask=True,
+            device=device)
+
+    def threshold(self, rows: np.ndarray, acyclic_refit: int) -> np.ndarray:
+        """Samples after its fit at which each row goes stale: a quarter
+        period while its model is cyclic, else ``acyclic_refit``."""
+        period = self.period[rows]
+        return np.where(self.fit[rows] & (period > 1),
+                        np.maximum(1, period // 4), acyclic_refit)
+
+    def commit(self, rows: np.ndarray, fits: cycles.CycleFits,
+               LM: torch.Tensor, latest: np.ndarray, m: int,
+               demote: np.ndarray) -> None:
+        """Writes a group's refit: ``demote``d rows (blackout-starved
+        windows) become acyclic, as ``fit_cycle_rows`` leaves a row whose
+        spectrum has no peak."""
+        self.commits += 1
+        self.period[rows] = np.where(demote, 0, fits.period)
+        self.confidence[rows] = np.where(demote, 0.0, fits.confidence)
+        self.fitted[rows] = latest
+        self.origin[rows] = latest - m + 1
+        self.length[rows] = m
+        self.fit[rows] = True
+        self.stamp[rows] = self.commits
+        self.lm_host[rows, :m] = fits.host
+        self.lm[torch.as_tensor(rows, device=self.device), :m] = LM
+
+    def model(self, job: "SurveilledJob") -> Optional[cycles.CycleModel]:
+        """``job``'s ``CycleModel``, built from its row on the first read
+        after the commit that wrote it."""
+        row = job.row
+        if not self.fit[row]:
+            return None
+        stamp = int(self.stamp[row])
+        if job._view is None or job._view[0] != stamp:
+            job._view = (stamp, cycles.model_view(
+                self.lm_host[row, :self.length[row]], int(self.period[row]),
+                float(self.confidence[row]), folded=self.folded))
+        return job._view[1]
+
+
 class SurveilledJob:
-    """Per-job surveillance state (the LMCM's job registry entry)."""
-    job_id: str
-    telemetry: TelemetryBuffer          # or any buffer with its interface
-    nb: characterize.NaiveBayes
-    window: int = 512
-    dirty_rate_fn: Optional[Callable[[float], float]] = None
-    model: Optional[cycles.CycleModel] = None
-    # (window,) int8 LM series on the engine's device (a row of the fit's
-    # batch; empty before the first fit)
-    lm_series: torch.Tensor = field(
-        default_factory=lambda: torch.zeros(0, dtype=torch.int8))
-    # step index of the first sample in the characterized window: Alg.1's
-    # profile is indexed from here, so Alg.2's M_current must be too
-    origin_step: int = 0
-    fitted_step: int = -1               # latest step at last fit (-1 = never)
-    # misprediction feedback (core/guard.py): decayed by each guard abort
-    # of this job's migrations, floor-clamped by the guard's policy. The
-    # receding-horizon controller gates trough pricing on
-    # confidence x trust, so a burned fit stops deferring launches to
-    # troughs the model hallucinated until refits re-earn it.
-    trust: float = 1.0
+    """Per-job surveillance state (the LMCM's job registry entry): what the
+    job registered with, its guard ``trust``, and its row of the engine's
+    fit store. ``model`` is built from the row when first read after a
+    refit; ``lm_series``, ``origin_step`` and ``fitted_step`` read the row,
+    and setting ``fitted_step`` writes it."""
+    __slots__ = ("job_id", "telemetry", "nb", "window", "dirty_rate_fn",
+                 "trust", "_store", "row", "_view")
+
+    def __init__(self, job_id: str, telemetry, nb: characterize.NaiveBayes,
+                 window: int,
+                 dirty_rate_fn: Optional[Callable[[float], float]],
+                 store: _FitStore):
+        self.job_id = job_id
+        self.telemetry = telemetry       # TelemetryBuffer or its interface
+        self.nb = nb
+        self.window = window
+        self.dirty_rate_fn = dirty_rate_fn
+        # misprediction feedback (core/guard.py): decayed by each guard abort
+        # of this job's migrations, floor-clamped by the guard's policy. The
+        # receding-horizon controller gates trough pricing on
+        # confidence x trust, so a burned fit stops deferring launches to
+        # troughs the model hallucinated until refits re-earn it.
+        self.trust = 1.0
+        self._store, self.row = store, -1
+        #: (stamp of the commit it was built from, CycleModel)
+        self._view: Optional[Tuple[int, cycles.CycleModel]] = None
+
+    @property
+    def model(self) -> Optional[cycles.CycleModel]:
+        return self._store.model(self)
+
+    @property
+    def lm_series(self) -> torch.Tensor:
+        """(window,) int8 LM series on the engine's device: a copy of the
+        row, so a later refit leaves it as it is (empty before the first
+        fit)."""
+        return self._store.lm[self.row,
+                              :int(self._store.length[self.row])].clone()
+
+    @property
+    def origin_step(self) -> int:
+        """Step index of the first sample in the characterized window:
+        Alg.1's profile is indexed from here, so Alg.2's M_current must be
+        too."""
+        return int(self._store.origin[self.row])
+
+    @property
+    def fitted_step(self) -> int:
+        """Latest step at the last fit (-1 = never, or forced stale)."""
+        return int(self._store.fitted[self.row])
+
+    @fitted_step.setter
+    def fitted_step(self, step: int) -> None:
+        self._store.fitted[self.row] = step
 
 
 class TickResult:
@@ -88,7 +308,9 @@ class TickResult:
     in samples), ``refitted`` (cycle fits recomputed), ``fleet`` (jobs with
     a current model), ``confidence`` (job -> spectral confidence of its
     current fit — the guard layer's gating input, shared with the packed
-    Alg. 2 cache so surfacing it costs no per-tick Python).
+    Alg. 2 cache and built on its first read, so a tick that does not read
+    it pays nothing for it; the constructor takes the dict or a callable
+    that returns it).
 
     With ``overlap=True`` the engine constructs this while Algorithm 2 is
     still executing on the device; the ``remain`` dict is
@@ -96,16 +318,22 @@ class TickResult:
     values are bit-identical to the synchronous schedule — only the host
     sync moves.
     """
-    __slots__ = ("_remain", "refitted", "fleet", "confidence", "_thunk")
+    __slots__ = ("_remain", "refitted", "fleet", "_confidence", "_thunk")
 
     def __init__(self, remain: Optional[Dict[str, int]], refitted: int,
-                 fleet: int, confidence: Optional[Dict[str, float]] = None,
+                 fleet: int, confidence=None,
                  _thunk: Optional[Callable] = None):
         self._remain = remain
         self.refitted = refitted
         self.fleet = fleet
-        self.confidence = confidence if confidence is not None else {}
+        self._confidence = confidence if confidence is not None else {}
         self._thunk = _thunk
+
+    @property
+    def confidence(self) -> Dict[str, float]:
+        if callable(self._confidence):
+            self._confidence = self._confidence()
+        return self._confidence
 
     @property
     def remain(self) -> Dict[str, int]:
@@ -151,50 +379,29 @@ class SurveillanceEngine:
         # are made collectively)
         self.mesh = shardlib.decide_mesh(shards, device=self.device)
         self.jobs: Dict[str, SurveilledJob] = {}
+        self._store = _FitStore(self.device, folded)
         self._decide_cache: Optional[Tuple] = None
 
     # -- registration -------------------------------------------------------
     def register(self, job_id: str, telemetry, nb: characterize.NaiveBayes,
                  *, window: int = 512, dirty_rate_fn=None) -> SurveilledJob:
-        job = SurveilledJob(job_id, telemetry, nb, window=window,
-                            dirty_rate_fn=dirty_rate_fn)
+        old = self.jobs.get(job_id)
+        if old is not None:
+            self._store.release(old)
+        job = SurveilledJob(job_id, telemetry, nb, window, dirty_rate_fn,
+                            self._store)
+        job.row = self._store.add(job)
         self.jobs[job_id] = job
         self._decide_cache = None
         return job
 
     def unregister(self, job_id: str) -> None:
-        if self.jobs.pop(job_id, None) is not None:
+        job = self.jobs.pop(job_id, None)
+        if job is not None:
+            self._store.release(job)
             self._decide_cache = None
 
     # -- staleness epochs ---------------------------------------------------
-    def _latest_steps(self, jobs: List[SurveilledJob]) -> np.ndarray:
-        """(J,) latest telemetry step per job; one call on the fleet-SoA
-        fast path, per-buffer otherwise."""
-        out = np.full(len(jobs), -1, np.int64)
-        by_fleet: Dict[int, List[int]] = {}
-        for i, job in enumerate(jobs):
-            fleet = getattr(job.telemetry, "fleet", None)
-            if fleet is not None:
-                by_fleet.setdefault(id(fleet), []).append(i)
-            else:
-                out[i] = job.telemetry.latest_step()
-        for idxs in by_fleet.values():
-            fleet = jobs[idxs[0]].telemetry.fleet
-            latest = fleet.latest_steps()
-            for i in idxs:
-                out[i] = latest[jobs[i].telemetry.index]
-        return out
-
-    def _stale(self, job: SurveilledJob, latest: int) -> bool:
-        if latest < 0 or len(job.telemetry) < self.min_samples:
-            return False                        # not enough history yet
-        if job.fitted_step < 0:
-            return True
-        advanced = latest - job.fitted_step
-        if job.model is not None and job.model.period > 1:
-            return advanced >= max(1, job.model.period // 4)
-        return advanced >= self.acyclic_refit
-
     def next_refresh_step(self, now_step: int) -> float:
         """Earliest telemetry step at which ANY registered job's cycle fit
         becomes stale, assuming telemetry stays dense (one sample per
@@ -206,23 +413,18 @@ class SurveillanceEngine:
         FIRST sample at ``now_step`` (callers pass the step about to be
         recorded), so they reach ``min_samples`` at
         ``now_step + min_samples - 1``."""
-        nxt = np.inf
-        if not self.jobs:
-            return nxt
-        jobs = list(self.jobs.values())
-        for job, latest in zip(jobs, self._latest_steps(jobs)):
-            base = int(latest) if latest >= 0 else now_step - 1
-            ready = base + max(0, self.min_samples - len(job.telemetry))
-            if job.fitted_step < 0:
-                cand = ready                    # stale on first full window
-            else:
-                if job.model is not None and job.model.period > 1:
-                    thresh = max(1, job.model.period // 4)
-                else:
-                    thresh = self.acyclic_refit
-                cand = max(ready, job.fitted_step + thresh)
-            nxt = min(nxt, cand)
-        return nxt
+        st = self._store
+        rows = st.live_rows()
+        if not len(rows):
+            return np.inf
+        latest, held = st.telemetry(rows)
+        base = np.where(latest >= 0, latest, now_step - 1)
+        ready = base + np.maximum(0, self.min_samples - held)
+        fitted = st.fitted[rows]
+        # stale on the first full window; else a threshold after the fit
+        cand = np.where(fitted < 0, ready, np.maximum(
+            ready, fitted + st.threshold(rows, self.acyclic_refit)))
+        return int(cand.min())
 
     # -- the batched pipeline ----------------------------------------------
     def refresh(self, job_ids: Optional[List[str]] = None,
@@ -230,80 +432,74 @@ class SurveillanceEngine:
         """Recompute the cycle fit of every stale (or ``force``d) job in
         one batched pipeline per (classifier, window-length) group.
         Returns the number of jobs refit."""
+        st = self._store
         with spans.span("surveillance.refresh"):
             with spans.span("surveillance.select"):
-                jobs = ([self.jobs[i] for i in job_ids]
-                        if job_ids is not None else list(self.jobs.values()))
-                if not jobs:
+                rows = (np.asarray([self.jobs[i].row for i in job_ids],
+                                   np.int64)
+                        if job_ids is not None else st.live_rows())
+                latest, held = st.telemetry(rows)
+                due = (latest >= 0) & (held >= self.min_samples)
+                fitted = st.fitted[rows]
+                if not force:
+                    due &= (fitted < 0) | (latest - fitted >= st.threshold(
+                        rows, self.acyclic_refit))
+                rows, latest, fitted = rows[due], latest[due], fitted[due]
+                if not len(rows):
                     return 0
-                latest = self._latest_steps(jobs)
-                todo = [(job, ls) for job, ls in zip(jobs, latest)
-                        if (force and ls >= 0
-                            and len(job.telemetry) >= self.min_samples)
-                        or (not force and self._stale(job, ls))]
-                groups: Dict[tuple, List[tuple]] = {}
-                for job, ls in todo:
-                    m = min(job.window, len(job.telemetry))
-                    delta = int(ls) - job.fitted_step
-                    # incremental classification: NB is stateless per
-                    # sample, so a slid window only needs its NEW tail
-                    # classified — the cached lm_series supplies the overlap
-                    # (telemetry steps are assumed dense, one sample per
-                    # step, as the recorder produces them)
-                    splice = (job.fitted_step >= 0
-                              and len(job.lm_series) == m
-                              and 0 <= delta < m)
-                    tail = min(m, _pow2(max(delta, 1))) if splice else m
-                    groups.setdefault((id(job.nb), m, tail), []).append(
-                        (job, ls))
-            for (_, m, tail), entries in groups.items():
-                self._refresh_group([j for j, _ in entries],
-                                    np.asarray([ls for _, ls in entries]),
-                                    m, tail)
-            return len(todo)
+                m = np.minimum(st.window[rows], held[due])
+                delta = latest - fitted
+                # incremental classification: NB is stateless per sample,
+                # so a slid window only needs its NEW tail classified — the
+                # stored lm series supplies the overlap (telemetry steps are
+                # assumed dense, one sample per step, as the recorder
+                # produces them)
+                splice = ((fitted >= 0) & (st.length[rows] == m)
+                          & (delta >= 0) & (delta < m))
+                tail = np.where(splice, np.minimum(
+                    m, _pow2(np.maximum(delta, 1))), m)
+                nb = st.nb[rows]
+                base = int(m.max()) + 1          # m and tail lie below it
+                _, first, group = np.unique((nb * base + m) * base + tail,
+                                            return_index=True,
+                                            return_inverse=True)
+            for g, i in enumerate(first.tolist()):
+                at = group == g
+                self._refresh_group(rows[at], latest[at], int(nb[i]),
+                                    int(m[i]), int(tail[i]))
+            return len(rows)
 
-    def _refresh_group(self, jobs: List[SurveilledJob],
-                       latest: np.ndarray, m: int, tail: int) -> None:
-        dev = self.device
+    def _refresh_group(self, rows: np.ndarray, latest: np.ndarray, nb: int,
+                       m: int, tail: int) -> None:
+        st, dev = self._store, self.device
         with spans.span("surveillance.gather"):
             # masked gather: NaN dropout samples come back zero-filled (the
             # batched NB/FFT stays finite) with their invalidity recorded,
             # so starved rows can be demoted instead of fit to hole-filled
             # data
-            W, counts, valid = TelemetryBuffer.window_matrix(
-                [j.telemetry for j in jobs], tail,
-                return_mask=True, device=dev)              # (G, tail, F)
+            W, counts, valid = st.gather(rows, tail, dev)  # (G, tail, F)
             coverage = (valid.sum(dim=1).cpu().numpy()
                         / np.maximum(counts, 1))
         with spans.span("surveillance.classify"):
-            lm_tail = shardlib.classify_lm(jobs[0].nb, W, self.mesh)
+            lm_tail = shardlib.classify_lm(st.nbs[nb], W, self.mesh)
             if tail == m:
                 LM = lm_tail                               # (G, m)
             else:
-                # splice: row i keeps its cached series shifted left by d_i
+                # splice: row i keeps its stored series shifted left by d_i
                 # samples and takes its last d_i samples from the new tail
-                d = torch.as_tensor(
-                    [int(ls) - job.fitted_step
-                     for job, ls in zip(jobs, latest)],
-                    device=dev)[:, None]
-                old = torch.stack([job.lm_series for job in jobs])
+                d = torch.as_tensor(latest - st.fitted[rows],
+                                    device=dev)[:, None]
+                old = st.lm[torch.as_tensor(rows, device=dev), :m]
                 t = torch.arange(m, device=dev)[None, :]
                 src = torch.where(t < m - d, t + d, tail + t)
                 LM = torch.gather(torch.cat([old, lm_tail], dim=1), 1, src)
-        models = cycles.fit_cycle_batch(LM, folded=self.folded,
-                                        mesh=self.mesh)
+        fits = cycles.fit_cycle_rows(LM, mesh=self.mesh)
         with spans.span("surveillance.commit"):
-            for i, (job, model, ls) in enumerate(zip(jobs, models, latest)):
-                if coverage[i] < self.min_coverage:
-                    # blackout-starved window: a cycle fit over zero-filled
-                    # holes is noise — demote to acyclic (same shape as the
-                    # not-found branch of fit_cycle_batch) until telemetry
-                    # recovers and a later refit sees real samples again
-                    model = cycles._acyclic(LM[i].cpu().numpy())
-                job.model = model
-                job.lm_series = LM[i]
-                job.origin_step = int(ls) - m + 1
-                job.fitted_step = int(ls)
+            # blackout-starved windows: a cycle fit over zero-filled holes
+            # is noise — demoted to acyclic until telemetry recovers and a
+            # later refit sees real samples again
+            st.commit(rows, fits, LM, latest, m,
+                      coverage < self.min_coverage)
             self._decide_cache = None   # packed Alg.2 operands went stale
 
     def refresh_model(self, job_id: str, *, force: bool = False
@@ -316,26 +512,28 @@ class SurveillanceEngine:
     # -- the batched tick ---------------------------------------------------
     def _packed_fleet(self) -> Tuple:
         """(ids, origins, profiles, periods, confidence) for the fitted
-        fleet, padded/bucketed for Alg. 2 — cached between ticks and
-        invalidated only by register/unregister/refit, so an all-fresh
-        tick does no per-job Python work past the staleness scan."""
+        fleet, padded for Alg. 2 straight from the fit store — cached
+        between ticks and invalidated only by register/unregister/refit."""
         if self._decide_cache is None:
             with spans.span("surveillance.pack"):
-                fitted = [j for j in self.jobs.values()
-                          if j.model is not None]
-                if not fitted:
+                st, dev = self._store, self.device
+                rows = np.flatnonzero(st.fit[:st.n] & st.live[:st.n])
+                if not len(rows):
                     self._decide_cache = ((), None, None, None, {})
                 else:
-                    profiles, periods = pp.pack_fleet(
-                        [j.model for j in fitted], device=self.device)
-                    origins = torch.as_tensor(
-                        [j.origin_step for j in fitted], dtype=torch.int64,
-                        device=self.device)
+                    ids = tuple(st.ids[rows])
+                    period = st.period[rows]
+                    profiles = cycles.profile_rows(
+                        st.lm[torch.as_tensor(rows, device=dev)], period,
+                        folded=self.folded,
+                        lengths=st.length[rows])
+                    conf = st.confidence[rows]
                     self._decide_cache = (
-                        tuple(j.job_id for j in fitted), origins, profiles,
-                        periods,
-                        {j.job_id: float(j.model.confidence)
-                         for j in fitted})
+                        ids, torch.as_tensor(st.origin[rows], device=dev),
+                        profiles,
+                        torch.as_tensor(period.astype(np.int32), device=dev),
+                        functools.cache(
+                            lambda: dict(zip(ids, conf.tolist()))))
         return self._decide_cache
 
     def next_trough(self, job_ids: List[str], now_step: int

@@ -106,6 +106,69 @@ def test_fit_cycle_batch_constant_rows_match_numpy_path():
     assert [m.profile_lm.tolist() for m in got[-2:]] == [[1], [0]]
 
 
+def _batches():
+    n = max(len(s) for s in PLANTED)
+    planted = np.stack([np.resize(s, n) for s in PLANTED]).astype(np.int8)
+    return {"planted": planted, "fleet128": _noisy_fleet(128, 12, seed=128),
+            "fleet512": _noisy_fleet(512, 24, seed=512),
+            "constant": np.concatenate([_noisy_fleet(256, 3, seed=1),
+                                        np.ones((1, 256), np.int8),
+                                        np.zeros((1, 256), np.int8)])}
+
+
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("name", ["planted", "fleet128", "fleet512",
+                                  "constant"])
+def test_fit_cycle_rows_matches_the_list_view_and_references(name, folded):
+    """The batched core's periods, confidences and Algorithm 2 profiles
+    (``profile_rows``) against the list view's ``CycleModel``s and both
+    references' lists, packed by the reference's ``pack_fleet``. The constant rows'
+    spurious Pallas peak (above) leaves only the numpy path there."""
+    X = _batches()[name]
+    fits = tcycles.fit_cycle_rows(torch.as_tensor(X))
+    np.testing.assert_array_equal(fits.host, X)
+    listed = tcycles.fit_cycle_batch(X, folded=folded, device=CPU)
+    wants = [listed, jcycles.fit_cycle_batch(X, folded=folded)]
+    if name != "constant":
+        with force_backend("tpu"):
+            wants.append(jcycles.fit_cycle_batch(X, folded=folded))
+    profiles = tcycles.profile_rows(torch.as_tensor(X), fits.period,
+                                    folded=folded)
+    for want in wants:
+        np.testing.assert_array_equal(fits.period, [m.period for m in want])
+        np.testing.assert_allclose(fits.confidence,
+                                   [m.confidence for m in want],
+                                   rtol=1e-4, atol=1e-7)
+        np.testing.assert_array_equal(profiles.numpy(), np.asarray(
+            jpp.pack_fleet(want)[0]))
+    np.testing.assert_array_equal(
+        fits.confidence, np.asarray([m.confidence for m in listed],
+                                    np.float32))
+    for j, m in enumerate(listed):
+        view = tcycles.model_view(X[j], int(fits.period[j]),
+                                  float(fits.confidence[j]), folded=folded)
+        _assert_same_models([view], [m])
+
+
+def test_profile_rows_folds_each_row_over_its_own_length():
+    """Rows padded past their series: the folded vote counts only each
+    row's whole cycles inside its own length, as ``fold_profile`` of the
+    unpadded row does."""
+    rng = np.random.default_rng(7)
+    lengths = np.asarray([64, 40, 33, 64, 17])
+    period = np.asarray([6, 7, 5, 0, 4])
+    rows = (rng.random((5, 64)) < 0.5).astype(np.int8)
+    got = tcycles.profile_rows(torch.as_tensor(rows), period, folded=True,
+                               lengths=lengths).numpy()
+    assert got.shape == (5, 7)
+    for j in range(5):
+        want = np.full(7, -1, np.int8)
+        if period[j] > 1:
+            want[:period[j]] = tcycles.fold_profile(rows[j, :lengths[j]],
+                                                    int(period[j]))
+        np.testing.assert_array_equal(got[j], want)
+
+
 def test_power_spectrum_public_view():
     s = np.sin(2 * np.pi * np.arange(512) / 32).astype(np.float32)
     p = tcycles.power_spectrum(s, device=CPU)
@@ -137,10 +200,8 @@ def test_postpone_batch_exact():
         m_now, jnp.int32)))
     tmodels = [tcycles.CycleModel(m.period, m.confidence, m.profile_lm,
                                   m.array_lm, m.array_nlm) for m in models]
-    tp, tper = tpp.pack_fleet(tmodels, n_jobs=len(models) + 9, p_max=64,
-                              device=CPU)
-    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
-    np.testing.assert_array_equal(tper.numpy(), np.asarray(jper))
+    tp, tper = torch.as_tensor(np.array(jp)), torch.as_tensor(
+        np.array(jper))
     got = tpp.postpone_batch(tp, tper, torch.as_tensor(m_now, dtype=torch.int32))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)

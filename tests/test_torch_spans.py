@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import characterize, precopy  # noqa: E402
+from repro_torch.core import characterize, cycles, precopy  # noqa: E402
 from repro_torch.core.surveillance import SurveillanceEngine  # noqa: E402
 from repro_torch.core.telemetry import FleetTelemetry  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -223,6 +223,59 @@ def test_tick_decisions_are_the_same_with_the_recorder_on(recorder, overlap):
     # under overlap the thunk's host copy is a decide span of its own
     assert sum(s.name == "surveillance.decide"
                for s in recorded) == (4 if overlap else 2)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_model_views_are_built_on_read_and_match_the_list_view(monkeypatch,
+                                                               folded):
+    """A forced refit and a tick build no ``CycleModel``; reading
+    ``job.model`` builds one a job, once until the next refit, each equal
+    to ``fit_cycle_batch``'s for the job's series: cyclic rows, a constant
+    LM row, a constant NLM row, and a row demoted to acyclic because most
+    of its window is NaN."""
+    built = []
+    build = cycles.model_view
+
+    def counted(*a, **kw):
+        built.append(1)
+        return build(*a, **kw)
+
+    monkeypatch.setattr(cycles, "model_view", counted)
+    fleet = FleetTelemetry(J, capacity=WINDOW, device="cpu")
+    for s in range(WINDOW):
+        v = _values(s)
+        v[:2] = 0.0
+        v[0, 0] = v[1, 1] = 1.0             # always CPU (LM), always MEM
+        if s >= 8:
+            v[2] = np.nan
+        fleet.record_fleet(s, v)
+    eng = SurveillanceEngine(device="cpu", folded=folded)
+    for i, view in enumerate(fleet.views()):
+        eng.register(f"vm{i}", view, _nb(), window=WINDOW)
+    jobs = list(eng.jobs.values())
+    eng.refresh(force=True)
+    eng.tick(WINDOW - 1)
+    assert not built and all(job._view is None for job in jobs)
+    models = [job.model for job in jobs]
+    assert all(job.model is m for job, m in zip(jobs, models))
+    assert len(built) == J
+    want = cycles.fit_cycle_batch(torch.stack([j.lm_series for j in jobs]),
+                                  folded=folded)
+    for got, m in zip(models[:2] + models[3:], want[:2] + want[3:]):
+        assert (got.period, got.confidence) == (m.period, m.confidence)
+        for a in ("profile_lm", "array_lm", "array_nlm"):
+            np.testing.assert_array_equal(getattr(got, a), getattr(m, a))
+    assert [(m.period, m.profile_lm.tolist()) for m in models[:2]] == [
+        (0, [1]), (0, [0])]
+    assert sum(m.period > 1 for m in models[3:]) == J - 3
+    lm = jobs[2].lm_series.numpy()
+    assert (models[2].period, models[2].confidence) == (0, 0.0)
+    assert models[2].profile_lm.tolist() == [int(2 * lm.sum() >= len(lm))]
+    built.clear()
+    fleet.record_fleet(WINDOW, _values(WINDOW))
+    eng.refresh(force=True)
+    assert jobs[5].model is not models[5]
+    assert len(built) == 1
 
 
 # ---------------------------------------------------------------------------
