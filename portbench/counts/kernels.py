@@ -78,3 +78,18 @@ def attention(B: int, H: int, Hkv: int, S: int, D: int, *, in_bytes: int,
     q, k, v read and the output written in ``in_bytes``."""
     return (4.0 * D * causal_pairs(S, window) * B * H,
             in_bytes * (2.0 * B * H * S * D + 2.0 * B * Hkv * S * D))
+
+
+def ssm_scan(B: int, H: int, S: int, Dk: int, Dv: int,
+             inputs: Sequence[Tuple[int, int]]) -> Tuple[float, float]:
+    """B4, the gated linear-attention scan of B x H heads over S positions
+    (keys of Dk, values of Dv): the SSD recurrence's 5 Dk Dv a head a
+    token, as ``counts.lm`` counts it; each input's distinct elements read
+    once (``inputs``: (elements, bytes each) of q, k, v, the log decay
+    and any bonus and initial state, in that order; a stride-0 dimension,
+    as the port broadcasts B, C and the decay, counts once), y written once
+    in v's dtype and the final state once in f32."""
+    v_bytes = inputs[2][1]
+    return (5.0 * B * H * S * Dk * Dv,
+            float(sum(n * size for n, size in inputs))
+            + v_bytes * B * H * S * Dv + 4.0 * B * H * Dk * Dv)

@@ -29,7 +29,6 @@ def run(ctx: H.Ctx) -> dict:
     import torch
     from repro_torch import tree
     from repro_torch.core import precopy
-    from repro_torch.kernels import ops
     from portbench.gen import tokens
 
     cfg = serve.config(ctx)
@@ -92,28 +91,15 @@ def run(ctx: H.Ctx) -> dict:
     if ctx.trace:
         from portbench.lib.trace import Record, Tracer
         record = Record(ctx.cell, ctx.workload, ctx.config)
-        calls = []
-        many = ops.dirty_blocks_many
-
-        def many_rec(news, olds, *a, **kw):
-            calls.append(([(n.numel(), n.element_size()) for n in news
-                           if n.is_floating_point()], kw["block"]))
-            return many(news, olds, *a, **kw)
-
         tracer = Tracer(ctx.device)
-        ops.dirty_blocks_many = many_rec
-        try:
-            with tracer.window():
-                for _ in range(int(ctx.traffic("traced_migrations"))):
-                    migration()
-        finally:
-            ops.dirty_blocks_many = many
+        with tracer.window():
+            for _ in range(int(ctx.traffic("traced_migrations"))):
+                migration()
         tracer.read(record, spans)
-        record.counters = {
-            "scans": calls,
+        record.counters.update({
             "migrations": [(w, d, r.outcome.rounds, r.outcome.bytes_sent,
                             r.v_mem) for w, d, r in box["mig"]],
-            "decode_flops": _decode_flops(cfg, B, rep, spans)}
+            "decode_flops": _decode_flops(ctx, cfg, B, rep, spans)})
         n_mig, t_win = len(box["mig"]), record.window_s
     else:
         n_mig, t_win = H.window(ctx.seconds, migration, ctx.sync)
@@ -162,10 +148,11 @@ def run(ctx: H.Ctx) -> dict:
     return out
 
 
-def _decode_flops(cfg: dict, B: int, rep, spans) -> float:
+def _decode_flops(ctx: H.Ctx, cfg: dict, B: int, rep, spans) -> float:
     """The decode steps' least operations in the traced window (each step
-    attends to the positions before it and its own)."""
-    from portbench.counts import lm as counts
+    attends to the positions before it and its own), as the
+    configuration's reference counts them."""
+    ref = H.load_module("refs", ctx.workload["config"])
     n = len(spans.times.get("decode", []))
     end = rep.pos
-    return sum(counts.decode_flops(cfg, B, end - k) for k in range(n))
+    return sum(ref.decode_flops(cfg, B, end - k) for k in range(n))

@@ -19,7 +19,6 @@ from portbench.lib import serve
 
 def run(ctx: H.Ctx) -> dict:
     import torch
-    from repro_torch.kernels import ops
     from portbench.gen import tokens
 
     cfg = serve.config(ctx)
@@ -54,30 +53,16 @@ def run(ctx: H.Ctx) -> dict:
 
     record = None
     if ctx.trace:
-        from portbench.counts import lm as counts
         from portbench.lib.trace import Record, Tracer
+        ref = H.load_module("refs", ctx.workload["config"])
         record = Record(ctx.cell, ctx.workload, ctx.config)
-        calls = {"attention": []}
-        attn = ops.flash_attention
-
-        def attn_rec(q, k, v, **kw):
-            calls["attention"].append((q.shape[0], q.shape[1], k.shape[1],
-                                       q.shape[2], q.shape[3],
-                                       q.element_size(), kw.get("window", 0)))
-            return attn(q, k, v, **kw)
-
         tracer = Tracer(ctx.device)
-        ops.flash_attention = attn_rec
-        try:
-            with tracer.window():
-                for i in range(int(ctx.traffic("traced_batches"))):
-                    one_batch(i)
-        finally:
-            ops.flash_attention = attn
+        with tracer.window():
+            for i in range(int(ctx.traffic("traced_batches"))):
+                one_batch(i)
         tracer.read(record, spans)
         n = len(done)
-        record.counters = {**calls,
-                           "prefill_flops": n * counts.prefill_flops(cfg, B, P)}
+        record.counters["prefill_flops"] = n * ref.prefill_flops(cfg, B, P)
         n_batches, t_win = n, record.window_s
     else:
         n_batches, t_win = H.window(ctx.seconds, one_batch, ctx.sync)

@@ -34,7 +34,6 @@ def run(ctx: H.Ctx) -> dict:
     from repro_torch.core import characterize
     from repro_torch.core.surveillance import SurveillanceEngine
     from repro_torch.core.telemetry import FleetTelemetry
-    from repro_torch.kernels import ops
     from portbench.gen import table3
 
     n = int(ctx.conf("vms"))
@@ -109,28 +108,13 @@ def run(ctx: H.Ctx) -> dict:
     if ctx.trace:
         from portbench.lib.trace import Record, Tracer
         record = Record(ctx.cell, ctx.workload, ctx.config)
-        calls = {"spectrum": [], "autocorr": []}
-        spec, scores = ops.power_spectrum, ops.autocorr_score
-
-        def spec_rec(x, *a, **kw):
-            calls["spectrum"].append(tuple(x.shape))
-            return spec(x, *a, **kw)
-
-        def scores_rec(x, lags, *a, **kw):
-            calls["autocorr"].append((*x.shape, lags.tolist()))
-            return scores(x, lags, *a, **kw)
-
         tracer = Tracer(ctx.device)
-        ops.power_spectrum, ops.autocorr_score = spec_rec, scores_rec
         state["refitted"] = []
-        try:
-            with tracer.window():
-                for _ in range(int(ctx.traffic("traced_ticks"))):
-                    one_tick(False)
-        finally:
-            ops.power_spectrum, ops.autocorr_score = spec, scores
+        with tracer.window():
+            for _ in range(int(ctx.traffic("traced_ticks"))):
+                one_tick(False)
         tracer.read(record, spans)
-        record.counters = {"refitted": list(state["refitted"]), **calls}
+        record.counters["refitted"] = list(state["refitted"])
         n_ticks, t_win = int(ctx.traffic("traced_ticks")), record.window_s
         kept[state["tick"] - 1] = state["prev"]
     else:

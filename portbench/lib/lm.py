@@ -5,29 +5,59 @@ to the plain reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict
 
-SSM_KEYS = ("kind", "state_dim", "head_dim", "expand", "conv_width")
-ARCH_KEYS = ("name", "family", "num_layers", "d_model", "num_heads",
-             "num_kv_heads", "d_ff", "vocab_size", "norm_eps", "rope_theta",
-             "param_dtype")
+#: keys of a configuration file that describe it and configure no part of
+#: the model (a nested key by its dotted path): read by the harness and
+#: the reference, never passed to the port. ``ssm.log_decay_clamp`` is
+#: checked against the program's constant instead.
+DESCRIPTIVE = ("source", "deployment", "context", "reduced", "assumed",
+               "ssm.log_decay_clamp")
+
+
+def _build(cls, cfg: dict, prefix: str = "", nested=None):
+    """``cls`` from every key of ``cfg`` that names one of its dataclass
+    fields (lists as tuples, ``nested`` keys built by their own function);
+    ``DESCRIPTIVE`` keys are left out, and any other key raises."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    nested = nested or {}
+    kw = {}
+    for k, v in cfg.items():
+        if prefix + k in DESCRIPTIVE:
+            continue
+        if k not in names:
+            raise ValueError(f"configuration key {prefix + k!r} names no "
+                             f"field of the port's {cls.__name__} and is "
+                             f"not descriptive")
+        if k in nested:
+            v = nested[k](v) if v else None
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[k] = v
+    return cls(**kw)
 
 
 def arch_config(cfg: dict):
-    """The port's ``ArchConfig`` for a configuration file; raises where the
-    program's fixed constants depart from what the file states."""
-    from repro_torch.configs.base import ArchConfig, SSMConfig
+    """The port's ``ArchConfig`` for a configuration file: every key that
+    names one of its fields, ``ssm`` built into ``SSMConfig`` and ``moe``
+    into ``MoEConfig`` the same way, the ``DESCRIPTIVE`` keys left out.
+    Raises on any other key, and where the program's fixed constants
+    depart from what the file states."""
+    from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
     from repro_torch.models import gla
-    kw = {k: cfg[k] for k in ARCH_KEYS}
-    kw["block_pattern"] = tuple(cfg["block_pattern"])
-    if cfg.get("ssm"):
-        kw["ssm"] = SSMConfig(**{k: cfg["ssm"][k] for k in SSM_KEYS})
-        if gla.LOG_DECAY_CLAMP != cfg["ssm"]["log_decay_clamp"]:
+
+    def ssm(s: dict):
+        clamp = s.get("log_decay_clamp", gla.LOG_DECAY_CLAMP)
+        if clamp != gla.LOG_DECAY_CLAMP:
             raise ValueError(f"the program clamps the log decay at "
                              f"{gla.LOG_DECAY_CLAMP}, the configuration "
-                             f"states {cfg['ssm']['log_decay_clamp']}")
-    return ArchConfig(**kw)
+                             f"states {clamp}")
+        return _build(SSMConfig, s, "ssm.")
+
+    return _build(ArchConfig, cfg, nested={
+        "ssm": ssm, "moe": lambda m: _build(MoEConfig, m, "moe.")})
 
 
 def _fill(path: str, t, gen, cfg: dict) -> None:

@@ -2,9 +2,10 @@
 and sets), read back into a ``Record`` that the per-layer metrics read:
 the device busy time (the union of the device operations' intervals inside
 the window), each device operation's name and time, the benchmark's own
-spans and the program's counters, and a breakdown of where the device
-time and the idle gaps went (each gap named by the innermost benchmark
-span around it, or ``host``).
+spans, the program's counters and the call shapes of every hand-written
+kernel the window ran (``lib/calls.py``), and a breakdown of where the
+device time and the idle gaps went (each gap named by the innermost
+benchmark span around it, or ``host``).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ class Record:
     #: the benchmark's spans: name -> host seconds of each
     spans: Dict[str, List[float]] = field(default_factory=dict)
     #: counts and values read from the program (``TickResult.refitted``,
-    #: ``PrecopyReport`` fields, launch counters) and call shapes
+    #: ``PrecopyReport`` fields, operation counts) and the kernels' call
+    #: shapes (``lib/calls.py``)
     counters: Dict[str, Any] = field(default_factory=dict)
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
 
@@ -72,10 +74,13 @@ class Tracer:
     host pays a few microseconds a launch and no cost a host operation.
     The window opens on an idle device with one marker launch; its start on
     the device clock, against the host clock read just before it, maps the
-    benchmark's host spans onto the device's timeline to name the gaps."""
+    benchmark's host spans onto the device's timeline to name the gaps.
+    Inside the window every kernel entry of ``ops`` is recorded
+    (``calls.recorded``); ``read`` puts the records among the counters."""
 
     def __init__(self, device: str = "cuda"):
         self.prof = None
+        self.calls: Dict[str, list] = {}
         self.cuda = device == "cuda"
         self.h0 = self.h1 = 0.0
 
@@ -84,10 +89,11 @@ class Tracer:
         import time
         import torch
         from torch.profiler import ProfilerActivity, profile
+        from portbench.lib import calls
         from portbench.lib.harness import settle
         settle()
         acts = [ProfilerActivity.CUDA] if self.cuda else [ProfilerActivity.CPU]
-        with profile(activities=acts) as prof:
+        with calls.recorded() as self.calls, profile(activities=acts) as prof:
             if self.cuda:
                 torch.cuda.synchronize()
                 self.h0 = time.perf_counter()
@@ -128,4 +134,5 @@ class Tracer:
                     else "host")
             rec.idle_gaps.append((name, b - a))
         rec.spans = dict(spans.times)
+        rec.counters.update(self.calls)
         return rec

@@ -10,11 +10,6 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-#: a dense model of the same wiring (grouped-query attention, SwiGLU),
-#: small enough for the CPU
-SMALL_LM = {"num_layers": 2, "d_model": 64, "num_heads": 4,
-            "num_kv_heads": 2, "d_ff": 128, "vocab_size": 256,
-            "context": 64}
 SMALL = {"batch": 4, "prompt": 40, "max_len": 64, "check_seqs": 4,
          "check_block": 2, "max_rounds": 3, "decode_steps": 8, "pool": 2,
          "block_elems": 64, "vms": 128, "window": 128, "extra_steps": 180,
@@ -22,9 +17,13 @@ SMALL = {"batch": 4, "prompt": 40, "max_len": 64, "check_seqs": 4,
 
 
 def small_sizes(config: dict, **over) -> dict:
+    """The traffic's small sizes, and the configuration keys its reference
+    module puts over its file (``SMALL``), where it has any."""
+    from portbench.lib import harness as H
     sizes = dict(SMALL)
-    if "block_pattern" in config:
-        sizes["config"] = dict(SMALL_LM)
+    ref = H.load_module("refs", config["name"])
+    if hasattr(ref, "SMALL"):
+        sizes["config"] = dict(ref.SMALL)
     sizes.update(over)
     return sizes
 

@@ -12,12 +12,25 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-TICKS = ["tick-16k-refit"]
-SERVING = ["internlm2-decode-migrate", "internlm2-prefill"]
-# one chip: no exchange between chips to leave out
+
+
+def _cells_of(*drivers):
+    """The cells of ``BENCHMARK.json`` whose traffic runs one of
+    ``drivers``, in its order."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    return [w["name"] for w in bench["workloads"]
+            if json.loads((ROOT / "portbench" / "workloads"
+                           / f"{w['name']}.json").read_text())["driver"]
+            in drivers]
+
+
+TICKS = _cells_of("tick")
+SERVING = _cells_of("decode_migrate", "prefill_batches")
+# one chip: no exchange between chips to leave out; the stop-and-copy
+# only where a migration runs
 FAULTS = ([(c, f) for c in TICKS + SERVING
            for f in ("unchanged", "half", "altered")]
-          + [("internlm2-decode-migrate", "no_final_copy")])
+          + [(c, "no_final_copy") for c in _cells_of("decode_migrate")])
 
 
 def _plant_tick(monkeypatch, fault):
