@@ -82,7 +82,16 @@ holds every hand-written kernel against its plain PyTorch version:
                and depth prefills and decodes; each model prefills once
                more with CUDA events around its layers, B4 and B5 (where
                its time goes); both models shallow in f32 on the card
-               against the CPU;
+               against the CPU; then ``zamba2-7b`` at its published widths
+               (the benchmark's configuration file, bf16) as its benchmark
+               cell serves it: 16 x 4,080 tokens prefilled in passes of 8
+               (162 B4 launches a pass, one a group of each Mamba2 layer,
+               and 13 B5 launches at D = 224), counted, a second prefill
+               beside the first cache (peak under Z7_MEM_SHARE of the
+               card), an event-timed third (its first B5 application at
+               the model's scale held against the oracle) and 16 decode
+               steps; B4 is also held to its plain version and timed at
+               one group's launch of that pass, (8, 56, 4,080, 64, 64);
   7. attn    — first (right after phase 6's kernel checks) the
                flash-attention kernel B5 against the naive oracle at the
                three prefills' head shapes, at internlm2's training shape
@@ -98,8 +107,10 @@ holds every hand-written kernel against its plain PyTorch version:
                chunked plain version, its time against the causal one;
                times of B5, the plain version and
                ``scaled_dot_product_attention`` at zamba2's, qwen3's and
-               danube's prefill shapes, B5 there held against the oracle
-               too; the same at the MoE prefills' head shapes (qwen3-moe's
+               danube's prefill shapes and at zamba2-7b's pass, (8, 32,
+               32, 4,080, 224) at the scale 112^-0.5, B5 there held
+               against the oracle too; the same at the MoE prefills' head
+               shapes (qwen3-moe's
                (8, 32, 4, 4,096, 128); the reference's kimi-k2, whose GQA
                at D = 112 stands in for Kimi-K2's MLA, (4, 64, 8, 4,096,
                112)), each bit-equal on a second launch. After phase 6,
@@ -1386,6 +1397,42 @@ SCAN_PEAK_ATOL = 1e-6
 CPU_CHECK_RTOL = 1e-4     # card against CPU in f32, relative to the peak
 
 
+# zamba2-7b (Zamba2-7B-Instruct at its published widths, the benchmark's
+# configuration file) served as its benchmark cell serves it: batches of 16
+# prompts of 4,080 tokens, 16 decode steps
+Z7_NAME = "zamba2-7b"
+Z7_FILE = ROOT / "portbench" / "configs" / f"{Z7_NAME}.json"
+Z7_BATCH, Z7_PROMPT, Z7_STEPS = 16, 4080, 16
+# the second prefill's peak memory, beside the first batch's cache as a
+# serving replica holds it, as a share of the card's memory (PERF.md: 76.3
+# of 85.0 GB, 0.90, in the cell)
+Z7_MEM_SHARE = 0.95
+
+
+def _zamba2_7b_config():
+    """The port's ``ArchConfig`` of zamba2-7b, read from the benchmark's
+    configuration file as the benchmark reads it."""
+    from portbench.lib import lm as lmlib
+    return lmlib.arch_config(json.loads(Z7_FILE.read_text()))
+
+
+def _z7_pass() -> int:
+    """Sequences in one pass of zamba2-7b's prefill (``lm.PREFILL_TOKENS``)
+    at the cell's prompt."""
+    from repro_torch.models import lm
+    return max(1, lm.PREFILL_TOKENS // Z7_PROMPT)
+
+
+def _z7_scan_shape():
+    """(B, H, S, Dk, Dv) of one B4 launch of zamba2-7b's prefill pass: one
+    group's heads over the group's state."""
+    cfg = _zamba2_7b_config()
+    s = cfg.ssm
+    heads = s.expand * cfg.d_model // s.head_dim
+    return (_z7_pass(), heads // s.n_groups, Z7_PROMPT, s.state_dim,
+            s.head_dim)
+
+
 def _distinct_bytes(t) -> int:
     """Bytes a function must read of ``t``: its distinct elements (a
     stride-0 dimension holds one), each once."""
@@ -1469,9 +1516,10 @@ def _scan_err(torch, got, want):
 
 def phase_ssm_kernel(torch, ref, gla, ssm_scan):
     """B4 against its plain version (``gla_chunked`` on the card) at
-    zamba2's and rwkv6's prefill shapes, and against the step recurrence
-    too on the edges; a second launch must be bit-equal. Returns the
-    record at zamba2's shape."""
+    zamba2's, rwkv6's and one group of zamba2-7b's prefill shapes, and
+    against the step recurrence too on the edges; a second launch must be
+    bit-equal. Returns (the record at zamba2's shape, the record at each
+    timed shape)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     bf16 = torch.bfloat16
     cases = [  # name, kind, (B, H, S, Dk, Dv), options, step oracle
@@ -1505,8 +1553,12 @@ def phase_ssm_kernel(torch, ref, gla, ssm_scan):
          True),
         ("d stride 2 SSD f32 (element-wise loads), initial state", "plain",
          (2, 3, 70, 64, 64), dict(ssd=True, init=True, sliced=True), True),
+        # one group's launch of zamba2-7b's prefill pass: its 56 heads
+        # read the group's B and C as stride-0 views
+        (f"{Z7_NAME} prefill, one group: SSD, stride-0 bf16 q/k, f32 decay",
+         "mamba", _z7_scan_shape(), dict(dtype=bf16), False),
     ]
-    record = None
+    record, timed = None, {}
     for name, kind, (B, H, S, Dk, Dv), kw, step in cases:
         ins, u, s0 = _scan_case(torch, g, kind, B, H, S, Dk, Dv, **kw)
         got = ssm_scan.ssm_scan(*ins, u, s0)
@@ -1549,13 +1601,14 @@ def phase_ssm_kernel(torch, ref, gla, ssm_scan):
                      f"{op_ms:.4f} ms) plain {plain:.4f} ms bound "
                      f"{bound:.6g} ms ({by}, {nbytes / 1e9:.4f} GB; at the "
                      f"f32 CUDA-core peak {f32_bound:.6g} ms, {f32_by})")
+            timed[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=bound, bound_by=by, library_ms=None)
             if record is None:
-                record = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              bound_ms=bound, bound_by=by, library_ms=None)
+                record = timed[name]
         print(line + ", bit-equal on a second launch")
         del ins, u, s0, got, again, want
         torch.cuda.empty_cache()
-    return record
+    return record, timed
 
 
 def _plain_dirty_counts(torch, ref, live, shadow, block: int):
@@ -1641,7 +1694,8 @@ def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str,
     def keep_first(q, k, v, **kw):
         out = attention(q, k, v, **kw)
         if not seen:
-            seen.append((q, k, v, kw.get("window", 0), out))
+            seen.append((q, k, v, kw.get("window", 0),
+                         kw.get("scale") or 0.0, out))
         return out
 
     lm.apply_block = lambda kind, *a, **kw: timed(
@@ -1673,9 +1727,10 @@ def _timed_prefill(torch, ops_mod, prefill, params, batch, tag: str,
     split = {f"{what.replace(' ', '_')}_event_ms": whole,
              **{f"{k}_ms": v for k, v in ms.items()}}
     if seen:
-        q, k, v, window, got = seen.pop()
+        q, k, v, window, scale, got = seen.pop()
         err, use = _attn_check(torch, ref, got, q, k, v, window,
-                               f"{tag}'s first attention application")
+                               f"{tag}'s first attention application",
+                               oracle=_scaled_oracle(ref, scale))
         print(f"[{tag}] first attention application {tuple(q.shape)} "
               f"{str(q.dtype)[6:]} window {window}: B5 against attention_ref, "
               f"max_abs_err {err:.6g}, {use:.4f} of the limit")
@@ -1975,6 +2030,79 @@ def phase_ssm_cpu_check(torch):
     return errs
 
 
+def phase_zamba2_7b_serve(torch, ops_mod):
+    """zamba2-7b at its published widths (bf16, seeded weights, 7.36e9
+    params) served as its benchmark cell serves it: prefill Z7_BATCH x
+    Z7_PROMPT in passes of ``_z7_pass()`` sequences (each pass 162 B4
+    launches, one a group of each of 81 Mamba2 layers, and 13 B5 launches at
+    D = 224, one a shared call), counted; a second prefill beside the first
+    batch's cache, its peak memory held under Z7_MEM_SHARE of the card;
+    the event-timed third prefill's first B5 application held against the
+    oracle at the model's scale; then Z7_STEPS greedy decode steps, logits
+    finite. Returns (the counted prefill's launches, numbers to keep)."""
+    from repro_torch import tree
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import lm
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = _zamba2_7b_config()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SEED, device="cuda")
+    batch = make_batch(cfg, Z7_BATCH, Z7_PROMPT, device="cuda")
+    batch.pop("targets")
+    prefill = make_prefill_step(cfg, cache_len=Z7_PROMPT + Z7_STEPS)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    passes = -(-Z7_BATCH // _z7_pass())
+    want = {"ssm_scan": passes * cfg.num_layers * cfg.ssm.n_groups,
+            "flash_attention": passes * len(cfg.hybrid_layer_ids)}
+    logits, cache, t_prefill, _, launches = _counted_prefill(
+        torch, ops_mod, prefill, params, batch)
+    if any(launches[op] != n for op, n in want.items()):
+        raise AssertionError(f"{Z7_NAME} prefill launched {launches}, want "
+                             f"{want}")
+    if logits.shape != (Z7_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{Z7_NAME} prefill logits are not finite or "
+                             "misshapen")
+    # a serving replica prefills the next batch while it holds this one's
+    # cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, cache2 = prefill(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{Z7_NAME}] {sum(t.numel() for t in tree.leaves(params))} params, "
+          f"init {t_init:.4f} s; prefill {Z7_BATCH} x {Z7_PROMPT} in "
+          f"{passes} passes, {t_prefill:.4f} s, launches {launches}; the "
+          f"next prefill beside this cache peaks at {peak / 1e9:.4f} GB of "
+          f"{card / 1e9:.4f} GB ({peak / card:.4f}, limit {Z7_MEM_SHARE})")
+    if peak > Z7_MEM_SHARE * card:
+        raise AssertionError(f"{Z7_NAME}: the prefill beside a cache peaks at "
+                             f"{peak / card:.4f} of the card, over "
+                             f"{Z7_MEM_SHARE}")
+    del cache
+    split = _timed_prefill(torch, ops_mod, prefill, params, batch, Z7_NAME)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(Z7_STEPS):
+        tok, logits, cache2 = decode(params, tok, cache2)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{Z7_NAME} decode logits are not finite")
+    print(f"[{Z7_NAME}] {Z7_STEPS} decode steps {t_decode:.4f} s")
+    del params, cache2, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(init_s=t_init, prefill_s=t_prefill,
+                          peak_gb=peak / 1e9, peak_share=peak / card,
+                          decode_s=t_decode, **split)
+
+
 # ---------------------------------------------------------------------------
 # phase 7: attention prefill through kernel B5, and a full-width qwen3-8b
 # ---------------------------------------------------------------------------
@@ -2061,6 +2189,21 @@ def _attn_check(torch, ref, got, q, k, v, window: int, name: str,
                                  f"attention_ref on {name}: max abs err "
                                  f"{err_max}, {use:.4f} of the limit")
     return err_max, use
+
+
+def _plain_chunk(ref, S: int) -> int:
+    """The plain version's kv chunk at S: the largest divisor of S up to
+    ``ref.ATTN_CHUNK`` (its default, 512, at S = 4,096; 510 at 4,080)."""
+    return max(c for c in range(1, ref.ATTN_CHUNK + 1) if S % c == 0)
+
+
+def _scaled_oracle(ref, scale: float):
+    """``ref.attention_ref`` at the softmax scale ``scale`` (0: its
+    default, ``D**-0.5``)."""
+    def oracle(q, k, v, *, window):
+        return ref.attention_ref(q, k, v, window=window,
+                                 scale=scale or None)
+    return oracle
 
 
 def _chunked_f32_oracle(ref):
@@ -2192,33 +2335,41 @@ def phase_attention_kernel(torch, ref, fa):
     # as plain causal. The MoE shapes' G = 8 and kimi-k2's D = 112 (B5's
     # D tiles zero-padded to 128) are also held bit-equal on a second
     # launch.
+    # zamba2-7b's pass of its cell's prefill: 224-wide heads (64-key kv
+    # tiles) at the caller's scale (attention_head_dim / 2) ** -0.5
     record, times = None, {}
-    for name, (B, H, Hkv, D), window in (
-            ("zamba2", (SERVE_BATCH, 32, 32, 80), 0),
-            ("qwen3", (SERVE_BATCH, 32, 8, 128), 0),
-            ("danube3", (SERVE_BATCH, 32, 8, 120), 4096),
-            ("qwen3-moe", (MOE_BATCH, 32, 4, 128), 0),
-            ("kimi-k2", (PREFIX_BATCH, 64, 8, 112), 0)):
-        q, k, v = _attn_inputs(torch, g, B, H, Hkv, SERVE_PROMPT, D, bf16)
-        got = fa.flash_attention(q, k, v, window)
-        if not torch.equal(got, fa.flash_attention(q, k, v, window)):
+    z7 = _zamba2_7b_config()
+    for name, (B, H, Hkv, D), window, S, scale in (
+            ("zamba2", (SERVE_BATCH, 32, 32, 80), 0, SERVE_PROMPT, 0.0),
+            ("qwen3", (SERVE_BATCH, 32, 8, 128), 0, SERVE_PROMPT, 0.0),
+            ("danube3", (SERVE_BATCH, 32, 8, 120), 4096, SERVE_PROMPT, 0.0),
+            ("qwen3-moe", (MOE_BATCH, 32, 4, 128), 0, SERVE_PROMPT, 0.0),
+            ("kimi-k2", (PREFIX_BATCH, 64, 8, 112), 0, SERVE_PROMPT, 0.0),
+            (Z7_NAME, (_z7_pass(), z7.num_heads, z7.num_kv_heads,
+                       z7.head_dim), 0, Z7_PROMPT, z7.attn_scale)):
+        q, k, v = _attn_inputs(torch, g, B, H, Hkv, S, D, bf16)
+        got = fa.flash_attention(q, k, v, window, scale)
+        if not torch.equal(got, fa.flash_attention(q, k, v, window, scale)):
             raise AssertionError(f"flash_attention not deterministic at "
                                  f"{name}'s prefill shape")
         err, use = _attn_check(torch, ref, got, q, k, v, window,
-                               f"{name}'s prefill shape")
-        ms = _median_ms(lambda: fa.flash_attention(q, k, v, window))
+                               f"{name}'s prefill shape",
+                               oracle=_scaled_oracle(ref, scale))
+        ms = _median_ms(lambda: fa.flash_attention(q, k, v, window, scale))
         # the same launch through the custom op the model calls
         op_ms = _median_ms(lambda: torch.ops.repro_torch.flash_attention(
-            q, k, v, window))
-        plain = _median_ms(lambda: ref.attention_chunked(q, k, v,
-                                                         window=window), 5)
+            q, k, v, window, scale))
+        plain = _median_ms(lambda: ref.attention_chunked(
+            q, k, v, window=window, chunk=_plain_chunk(ref, S),
+            scale=scale or None), 5)
         lib = _median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+            q, k, v, is_causal=True, enable_gqa=True, scale=scale or None))
         bound, by = _attention_bound(q, k, window)
-        flops = 4.0 * B * H * _attention_pairs(SERVE_PROMPT, window) * D
+        flops = 4.0 * B * H * _attention_pairs(S, window) * D
         print(f"[attn] flash_attention {name} prefill "
-              f"{(B, H, Hkv, SERVE_PROMPT, D)} bf16 window "
-              f"{window}: max_abs_err {err:.6g} against attention_ref "
+              f"{(B, H, Hkv, S, D)} bf16 window {window} scale "
+              f"{scale or D ** -0.5:.6g}: max_abs_err {err:.6g} against "
+              f"attention_ref "
               f"({use:.4f} of the limit), bit-equal on a second launch; "
               f"kernel {ms:.4f} ms (through the custom op {op_ms:.4f} ms) "
               f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.4f} of the "
@@ -5138,7 +5289,8 @@ def main() -> int:
     secs = build.build_all(verbose=True)
     print(f"[build] {secs:.4f} s")
     records = phase_kernels(torch, ops, ref, dft, autocorr)
-    records["ssm_scan"] = phase_ssm_kernel(torch, ref, gla, ssm_scan)
+    records["ssm_scan"], scan_times = phase_ssm_kernel(torch, ref, gla,
+                                                       ssm_scan)
     records["flash_attention"], attn_times = phase_attention_kernel(
         torch, ref, flash_attention)
     tick_launches, tick_times, tick_b2, tick_states = phase_tick(
@@ -5165,6 +5317,9 @@ def main() -> int:
     ssm_prefill, ssm_migrate, ssm_times = phase_ssm_serve(torch, ops, ref)
     rwkv_launches, ssm_times["rwkv6"] = phase_rwkv_serve(torch, ops)
     ssm_times["card_vs_cpu_max_abs_err"] = phase_ssm_cpu_check(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    z7_launches, ssm_times[Z7_NAME] = phase_zamba2_7b_serve(torch, ops)
     dense_launches, dense_times = phase_dense_serve(torch, ops)
     dense_times["card_vs_cpu_max_abs_err"] = phase_dense_cpu_check(torch)
     gc.collect()                       # every replica freed before training
@@ -5209,7 +5364,8 @@ def main() -> int:
                    "flash_attention")}
     paths = (tick_launches, fleet_launches, controller_launches,
              serve_prefill, serve_launches,
-             ssm_prefill, ssm_migrate, rwkv_launches, dense_launches,
+             ssm_prefill, ssm_migrate, rwkv_launches, z7_launches,
+             dense_launches,
              train_launches, train_mig_launches, *check_launches.values(),
              trainer_launches, inc_launches, *moe_launches, dist_launches,
              tp_launches, ssm_tp_launches, heads_launches)
@@ -5221,6 +5377,22 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, **records[name]))
+    # zamba2-7b's shapes: B5 at D = 224 and the model's scale, B4 on one
+    # group's heads; the launches of its counted prefill
+    z7 = _zamba2_7b_config()
+    attn_at = (_z7_pass(), z7.num_heads, z7.num_kv_heads, Z7_PROMPT,
+               z7.head_dim)
+    for name, at, record in (
+            ("flash_attention", f"{Z7_NAME} {attn_at} scale "
+             f"{z7.attn_scale:.6g}", attn_times[Z7_NAME]),
+            ("ssm_scan", f"{Z7_NAME} one group {_z7_scan_shape()}",
+             next(v for k, v in scan_times.items()
+                  if k.startswith(Z7_NAME)))):
+        src, replaces, op = sources[name]
+        kernels.append(dict(name=name, at=at, route="cuda", source=src,
+                            replaces=replaces, launches=z7_launches[op],
+                            **{k: v for k, v in record.items()
+                               if k != "op_ms"}))
     print("[attn] " + json.dumps(attn_times))
     print("[tick] " + json.dumps(tick_times))
     print("[serve] " + json.dumps(serve_times))

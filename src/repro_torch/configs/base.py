@@ -43,6 +43,8 @@ class SSMConfig:
     expand: int = 2                    # d_inner = expand * d_model (mamba2)
     dt_rank: int = 0                   # 0 -> heads (mamba2 uses per-head dt)
     decay_lora: int = 64               # rank of data-dependent decay (rwkv6)
+    n_groups: int = 1                  # mamba2: groups of B and C; head h
+                                       # reads group h // (heads / n_groups)
 
 
 @dataclass(frozen=True)
@@ -78,6 +80,16 @@ class ArchConfig:
     # 'rwkv' = RWKV6 block, 'shared_attn' = zamba2 shared-weight attn block.
     block_pattern: Tuple[str, ...] = ("attn",)
     first_k_dense: int = 0             # kimi-k2: leading dense layers before MoE
+    # zamba2 as published (the ``hybrid_ids`` wiring of models/lm.py): before
+    # the Mamba2 layer at each of ``hybrid_layer_ids`` one of
+    # ``num_mem_blocks`` weight-shared blocks runs, in turn, on
+    # concat(h, token embeddings); a per-call LoRA of ``adapter_rank`` on
+    # its gated-GELU MLP's gate/up, and a per-call linear into that layer's
+    # input
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 0
+    adapter_rank: int = 0
+    attn_scale: float = 0.0            # softmax scale; 0 -> head_dim ** -0.5
 
     # -- sub-configs ----------------------------------------------------------
     moe: Optional[MoEConfig] = None
@@ -100,6 +112,46 @@ class ArchConfig:
                                        # residual stream over the model axis
     z_loss: float = 1e-4
 
+    # -- a published config.json's own keys, as published ---------------------
+    # A configuration file written from a model's config.json keeps its keys
+    # beside the port's fields above, and is read into this class whole. The
+    # port computes nothing from them (None: not stated); the plain
+    # reference beside such a file computes from them, and the comparison of
+    # the two holds both sets of keys to one model.
+    hidden_size: Optional[int] = None
+    num_hidden_layers: Optional[int] = None
+    num_attention_heads: Optional[int] = None
+    num_key_value_heads: Optional[int] = None
+    num_query_groups: Optional[int] = None
+    attention_head_dim: Optional[int] = None
+    attention_hidden_size: Optional[int] = None
+    kv_channels: Optional[int] = None
+    ffn_hidden_size: Optional[int] = None
+    intermediate_size: Optional[int] = None
+    rms_norm_eps: Optional[float] = None
+    hidden_act: Optional[str] = None
+    layers_block_type: Optional[Tuple[str, ...]] = None
+    mamba_d_state: Optional[int] = None
+    mamba_headdim: Optional[int] = None
+    mamba_expand: Optional[int] = None
+    mamba_d_conv: Optional[int] = None
+    mamba_ngroups: Optional[int] = None
+    n_mamba_heads: Optional[int] = None
+    use_shared_mlp_adapter: Optional[bool] = None
+    use_shared_attention_adapter: Optional[bool] = None
+    use_mem_rope: Optional[bool] = None
+    add_bias_linear: Optional[bool] = None
+    use_conv_bias: Optional[bool] = None
+    use_long_context: Optional[bool] = None
+    num_logits_to_keep: Optional[int] = None
+    model_type: Optional[str] = None
+    max_position_embeddings: Optional[int] = None
+    chunk_size: Optional[int] = None
+    time_step_min: Optional[float] = None
+    time_step_max: Optional[float] = None
+    time_step_floor: Optional[float] = None
+    time_step_limit: Optional[Tuple[float, float]] = None
+
     # ------------------------------------------------------------------------
     @property
     def head_dim(self) -> int:
@@ -112,7 +164,8 @@ class ArchConfig:
 
     @property
     def attention_free(self) -> bool:
-        return all(k in ("mamba", "rwkv") for k in self.block_pattern)
+        return (all(k in ("mamba", "rwkv") for k in self.block_pattern)
+                and not self.hybrid_layer_ids)
 
     @property
     def sub_quadratic(self) -> bool:
@@ -141,7 +194,12 @@ class ArchConfig:
         return tuple(kinds[: self.num_layers])
 
     def param_count(self) -> int:
-        """Analytic parameter count (used for roofline MODEL_FLOPS)."""
+        """Analytic parameter count (used for roofline MODEL_FLOPS). The
+        ``hybrid_ids`` wiring's counts every leaf of ``lm.init_params``
+        (``_hybrid_ids_count``); the other wirings' leave out a few
+        vectors, as the JAX package's count does."""
+        if self.hybrid_layer_ids:
+            return self._hybrid_ids_count()
         d, v = self.d_model, self.vocab_size
         total = v * d                                   # embedding
         if not self.tie_embeddings:
@@ -163,14 +221,36 @@ class ArchConfig:
                 s = self.ssm
                 d_in = s.expand * d
                 nheads = d_in // s.head_dim
-                total += d * (2 * d_in + 2 * s.state_dim + nheads)   # in_proj
-                total += s.conv_width * (d_in + 2 * s.state_dim)     # conv
+                bc = 2 * s.n_groups * s.state_dim
+                total += d * (2 * d_in + bc + nheads)                # in_proj
+                total += s.conv_width * (d_in + bc)                  # conv
                 total += d_in * d + 2 * nheads + d                   # out, A, D, norm
             elif kind == "rwkv":
                 total += 4 * d * d + 2 * d * s_lora(self.ssm)        # time-mix
                 total += d * self.d_ff + self.d_ff * d + d           # channel-mix
                 total += 2 * d                                       # norms
         return int(total)
+
+    def _hybrid_ids_count(self) -> int:
+        """Every parameter of the ``hybrid_ids`` wiring once: the table (and
+        an untied head), the final norm; each Mamba2 layer's norm, in_proj,
+        conv weights and bias, A_log, D, dt_bias, gated norm and out_proj;
+        each shared block once (its two norms, q, k, v from the 2 d-wide
+        concat, o, the gated MLP); each call's LoRA and linear."""
+        d, f, r, s = self.d_model, self.d_ff, self.adapter_rank, self.ssm
+        d_in = s.expand * d
+        H = d_in // s.head_dim
+        conv = d_in + 2 * s.n_groups * s.state_dim
+        mamba = (d + d * (d_in + conv + H) + (s.conv_width + 1) * conv
+                 + 3 * H + d_in + d_in * d)
+        hd = self.head_dim
+        block = (2 * d + 2 * d * hd * (self.num_heads + 2 * self.num_kv_heads)
+                 + self.num_heads * hd * d + d + 3 * d * f)
+        call = d * d + r * (d + 2 * f)
+        table = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return (table + d + self.num_layers * mamba
+                + self.num_mem_blocks * block
+                + len(self.hybrid_layer_ids) * call)
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: only top_k + shared experts count)."""

@@ -31,6 +31,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: kernel name -> C functions it exports, with their ctypes signatures
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_double
 SIGNATURES = {
     "dft_power": {"dft_power_launch": ([_P, _P, _I, _I, _I, _P], _I),
                   "dft_power_fft_launch": ([_P, _P, _P, _I, _I, _I, _P, _I,
@@ -39,8 +40,8 @@ SIGNATURES = {
                  "autocorr_constants": ([_P], _I)},
     "dirty_delta": {"dirty_delta_launch": ([_P, _I, _P, _L, _P], _I)},
     "ssm_scan": {"ssm_scan_launch": ([_P] * 12, _I)},
-    "flash_attention": {"flash_attention_launch": ([_P] * 6 + [_I, _I, _P],
-                                                   _I)},
+    "flash_attention": {"flash_attention_launch": ([_P] * 6
+                                                   + [_I, _I, _F, _P], _I)},
 }
 
 _LOCK = threading.Lock()

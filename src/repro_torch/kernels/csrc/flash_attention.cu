@@ -8,13 +8,14 @@
 // equivalent). For q (B, H, S, D) and k, v (B, Hkv, S, D), query head h
 // reads kv head h / (H / Hkv), and
 //
-//   o[q] = sum_k softmax_k(q . k * D^-0.5, masked) v[k]
+//   o[q] = sum_k softmax_k(q . k * scale, masked) v[k]
 //   masked: k > q, or window > 0 and q - k >= window (filled with -1e30)
 //
 // by an online softmax over kv tiles with a running (m, l, acc) in f32, as
 // the TPU kernel keeps it: m starts at -1e30, p = exp(s - m_new) is rounded
 // to v's dtype before P.V (p.astype(v_ref.dtype)), l sums the unrounded p,
-// and the output is acc / max(l, 1e-30) in q's dtype. The scale D^-0.5 is
+// and the output is acc / max(l, 1e-30) in q's dtype. The scale is the
+// caller's (Zamba2's shared attention takes (D / 2)^-0.5) or D^-0.5,
 // rounded once to f32.
 //
 // What differs from the TPU kernel: its grid walked the kv tiles as the
@@ -25,7 +26,8 @@
 // its first row's window, as _chunked_causal_attention trims its kv range.
 // It takes what the model's prefill sends and the TPU kernel did not: any
 // S >= 1 (the ragged last tile is masked, never padded in memory), any
-// D <= 128, any G = H / Hkv, inputs of any strides, and it writes the
+// D <= 128 (bf16 also 128 < D <= 224), any G = H / Hkv, inputs of any
+// strides, and it writes the
 // output in (B, S, H, D) memory order, so the caller's (B, S, H * D) view
 // before the output projection copies nothing. Each sum has a fixed order
 // and there are no atomics and no split of a row across blocks, so a
@@ -39,9 +41,10 @@
 // bf16 x bf16 -> f32. A bf16 product is exact in f32 and the sums are
 // f32, the TPU kernel's arithmetic; p is rounded to bf16 for P.V as the
 // contract says. A block of 384 threads takes 128 query rows and walks kv
-// tiles of 128 keys: two consumer warpgroups of 64 rows, and a producer
-// warpgroup whose first warp loads the Q tile once and the K and V tiles
-// into a 3-stage ring, by TMA boxes of 64 columns with the 128-byte
+// tiles of 128 keys (64 past D = 128, see kv_tile): two consumer
+// warpgroups of 64 rows, and a producer warpgroup whose first warp loads
+// the Q tile once and the K and V tiles into a 3-stage ring (2 past D =
+// 128), by TMA boxes of 64 columns with the 128-byte
 // swizzle, each stage handed over by a pair of mbarriers (full: the bytes
 // have landed; empty: both consumers are done with it). The producer
 // warpgroup drops to 40 registers a thread (setmaxnreg) so that each
@@ -49,9 +52,10 @@
 // fragments. One rank-4 (d, s, head, batch) tensor map per input, built
 // on the host with the caller's strides, fills the ragged S tail and the
 // columns past D with zeros, so D is padded to DP = 16 ceil(D / 16) for
-// free (120 -> 128): the zero columns add nothing to q . k, and the P.V
-// columns past D are not stored. A consumer computes S = Q K^T with
-// m64n128k16 (Q and K K-major in shared memory), masks and takes the
+// free (120 -> 128; past 128, to 224): the zero columns add nothing to
+// q . k, and the P.V columns past D are not stored. A consumer computes
+// S = Q K^T with m64n128k16 (m64n64k16 on 64-key tiles; Q and K K-major
+// in shared memory), masks and takes the
 // online softmax on the accumulator fragments (row max and sum over the 4
 // threads of a quad), repacks P to bf16 A fragments in registers and adds
 // P.V with m64nDPk16 (V MN-major in shared memory). The softmax is
@@ -93,7 +97,8 @@
 
 namespace {
 
-constexpr int DMAX = 128;             // largest head dim
+constexpr int DMAX = 128;             // largest head dim in f32
+constexpr int WG_DMAX = 224;          // largest head dim in bf16
 constexpr float NEG = -1e30f;         // the TPU kernel's NEG_INF
 
 struct Args {
@@ -103,7 +108,8 @@ struct Args {
   void* o;                           // (B, S, H, D), q's dtype
   long long sq[4], sk[4], sv[4];     // strides (elements): b, h, s, d
   long long S;
-  float scale;                       // D^-0.5, rounded once to f32
+  float scale;                       // the caller's, or D^-0.5; rounded
+                                     // once to f32
   int B, H, G, D, window, nq;
 };
 
@@ -308,14 +314,28 @@ int launch_any(const Args& a, cudaStream_t stream) {
 namespace wg {
 
 constexpr int BQ = 128;               // query rows per block
-constexpr int BK = 128;               // keys per kv tile
 constexpr int CONSUMER_WARPS = 8;     // two warpgroups of 64 rows
 constexpr int THREADS = 32 * CONSUMER_WARPS + 128;  // + a producer one
 // registers a thread after setmaxnreg: 128 x 40 + 256 x 232 <= 65,536 (a
 // block of 12 warps starts at 168)
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int STAGES = 3;             // K/V ring
 constexpr int ROW = 128;              // bytes of a swizzled row: 64 bf16
+
+// Keys per kv tile and stages of the K/V ring, by the padded head dim DP:
+// 128 keys in 3 stages up to DP = 128. Past it a 128-key ring would not
+// fit shared memory beside the Q tile (at DP = 224, Q alone is 64 KB and
+// one stage of 128-key K and V tiles 128 KB), so 64 keys in 2 stages:
+// 64 KB of Q and 2 x 64 KB of K and V. A consumer thread then holds O
+// (DP / 2 = 112), S (32) and P (16) fragments, as at DP = 128 (64, 64,
+// 32).
+__host__ __device__ constexpr int kv_tile(int dp) {
+  return dp > 128 ? 64 : 128;
+}
+__host__ __device__ constexpr int stages(int dp) { return dp > 128 ? 2 : 3; }
+// the head dim as the bf16 kernel pads it: to 16 up to 128, else to 224
+__host__ __device__ constexpr int padded(int D) {
+  return D > 128 ? 224 : 16 * ((D + 15) / 16);
+}
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -333,7 +353,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // each; a block holds 64 columns (zeros past D) in rows of 128 bytes with
 // the 128-byte swizzle that TMA writes and wgmma reads (16-byte chunk c of
 // row r at chunk c ^ (r % 8)). Then the mbarriers.
-template <int NC>
+template <int NC, int BK, int STAGES>
 struct Smem {
   static constexpr int QB = BQ * ROW, KB = BK * ROW;
   static constexpr int Q = 0;
@@ -350,10 +370,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int acc);
 
-// S += Q K^T for 64 rows and 128 keys, depth 16: Q and K K-major in shared
+// S += Q K^T for 64 rows and N keys, depth 16: Q and K K-major in shared
 // memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b,
-                                         int acc) {
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&d)[64], uint64_t a,
+                                             uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -556,6 +581,70 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&d)[32], uint64_t a,
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<224>(float (&d)[112],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111"
+      "}, {%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -631,6 +720,7 @@ __device__ __forceinline__ float ex2(float x) {
 // replaced by p = 2^fma(s, log2 e, -m log2 e) and p summed into this
 // thread's part of l; corr is each row's factor for the running output (1
 // where m did not move).
+template <int BK>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[BK / 2], float& m0, float& m1, float& l0, float& l1,
     float& corr0, float& corr1, const Args& a, long long k0,
@@ -683,6 +773,7 @@ __device__ __forceinline__ void softmax_tile(
 
 // P rounded to bf16 A fragments of the k16 steps of P.V (the m64nNk16
 // layout of the accumulator is the A layout of 16 rows by 16 keys)
+template <int BK>
 __device__ __forceinline__ void pack_p(const float (&s)[BK / 2],
                                        uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
@@ -733,7 +824,8 @@ attn_wg(const __grid_constant__ Args a,
         const __grid_constant__ CUtensorMap tv) {
   constexpr int NC = (DP + 63) / 64;          // 64-column blocks
   constexpr int NKD = DP / 16;                // k-steps of q . k
-  using L = Smem<NC>;
+  constexpr int BK = kv_tile(DP), STAGES = stages(DP);
+  using L = Smem<NC, BK, STAGES>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full = base + L::BAR, empty = full + 8 * STAGES,
@@ -852,7 +944,7 @@ attn_wg(const __grid_constant__ Args a,
 #pragma unroll
     for (int kk = 0; kk < NKD; ++kk) {
       const uint32_t off = (kk & 3) * 32;
-      wgmma_qk(sc, desc(qa + (kk >> 2) * L::QB + off, 16, 1024),
+      wgmma_qk<BK>(sc, desc(qa + (kk >> 2) * L::QB + off, 16, 1024),
                desc(kt + (kk >> 2) * L::KB + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -881,9 +973,9 @@ attn_wg(const __grid_constant__ Args a,
     your_turn();
     wgmma_wait<0>();
     pin(s);
-    softmax_tile(s, m0, m1, l0, l1, corr0, corr1, a, lo * BK, r_first, row0,
-                 row1, c0);
-    pack_p(s, pa);
+    softmax_tile<BK>(s, m0, m1, l0, l1, corr0, corr1, a, lo * BK, r_first,
+                     row0, row1, c0);
+    pack_p<BK>(s, pa);
   }
   // S of tile t and P.V of tile t - 1 in flight together, then t's softmax
   // while P.V runs; o is rescaled and P of t packed once P.V of t - 1 has
@@ -897,8 +989,8 @@ attn_wg(const __grid_constant__ Args a,
     your_turn();
     wgmma_wait<1>();
     pin(s);
-    softmax_tile(s, m0, m1, l0, l1, corr0, corr1, a, (lo + t) * BK, r_first,
-                 row0, row1, c0);
+    softmax_tile<BK>(s, m0, m1, l0, l1, corr0, corr1, a, (lo + t) * BK,
+                     r_first, row0, row1, c0);
     wgmma_wait<0>();
     pin(o);
     pin(pa);
@@ -910,7 +1002,7 @@ attn_wg(const __grid_constant__ Args a,
       o[4 * j + 2] *= corr1;
       o[4 * j + 3] *= corr1;
     }
-    pack_p(s, pa);
+    pack_p<BK>(s, pa);
   }
   my_turn();
   values(nt - 1, pa);
@@ -953,7 +1045,8 @@ attn_wg(const __grid_constant__ Args a,
 
 template <int DP, bool VEC>
 int launch(const Args& a, const CUtensorMap* maps, cudaStream_t stream) {
-  constexpr int bytes = Smem<(DP + 63) / 64>::BYTES;
+  constexpr int bytes =
+      Smem<(DP + 63) / 64, kv_tile(DP), stages(DP)>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       attn_wg<DP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -973,7 +1066,8 @@ int launch_dp(const Args& a, const CUtensorMap* maps, cudaStream_t stream) {
     case 5: return launch<80, VEC>(a, maps, stream);
     case 6: return launch<96, VEC>(a, maps, stream);
     case 7: return launch<112, VEC>(a, maps, stream);
-    default: return launch<128, VEC>(a, maps, stream);
+    case 8: return launch<128, VEC>(a, maps, stream);
+    default: return launch<224, VEC>(a, maps, stream);
   }
 }
 
@@ -1042,18 +1136,20 @@ bool make_map(CUtensorMap* map, const void* p, const long long* st,
 // q: (B, H, S, D); k, v: (B, Hkv, S, D), each read through its four strides
 // (in elements: b, h, s, d), all three of one dtype (0 f32, 1 bf16). o:
 // (B, S, H, D) contiguous, of that dtype. shape = {B, H, Hkv, S, D};
-// strides = {q, k, v} x {b, h, s, d}; window 0 is plain causal. Returns
-// the cudaError_t of the launch.
+// strides = {q, k, v} x {b, h, s, d}; window 0 is plain causal; scale > 0
+// multiplies q . k (rounded once to f32), else D^-0.5 does. D <= 128 in
+// f32, D <= 224 in bf16. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* shape,
                                       const long long* strides, int dtype,
-                                      int window, void* stream) {
+                                      int window, double scale,
+                                      void* stream) {
   const long long B = shape[0], H = shape[1], Hkv = shape[2], S = shape[3];
   const long long D = shape[4];
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1 || D < 1 ||
-      D > DMAX || window < 0 || (dtype != 0 && dtype != 1) ||
-      B * H > 0x7fffffffLL)
+      D > (dtype == 1 ? WG_DMAX : DMAX) || window < 0 ||
+      (dtype != 0 && dtype != 1) || B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int bq = dtype == 1 ? wg::BQ : f32::BQ;
   const long long nq = (S + bq - 1) / bq;
@@ -1069,7 +1165,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     a.sv[i] = strides[8 + i];
   }
   a.S = S;
-  a.scale = (float)(1.0 / sqrt((double)D));
+  a.scale = scale > 0 ? (float)scale : (float)(1.0 / sqrt((double)D));
   a.B = (int)B;
   a.H = (int)H;
   a.G = (int)(H / Hkv);
@@ -1082,10 +1178,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                    wg::vec_ok(k, a.sk, B, Hkv, S, D) &&
                    wg::vec_ok(v, a.sv, B, Hkv, S, D);
   CUtensorMap maps[3] = {};
+  const int bk = wg::kv_tile(wg::padded((int)D));
   const bool tma = vec &&
       wg::make_map(&maps[0], q, a.sq, B, H, S, D, wg::BQ) &&
-      wg::make_map(&maps[1], k, a.sk, B, Hkv, S, D, wg::BK) &&
-      wg::make_map(&maps[2], v, a.sv, B, Hkv, S, D, wg::BK);
+      wg::make_map(&maps[1], k, a.sk, B, Hkv, S, D, bk) &&
+      wg::make_map(&maps[2], v, a.sv, B, Hkv, S, D, bk);
   return tma ? wg::launch_dp<true>(a, maps, st)
              : wg::launch_dp<false>(a, maps, st);
 }

@@ -24,8 +24,10 @@ kernel with element-wise loads into the same tiles, so every layout gives
 the same bits.
 
 It takes any ``S >= 1`` (the ragged last tile is masked in the kernel),
-any ``D <= 128``, any ``H % Hkv == 0``, and q, k, v of one dtype (f32 or
-bf16) through their strides. The output, in q's dtype, is written in
+any ``D <= 128`` (bf16 also ``D <= 224``: Zamba2's 224-wide heads, on kv
+tiles of 64 keys), any ``H % Hkv == 0``, q, k, v of one dtype (f32 or
+bf16) through their strides, and the softmax's scale from the caller
+(``D**-0.5`` by default). The output, in q's dtype, is written in
 (B, S, H, D) memory order and returned as a (B, H, S, D) view.
 
 This wrapper only launches: it takes CUDA tensors and raises on anything
@@ -43,15 +45,16 @@ from repro_torch.kernels import build
 
 #: dtypes the kernel reads, with the code its C entry takes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the shared-memory tiles cap the head dimension
-MAX_D = 128
+#: the shared-memory tiles cap the head dimension, by dtype
+MAX_D = {torch.float32: 128, torch.bfloat16: 224}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, scale: float = 0.0) -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, Hkv, S, D), CUDA, one dtype, any strides.
-    Causal; ``window > 0`` adds the sliding window. Returns (B, H, S, D) in
-    q's dtype, a view of a (B, S, H, D) tensor."""
+    Causal; ``window > 0`` adds the sliding window; ``scale > 0`` scales
+    q . k (else ``D**-0.5``). Returns (B, H, S, D) in q's dtype, a view of
+    a (B, S, H, D) tensor."""
     ins = (q, k, v)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in ins):
@@ -68,10 +71,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape != (B, Hkv, S, D):
         raise ValueError(f"shapes differ: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if min(B, H, S, Hkv) < 1 or not 1 <= D <= MAX_D or H % Hkv:
+    if min(B, H, S, Hkv) < 1 or not 1 <= D <= MAX_D[q.dtype] or H % Hkv:
         raise ValueError(f"flash_attention kernel takes B, S >= 1, "
-                         f"1 <= D <= {MAX_D} and H % Hkv == 0, got "
-                         f"{(B, H, Hkv, S, D)}")
+                         f"1 <= D <= {MAX_D[q.dtype]} ({q.dtype}) and "
+                         f"H % Hkv == 0, got {(B, H, Hkv, S, D)}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
@@ -82,7 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_launch(
             *(t.data_ptr() for t in ins), out.data_ptr(),
             ctypes.addressof(shape), ctypes.addressof(strides),
-            DTYPE_CODES[q.dtype], int(window),
+            DTYPE_CODES[q.dtype], int(window), ctypes.c_double(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "

@@ -226,17 +226,17 @@ def block_deltas(news: Sequence[torch.Tensor], olds: Sequence[torch.Tensor],
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("ssm_scan(Tensor q, Tensor k, Tensor v, Tensor log_decay, "
             "Tensor? bonus, Tensor? initial_state) -> (Tensor, Tensor)")
-_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, int window) "
-            "-> Tensor")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, int window, "
+            "float scale=0.0) -> Tensor")
 
 
 def _ssm_scan_cuda(q, k, v, log_decay, bonus, initial_state):
     return _ss.ssm_scan(q, k, v, log_decay, bonus, initial_state)
 
 
-def _flash_attention_cuda(q, k, v, window):
+def _flash_attention_cuda(q, k, v, window, scale=0.0):
     """B5's output in its (B, S, H, D) memory order."""
-    return _fa.flash_attention(q, k, v, window).transpose(1, 2)
+    return _fa.flash_attention(q, k, v, window, scale).transpose(1, 2)
 
 
 _LIB.impl("ssm_scan", _ssm_scan_cuda, "CUDA")
@@ -252,7 +252,7 @@ def _(q, k, v, log_decay, bonus, initial_state):
 
 
 @torch.library.register_fake("repro_torch::flash_attention")
-def _(q, k, v, window):
+def _(q, k, v, window, scale=0.0):
     B, H, S, D = q.shape
     return q.new_empty((B, S, H, D))
 
@@ -312,23 +312,26 @@ def _ssm_scan(q, k, v, log_decay, bonus, initial_state):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, chunk: Optional[int] = None
-                    ) -> torch.Tensor:
+                    window: int = 0, chunk: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Causal GQA attention: q (B, H, S, D), k and v (B, Hkv, S, D), any
     strides, query head h reading kv head h // (H // Hkv); ``window > 0``
-    adds the sliding window. Returns (B, H, S, D) in q's dtype. The CPU
-    path runs the model's chunked online softmax over kv chunks of
-    ``chunk`` (default ``ref.ATTN_CHUNK``; one pass when S <= chunk)."""
+    adds the sliding window; ``scale`` multiplies q . k (default
+    ``D**-0.5``). Returns (B, H, S, D) in q's dtype. The CPU path runs the
+    model's chunked online softmax over kv chunks of ``chunk`` (default
+    ``ref.ATTN_CHUNK``; one pass when S <= chunk)."""
     chunk = ref.ATTN_CHUNK if chunk is None else chunk
 
     def forward(q, k, v):
         if _device_type(q) == "cuda":
             return torch.ops.repro_torch.flash_attention(
-                q, k, v, window).transpose(1, 2)
-        return ref.attention_chunked(q, k, v, window=window, chunk=chunk)
+                q, k, v, window, 0.0 if scale is None else scale
+            ).transpose(1, 2)
+        return ref.attention_chunked(q, k, v, window=window, chunk=chunk,
+                                     scale=scale)
 
     if _needs_grad(q, k, v):
-        return vjp.Attention.apply(q, k, v, window, chunk, forward)
+        return vjp.Attention.apply(q, k, v, window, chunk, forward, scale)
     return forward(q, k, v)
 
 

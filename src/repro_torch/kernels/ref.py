@@ -128,17 +128,19 @@ def ssm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int = 0) -> torch.Tensor:
+                  window: int = 0, scale: Optional[float] = None
+                  ) -> torch.Tensor:
     """Naive causal GQA attention: q (B, H, S, D), k and v (B, Hkv, S, D)
     -> (B, H, S, D) in q's dtype. The kv heads are repeated G = H / Hkv
-    times, the scores taken in f32 times ``D**-0.5``, masked entries
-    (the future, and with ``window > 0`` keys ``window`` or more behind)
-    filled with -1e30, and the softmax taken in f32."""
+    times, the scores taken in f32 times ``scale`` (default ``D**-0.5``),
+    masked entries (the future, and with ``window > 0`` keys ``window`` or
+    more behind) filled with -1e30, and the softmax taken in f32."""
     B, H, S, D = q.shape
     G = H // k.shape[1]
     kx = k.repeat_interleave(G, dim=1).float()
     vx = v.repeat_interleave(G, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * D ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * (
+        D ** -0.5 if scale is None else scale)
     pos = torch.arange(S, device=q.device)
     mask = pos[:, None] >= pos[None, :]
     if window > 0:
@@ -159,17 +161,19 @@ def _attn_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, window: int,
-                             chunk: int = ATTN_CHUNK) -> torch.Tensor:
+                             chunk: int = ATTN_CHUNK,
+                             scale: Optional[float] = None) -> torch.Tensor:
     """Memory-O(S·chunk) causal attention (online softmax over KV chunks).
 
     Outer loop over query chunks (the triangular structure is static, so
     no masked-out chunk is computed), inner loop over the causal KV range
     with a running (m, l, acc); SWA trims the range to the window.
 
-    q: (B, S, Hkv, G, hd); k, v: (B, S, Hkv, hd) -> (B, S, Hkv, G, hd)
+    q: (B, S, Hkv, G, hd); k, v: (B, S, Hkv, hd) -> (B, S, Hkv, G, hd);
+    the scores scaled by ``scale`` (default hd^-0.5).
     """
     B, S, Hkv, G, hd = q.shape
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     if S <= chunk:
         logits = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
         pos = torch.arange(S, device=q.device)
@@ -212,13 +216,14 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int = 0, chunk: int = ATTN_CHUNK
-                      ) -> torch.Tensor:
+                      window: int = 0, chunk: int = ATTN_CHUNK,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """``chunked_causal_attention`` on the kernel's layout: q (B, H, S, D),
     k and v (B, Hkv, S, D), any strides -> (B, H, S, D) in q's dtype."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     out = chunked_causal_attention(
         q.transpose(1, 2).reshape(B, S, Hkv, H // Hkv, D),
-        k.transpose(1, 2), v.transpose(1, 2), window, chunk=chunk)
+        k.transpose(1, 2), v.transpose(1, 2), window, chunk=chunk,
+        scale=scale)
     return out.reshape(B, S, H, D).transpose(1, 2)

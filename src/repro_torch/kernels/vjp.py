@@ -49,13 +49,14 @@ def _plain_vjp(fn: Callable, inputs: Sequence[Optional[torch.Tensor]],
 
 class Attention(torch.autograd.Function):
     """``ops.flash_attention`` with a plain backward: (q, k, v, window,
-    chunk, forward) -> (B, H, S, D); ``forward`` is the op's own
-    device dispatch."""
+    chunk, forward, scale) -> (B, H, S, D); ``forward`` is the op's own
+    device dispatch, ``scale`` the softmax's (None: D^-0.5)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, chunk: int, forward: Callable):
+    def forward(ctx, q, k, v, window: int, chunk: int, forward: Callable,
+                scale: Optional[float] = None):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.chunk = window, chunk
+        ctx.window, ctx.chunk, ctx.scale = window, chunk, scale
         return forward(q, k, v)
 
     @staticmethod
@@ -68,11 +69,11 @@ class Attention(torch.autograd.Function):
         remat, unpacking them recomputes the block)."""
         def plain(q, k, v):
             return ref.attention_chunked(q, k, v, window=ctx.window,
-                                         chunk=ctx.chunk)
+                                         chunk=ctx.chunk, scale=ctx.scale)
 
         grads = _plain_vjp(plain, (q, k, v), ctx.needs_input_grad[:3],
                            grad_out)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 class Scan(torch.autograd.Function):

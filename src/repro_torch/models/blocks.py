@@ -13,6 +13,12 @@ on the card kernel B5 (``kernels/csrc/flash_attention.cu``), on the CPU
 equivalent of its Pallas kernel. Decode attention and the projections are plain
 torch, as the JAX package computes them outside any Pallas kernel.
 
+zamba2's shared block (``shared_block``: attention over concat(h, token
+embeddings), a gated MLP with a per-call LoRA, the call's linear) is here
+too; ``models/lm.py``'s ``hybrid_ids`` wiring calls it. A config's
+``attn_scale`` replaces the softmax scale ``head_dim ** -0.5`` in prefill
+(given to B5) and in the whole-ring decode.
+
 Initializers take an explicit ``torch.Generator`` and a ``lead`` shape of
 stacked layers: ``dense_init(g, (d, f), lead=(L,))`` draws an (L, d, f)
 stack with the fan-in of one (d, f) layer.
@@ -50,6 +56,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MASK_FILL
+from repro_torch.runtime import spans
 
 Params = Dict[str, Any]
 
@@ -134,13 +141,17 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 # GQA attention
 # ---------------------------------------------------------------------------
 def attention_init(gen: Optional[torch.Generator], cfg: ArchConfig, *,
-                   lead=(), device=None) -> Params:
+                   d_in: Optional[int] = None, lead=(),
+                   device=None) -> Params:
+    """q, k, v from an input of ``d_in`` (default d_model), o back to
+    d_model."""
     d, hd = cfg.d_model, cfg.head_dim
+    di = d_in or d
     kw = dict(lead=lead, device=device)
     p = {
-        "wq": dense_init(gen, (d, cfg.num_heads * hd), cfg.dtype, **kw),
-        "wk": dense_init(gen, (d, cfg.num_kv_heads * hd), cfg.dtype, **kw),
-        "wv": dense_init(gen, (d, cfg.num_kv_heads * hd), cfg.dtype, **kw),
+        "wq": dense_init(gen, (di, cfg.num_heads * hd), cfg.dtype, **kw),
+        "wk": dense_init(gen, (di, cfg.num_kv_heads * hd), cfg.dtype, **kw),
+        "wv": dense_init(gen, (di, cfg.num_kv_heads * hd), cfg.dtype, **kw),
         "wo": dense_init(gen, (cfg.num_heads * hd, d), cfg.dtype,
                          scale=1.0 / (2 * cfg.num_layers) ** 0.5, **kw),
     }
@@ -178,7 +189,8 @@ def multihead_attention(
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2),
                                   window=cfg.sliding_window,
-                                  chunk=min(cfg.attn_chunk, S))
+                                  chunk=min(cfg.attn_chunk, S),
+                                  scale=cfg.attn_scale or None)
         return (out.transpose(1, 2).reshape(B, S, -1) @ params["wo"],
                 (k, v))
     # ---- decode: write one token into the (ring) cache, in place -----------
@@ -217,7 +229,8 @@ def _decode_whole(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     kv0, kv1 = kv or (0, ck.shape[2])
     ck, cv = ck[:, :, kv0:kv1], cv[:, :, kv0:kv1]
     qh = q.reshape(B, 1, kv1 - kv0, n // (kv1 - kv0), hd)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * hd ** -0.5
+    logits = (torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float()
+              * (cfg.attn_scale or hd ** -0.5))
     logits = torch.where(_decode_valid(cfg, W, cache_pos, slot,
                                        torch.arange(W, device=q.device)),
                          logits, MASK_FILL)
@@ -512,6 +525,69 @@ def mlp(params: Params, x: torch.Tensor, *, exact: bool = False
     params = {k: dist.fsdp(w, ctx, d, 1 if k == "w_down" else 0)
               for k, w in params.items()}
     return dist.tp_exit(_mlp_local(params, x), ctx, exact=exact)
+
+
+def shared_block_init(gen: Optional[torch.Generator], cfg: ArchConfig, *,
+                      lead=(), device=None) -> Params:
+    """zamba2's shared block: ``ln1`` over the 2 d-wide concat(h,
+    embeddings), attention from it (``num_heads`` of ``head_dim``) back to
+    d, ``ln2``, the gated MLP."""
+    d = cfg.d_model
+    kw = dict(lead=lead, device=device)
+    attn = attention_init(gen, cfg, d_in=2 * d, **kw)
+    return {"ln1": rmsnorm_init(2 * d, cfg.dtype, **kw), "attn": attn,
+            "ln2": rmsnorm_init(d, cfg.dtype, **kw),
+            "mlp": mlp_init(gen, cfg, **kw)}
+
+
+def shared_call_init(gen: Optional[torch.Generator], cfg: ArchConfig, *,
+                     lead=(), device=None) -> Params:
+    """One call's own weights: the LoRA of ``adapter_rank`` r on the MLP's
+    gate and up (``lora_a`` (d, r), ``lora_b`` (r, 2 d_ff): gate's columns,
+    then up's) and ``linear`` (d, d), whose output the next Mamba2 layer
+    takes as its extra input."""
+    d, r = cfg.d_model, cfg.adapter_rank
+    kw = dict(lead=lead, device=device)
+    return {"linear": dense_init(gen, (d, d), cfg.dtype, **kw),
+            "lora_a": dense_init(gen, (d, r), cfg.dtype, **kw),
+            "lora_b": dense_init(gen, (r, 2 * cfg.d_ff), cfg.dtype, **kw)}
+
+
+def shared_block(params: Params, call: Params, cfg: ArchConfig,
+                 x: torch.Tensor, emb: torch.Tensor, angles: torch.Tensor, *,
+                 kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 cache_pos: Optional[torch.Tensor] = None):
+    """One call of zamba2's shared block on the residual stream ``x`` and
+    the token embeddings ``emb`` (B, S, d): RMSNorm of concat(x, emb),
+    attention (rotary over the whole head, ``cfg.attn_scale``), RMSNorm,
+    the gated MLP (GELU, erf, on the gate) with the call's LoRA added to
+    its gate and up, and the call's ``linear``. No residual inside.
+    Returns (the call's output (B, S, d), the K/V or ring as
+    ``multihead_attention`` gives them). Spans: ``shared.attention`` (the
+    concat, its norm and the attention), ``shared.mlp`` (the norm and the
+    MLP with the LoRA), ``shared.linear``."""
+    with spans.span("shared.attention"):
+        h = rmsnorm(params["ln1"], torch.cat([x, emb], dim=-1), cfg.norm_eps)
+        a, kv = multihead_attention(params["attn"], cfg, h, angles,
+                                    kv_cache=kv_cache, cache_pos=cache_pos)
+    with spans.span("shared.mlp"):
+        h = rmsnorm(params["ln2"], a, cfg.norm_eps)
+        m = params["mlp"]
+        # gate and up each with its half of the LoRA, added in place: at a
+        # prefill pass of 8 x 4,080 one (B, S, d_ff) is 0.94 GB, and the
+        # prefill runs beside the cache of the batch before it
+        f = m["w_gate"].shape[-1]
+        lo = h @ call["lora_a"]
+        gate = h @ m["w_gate"]
+        gate += lo @ call["lora_b"][:, :f]
+        gate = F.gelu(gate)
+        up = h @ m["w_up"]
+        up += lo @ call["lora_b"][:, f:]
+        gate *= up
+        del up
+        y = gate @ m["w_down"]
+    with spans.span("shared.linear"):
+        return y @ call["linear"], kv
 
 
 def _mlp_local(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,22 @@
 kind of layer: ``attn``, ``moe``, ``mamba`` or ``rwkv``),
 ``hybrid_shared`` (zamba2: groups of Mamba2 layers, one shared-weight
 attention block after each) and ``prefix_dense`` (kimi-k2: one dense
-attention layer, then a stack of ``moe`` layers).
+attention layer, then a stack of ``moe`` layers); and a fourth of the port's
+own, ``hybrid_ids`` (zamba2 as published, zamba2-7b: a config with
+``hybrid_layer_ids``), which the JAX package does not have: a flat stack of
+Mamba2 layers, and before the layer at the j-th hybrid id a call of shared
+block j mod ``num_mem_blocks`` on concat(h, token embeddings)
+(``blocks.shared_block``, with call j's LoRA), whose output, through call
+j's ``linear``, is added to that Mamba2 layer's input before its RMSNorm;
+the layer's residual stays h. Its params: ``mamba`` an (L, ...) stack,
+``shared`` the blocks' (num_mem_blocks, ...) stack, ``calls`` the calls'
+(LoRA, ``linear``) stack; its cache: the L Mamba2 states under ``mamba``
+and one (B, W, Hkv, hd) ring a call under ``shared`` (each call attends
+over its own activations). Each call runs under the span ``lm.block``
+("shared", j), each Mamba2 layer under ``lm.block`` ("mamba", i) (the
+spans inside them: ``blocks.shared_block``'s, ``mamba2``'s). Its prefill
+takes the batch in passes of at most ``PREFILL_TOKENS`` tokens. It runs
+on one device, without remat.
 
 Params are the reference's nested dict with its keys: a uniform stack on
 dim 0 of ``params["blocks"]``; the hybrid's Mamba2 layers as an
@@ -87,6 +102,8 @@ Identity = lambda x: x  # noqa: E731
 # wiring
 # ---------------------------------------------------------------------------
 def wiring_mode(cfg: ArchConfig) -> str:
+    if cfg.hybrid_layer_ids:
+        return "hybrid_ids"
     if "shared_attn" in cfg.block_pattern:
         return "hybrid_shared"
     if cfg.first_k_dense > 0:
@@ -104,6 +121,9 @@ def _mesh_context(cfg: ArchConfig) -> Optional[dist.DistContext]:
     ctx = dist.current()
     if ctx is None:
         return None
+    if cfg.hybrid_layer_ids or cfg.attn_scale:
+        raise NotImplementedError(f"{cfg.name}: the hybrid_ids wiring and "
+                                  "attn_scale run on one device only")
     kinds = set(cfg.block_pattern)
     widths = {}
     if kinds & {"attn", "shared_attn"} or cfg.first_k_dense:
@@ -247,6 +267,19 @@ def _moe(params: Params, cfg: ArchConfig, x: torch.Tensor):
 # ---------------------------------------------------------------------------
 # model init
 # ---------------------------------------------------------------------------
+def _check_hybrid_ids(cfg: ArchConfig) -> None:
+    """Raise unless the ``hybrid_ids`` wiring is well formed: increasing
+    ids of a stack of Mamba2 layers, at least one shared block and a LoRA
+    of rank >= 1."""
+    ids = list(cfg.hybrid_layer_ids)
+    if (ids != sorted(set(ids)) or ids[0] < 0 or ids[-1] >= cfg.num_layers
+            or cfg.num_mem_blocks < 1 or cfg.adapter_rank < 1
+            or set(cfg.block_pattern) != {"mamba"}):
+        raise ValueError(f"{cfg.name}: hybrid_layer_ids {tuple(ids)} need "
+                         "increasing ids of the Mamba2 stack (block_pattern "
+                         "('mamba',)), num_mem_blocks and adapter_rank >= 1")
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, *,
                 device: DeviceLike = None) -> Params:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
@@ -278,6 +311,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
         p["dense0"] = _attn_block_init(gen, cfg, device=dev)
         p["blocks"] = _moe_block_init(
             gen, cfg, lead=(cfg.num_layers - cfg.first_k_dense,), device=dev)
+    elif mode == "hybrid_ids":
+        _check_hybrid_ids(cfg)
+        p["mamba"] = _mamba_block_init(gen, cfg, lead=(cfg.num_layers,),
+                                       device=dev)
+        p["shared"] = B.shared_block_init(gen, cfg,
+                                          lead=(cfg.num_mem_blocks,),
+                                          device=dev)
+        p["calls"] = B.shared_call_init(
+            gen, cfg, lead=(len(cfg.hybrid_layer_ids),), device=dev)
     else:  # hybrid_shared
         p["mamba"] = _mamba_block_init(gen, cfg, lead=_group_shape(cfg),
                                        device=dev)
@@ -395,6 +437,83 @@ def _units(cfg: ArchConfig, params: Params):
                + [("shared_attn", params["shared_attn"], "shared_attn", g)])
 
 
+def _hybrid_ids(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                angles: torch.Tensor, cache: Optional[Dict[str, Any]],
+                write: Callable, pos=None) -> torch.Tensor:
+    """The ``hybrid_ids`` wiring's layers on ``x`` (module docstring).
+    ``cache`` None: prefill or training; ``write(kind, i, state)``, where
+    given (prefill), takes each layer's new state (a call's (k, v), a
+    Mamba2 layer's tuple).
+    Else decode at ``pos``: the rings and states of ``cache`` are read and
+    written in place."""
+    emb = x
+    nb = cfg.num_mem_blocks
+    call_at = {i: j for j, i in enumerate(cfg.hybrid_layer_ids)}
+    shared = _unstack(params["shared"], nb)
+    calls = _unstack(params["calls"], len(call_at))
+    for i, lp in enumerate(_unstack(params["mamba"], cfg.num_layers)):
+        t = None
+        if i in call_at:
+            j = call_at[i]
+            ring = None if cache is None else (cache["shared"]["k"][j],
+                                               cache["shared"]["v"][j])
+            with spans.span("lm.block", ("shared", j)):
+                t, kv = B.shared_block(shared[j % nb], calls[j], cfg, x, emb,
+                                       angles, kv_cache=ring, cache_pos=pos)
+            if write is not None:
+                write("shared", j, kv)
+        with spans.span("lm.block", ("mamba", i)):
+            xn = B.rmsnorm(lp["ln"], x if t is None else x + t, cfg.norm_eps)
+            if cache is None:
+                h, c = mamba2.mamba2_forward(lp["mixer"], cfg, xn,
+                                             want_state=write is not None)
+                if write is not None:
+                    write("mamba", i, c)
+            else:
+                state = tuple(s[i] for s in cache["mamba"])
+                h, c = mamba2.mamba2_decode(lp["mixer"], cfg, xn, state)
+                for dst, new in zip(state, c):
+                    dst.copy_(new)
+            x = x + h
+    return x
+
+
+#: tokens the ``hybrid_ids`` prefill takes through its layers at once: a
+#: pass of whole sequences, at least one. zamba2-7b's activations at 16 x
+#: 4,080 in one pass peak near 13 GiB, and a serving replica prefills beside
+#: the cache of the batch before it (25 GiB of rings and states); 8 x 4,080
+#: a pass keeps the two caches, the weights and the pass on an 80 GB card.
+#: Measured on an H100 80GB HBM3 (85.0 GB): that prefill peaks at 76.3 to
+#: 77.7 GB, 0.90 to 0.91 of the card, which leaves 7 GB; ``chip_smoke.py``
+#: fails past 0.95 (``Z7_MEM_SHARE``)
+PREFILL_TOKENS = 1 << 15
+
+
+def _hybrid_ids_prefill(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                        angles: torch.Tensor, cache: Dict[str, Any],
+                        src: Optional[torch.Tensor], lo: int) -> torch.Tensor:
+    """The ``hybrid_ids`` prefill in passes of whole sequences of at most
+    ``PREFILL_TOKENS`` tokens, each pass's K/V and states written into its
+    rows of ``cache``. Returns the hidden states of every position."""
+    Bsz, S = x.shape[:2]
+    rows = max(1, PREFILL_TOKENS // S)
+    out = []
+    for b0 in range(0, Bsz, rows):
+        part = slice(b0, b0 + rows)
+
+        def write(kind, i, c):
+            if kind == "shared":
+                for name, t in zip(("k", "v"), c):
+                    _ring_block(cache["shared"][name][i][part], t, src, lo)
+            else:
+                for dst, t in zip(cache["mamba"], c):
+                    dst[i][part].copy_(t)
+
+        out.append(_hybrid_ids(params, cfg, x[part], angles[part], None,
+                               write))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
 def _layers(cfg: ArchConfig, params: Params):
     """(kind, layer params, cache key, index in that cache) in order."""
     for unit in _units(cfg, params):
@@ -502,6 +621,9 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
         x = _stream(cfg, params, batch, constrain)
         angles = _angles(cfg, _positions(cfg, batch, Bsz, S))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    hybrid_ids = wiring_mode(cfg) == "hybrid_ids"
+    if hybrid_ids and not want_cache:
+        return _hybrid_ids(params, cfg, x, angles, None, None), aux_total, None
     if not want_cache:
         for unit in _units(cfg, params):
             if remat:
@@ -518,6 +640,9 @@ def _forward(params: Params, cfg: ArchConfig, batch: Batch, *,
     ctx, lo = dist.current(), 0
     if ctx is not None and _ring_cut(cfg, ctx, W) == "window":
         lo = dist.tp_rank(ctx) * (W // dist.tp_size(ctx))
+    if hybrid_ids:
+        return (_hybrid_ids_prefill(params, cfg, x, angles, cache, src, lo),
+                aux_total, cache)
     for kind, lp, key, i in _layers(cfg, params):
         with spans.span("lm.block", (kind, i)):
             x, c, a = apply_block(kind, lp, cfg, x, angles, None, None)
@@ -558,20 +683,31 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
             if cfg.mrope:
                 positions = positions[None].expand(3, Bsz, 1)
             angles = _angles(cfg, positions)
-        for kind, lp, key, i in _layers(cfg, params):
-            with spans.span("lm.block", (kind, i)):
-                if kind in ATTN_KINDS:
-                    x, _, _ = apply_block(
-                        kind, lp, cfg, x, angles,
-                        (cache[key]["k"][i], cache[key]["v"][i]), pos)
-                else:
-                    state = tuple(t[i] for t in cache[key])
-                    x, c, _ = apply_block(kind, lp, cfg, x, angles, state, pos)
-                    for dst, t in zip(state, c):
-                        dst.copy_(t)
+        if wiring_mode(cfg) == "hybrid_ids":
+            x = _hybrid_ids(params, cfg, x, angles, cache, None, pos)
+        else:
+            x = _decode_layers(params, cfg, x, angles, cache, pos)
         with spans.span("lm.head"):
             logits = _head(cfg, params, x, whole=True)[:, 0]  # (B, V)
         return logits, {**cache, "pos": pos + 1}
+
+
+def _decode_layers(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                   angles, cache: Dict[str, Any], pos) -> torch.Tensor:
+    """Every layer of the stack wirings on one token, each ring and state
+    of ``cache`` written in place."""
+    for kind, lp, key, i in _layers(cfg, params):
+        with spans.span("lm.block", (kind, i)):
+            if kind in ATTN_KINDS:
+                x, _, _ = apply_block(
+                    kind, lp, cfg, x, angles,
+                    (cache[key]["k"][i], cache[key]["v"][i]), pos)
+            else:
+                state = tuple(t[i] for t in cache[key])
+                x, c, _ = apply_block(kind, lp, cfg, x, angles, state, pos)
+                for dst, t in zip(state, c):
+                    dst.copy_(t)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +751,11 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
 
     cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
                                                 device=dev)}
+    if mode == "hybrid_ids":
+        cache["mamba"] = mamba2.init_cache(cfg, batch, cfg.dtype,
+                                           lead=(cfg.num_layers,), device=dev)
+        cache["shared"] = rings(len(cfg.hybrid_layer_ids))
+        return cache
     if mode == "hybrid_shared":
         n_groups, per = _group_shape(cfg)
         cache["mamba"] = mamba2.init_cache(cfg, batch, cfg.dtype,

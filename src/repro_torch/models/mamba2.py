@@ -3,11 +3,17 @@
 
 Fused in-projection -> short causal depthwise conv over (x, B, C) -> SSD
 scan -> gated RMSNorm -> out-projection, with the per-head scalar decay
-a_t = exp(dt_t * A_h). Prefill runs the scan through ``kernels.ops.ssm_scan``
-(kernel B4 on the card) with B and C broadcast over heads and the decay
-over the state dimension as stride-0 views, so nothing head-sized is
-materialized; decode runs the one-token recurrence
-(``gla.gla_decode_step``).
+a_t = exp(dt_t * A_h). B and C come in ``ssm.n_groups`` groups (Mamba2's
+``ngroups``): the H heads fall into G runs of H / G, head h reading group
+h // (H / G), and the gated RMSNorm normalizes each group's d_in / G
+channels (its heads') on their own. Prefill runs the scan through
+``kernels.ops.ssm_scan`` (kernel B4 on the card) once a group, over its
+heads, with that group's B and C broadcast over them and the decay over
+the state dimension as stride-0 views, so nothing head-sized is
+materialized and B4 keeps its form for q and k shared by every head; each
+group's output joins the others' in the model's dtype before the gated
+norm and ``out_proj``. Decode runs the one-token recurrence
+(``gla.gla_decode_step``) on every head at once.
 
 Parameters are the reference's keys; ``A_log``, ``D`` and ``dt_bias`` are
 f32 whatever the config's dtype, as in the reference.
@@ -44,15 +50,18 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import dist, gla
 from repro_torch.models.blocks import dense_init, rmsnorm, rmsnorm_init
+from repro_torch.runtime import spans
 
 Params = Dict[str, torch.Tensor]
 
 
 def dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    """(d_in, heads, state size N, conv channels: x and G groups of B and
+    C)."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     nheads = d_in // s.head_dim
-    conv_ch = d_in + 2 * s.state_dim
+    conv_ch = d_in + 2 * s.n_groups * s.state_dim
     return d_in, nheads, s.state_dim, conv_ch
 
 
@@ -63,7 +72,7 @@ def mamba2_init(gen: Optional[torch.Generator], cfg: ArchConfig, *,
     s = cfg.ssm
     d = cfg.d_model
     d_in, H, N, conv_ch = dims(cfg)
-    proj_out = 2 * d_in + 2 * N + H          # [z, xBC..., dt]
+    proj_out = d_in + conv_ch + H            # [z, xBC..., dt]
     kw = dict(lead=lead, device=device)
     f32 = torch.float32
     a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=f32, device=device))
@@ -89,10 +98,10 @@ Dims = Tuple[int, int, int, int]
 
 
 def _split_proj(dm: Dims, proj: torch.Tensor):
-    d_in, H, N, _ = dm
+    d_in, _, _, conv_ch = dm
     z = proj[..., :d_in]
-    xBC = proj[..., d_in: 2 * d_in + 2 * N]
-    dt = proj[..., 2 * d_in + 2 * N:]
+    xBC = proj[..., d_in: d_in + conv_ch]
+    dt = proj[..., d_in + conv_ch:]
     return z, xBC, dt
 
 
@@ -115,17 +124,19 @@ def _causal_depthwise_conv(xBC: torch.Tensor, w: torch.Tensor,
 def _ssd_inputs(params: Params, cfg: ArchConfig, dm: Dims,
                 xBC: torch.Tensor, dt_raw: torch.Tensor):
     """Conv'd xBC + raw dt -> (q, k, v, log_decay, x_heads, dt) for the GLA
-    core."""
-    d_in, H, N, _ = dm
+    core; q (C) and k (B) are (..., G N), group g in columns [g N, (g+1) N).
+    """
+    d_in, H, N, conv_ch = dm
     P = cfg.ssm.head_dim
+    GN = (conv_ch - d_in) // 2
     xBC = F.silu(xBC)
     x = xBC[..., :d_in]
-    Bm = xBC[..., d_in: d_in + N]
-    Cm = xBC[..., d_in + N:]
+    Bm = xBC[..., d_in: d_in + GN]
+    Cm = xBC[..., d_in + GN:]
     dt = F.softplus(dt_raw.float() + params["dt_bias"])      # (..., H)
     A = -torch.exp(params["A_log"])                           # (H,)
 
-    # heads: x (..., H, P); B/C shared across heads (n_groups=1)
+    # heads: x (..., H, P); B/C shared by the heads of a group
     xh = x.reshape(*x.shape[:-1], H, P)
     v = xh * dt[..., None].to(xh.dtype)
     log_decay = dt * A                                        # (..., H)
@@ -144,6 +155,9 @@ def _rank_view(params: Params, cfg: ArchConfig, ctx
     dm = dims(cfg)
     if ctx is None:
         return params, dm, dm[0]
+    if cfg.ssm.n_groups != 1:
+        raise NotImplementedError(f"{cfg.name}: Mamba2 with "
+                                  f"{cfg.ssm.n_groups} B/C groups on a mesh")
     d_in, H, N, _ = dm
     d = cfg.d_model
     tp, r = dist.tp_size(ctx), dist.tp_rank(ctx)
@@ -170,16 +184,58 @@ def _rank_view(params: Params, cfg: ArchConfig, ctx
 
 def _gated_norm(params: Params, cfg: ArchConfig, y: torch.Tensor,
                 z: torch.Tensor, ctx) -> torch.Tensor:
-    """RMSNorm of y * silu(z) over the whole d_in. Under a context y and z
-    are the rank's channels: the f32 sum of squares is summed over
-    ``model`` (``dist.tp_sum``) before the rsqrt."""
+    """RMSNorm of y * silu(z) over each group's d_in / G channels (with
+    one group, the whole d_in). Under a context y and z are the rank's
+    channels of one group: the f32 sum of squares is summed over ``model``
+    (``dist.tp_sum``) before the rsqrt."""
     g = y * F.silu(z)
     if ctx is None:
-        return rmsnorm(params["norm"], g, cfg.norm_eps)
+        G = cfg.ssm.n_groups
+        if G == 1:
+            return rmsnorm(params["norm"], g, cfg.norm_eps)
+        # a group at a time, so that the f32 temporaries of a prefill span
+        # one group's channels
+        return torch.cat([
+            rmsnorm({"scale": s}, part, cfg.norm_eps) for s, part in
+            zip(params["norm"]["scale"].chunk(G), g.chunk(G, dim=-1))],
+            dim=-1)
     gf = g.float()
     ss = dist.tp_sum((gf * gf).sum(dim=-1, keepdim=True), ctx)
     out = gf * torch.rsqrt(ss / dims(cfg)[0] + cfg.norm_eps)
     return (out * params["norm"]["scale"].float()).to(g.dtype)
+
+
+def scan_groups(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_decay: torch.Tensor, groups: int):
+    """The SSD scan once a group of heads: q (C) and k (B) (B, S, G N),
+    v (B, S, H, P), the per-head log decay (B, S, H). Yields, group by
+    group, ``ops.ssm_scan``'s (y (B, H/G, S, P) f32, final state
+    (B, H/G, N, P) f32) for heads [g H/G, (g+1) H/G), the group's C and B
+    broadcast over its heads and the decay over N as stride-0 views: B4's
+    form for q and k shared by every head of a launch, and nothing
+    head-sized built."""
+    Bsz, S, H, _ = v.shape
+    N, Hg = q.shape[-1] // groups, H // groups
+    for g in range(groups):
+        hs, ns = slice(g * Hg, (g + 1) * Hg), slice(g * N, (g + 1) * N)
+        qh = q[:, None, :, ns].expand(Bsz, Hg, S, N)
+        kh = k[:, None, :, ns].expand(Bsz, Hg, S, N)
+        vh = v[:, :, hs].permute(0, 2, 1, 3)                  # (B,Hg,S,P)
+        lw = log_decay[:, :, hs].permute(0, 2, 1)[..., None].expand(
+            Bsz, Hg, S, N)
+        with spans.span("mamba2.scan", g):
+            out = ops.ssm_scan(qh, kh, vh, lw)
+        yield out
+
+
+def _per_head(t: torch.Tensor, H: int, groups: int) -> torch.Tensor:
+    """(B, G N) B or C of one token -> (B, H, N): group g's for heads
+    [g H/G, (g+1) H/G); one group as a stride-0 view."""
+    Bsz, N = t.shape[0], t.shape[-1] // groups
+    if groups == 1:
+        return t[:, None, :].expand(Bsz, H, N)
+    return t.view(Bsz, groups, 1, N).expand(
+        Bsz, groups, H // groups, N).reshape(Bsz, H, N)
 
 
 def _whole_carry(xBC_raw: torch.Tensor, di: int, ctx) -> torch.Tensor:
@@ -209,17 +265,19 @@ def mamba2_forward(params: Params, cfg: ArchConfig, x: torch.Tensor, *,
     z, xBC_raw, dt_raw = _split_proj(dm, x @ p["in_proj"])
     xBC = _causal_depthwise_conv(xBC_raw, p["conv_w"], p["conv_b"])
     q, k, v, logw, xh, _ = _ssd_inputs(p, cfg, dm, xBC, dt_raw)
-
-    # GLA layout (B, H, S, D*) as views: B/C and the decay stride 0
-    qh = q[:, None].expand(B, H, S, N)
-    kh = k[:, None].expand(B, H, S, N)
-    vh = v.permute(0, 2, 1, 3)                         # (B,H,S,P)
-    lw = logw.permute(0, 2, 1)[..., None].expand(B, H, S, N)
-    y, state = ops.ssm_scan(qh, kh, vh, lw)
-    y = y + p["D"][None, :, None, None] * xh.permute(0, 2, 1, 3)  # D*x skip
-    y = y.permute(0, 2, 1, 3).reshape(B, S, d_in).to(x.dtype)
-
-    y = _gated_norm(p, cfg, y, z, ctx) @ p["out_proj"]
+    G = cfg.ssm.n_groups
+    Hg = H // G
+    ys, states = [], []
+    for g, (y, st) in enumerate(scan_groups(q, k, v, logw, G)):
+        hs = slice(g * Hg, (g + 1) * Hg)
+        y = y + p["D"][None, hs, None, None] * xh[:, :, hs].permute(0, 2, 1, 3)
+        ys.append(y.permute(0, 2, 1, 3).reshape(B, S, -1).to(x.dtype))
+        states.append(st)
+    y = ys[0] if G == 1 else torch.cat(ys, dim=-1)
+    state = states[0] if G == 1 else torch.cat(states, dim=1)
+    with spans.span("mamba2.gated_norm"):
+        y = _gated_norm(p, cfg, y, z, ctx)
+    y = y @ p["out_proj"]
     if ctx is not None:
         y = dist.tp_exit(y, ctx)
     conv_state = None
@@ -258,8 +316,8 @@ def mamba2_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
                               conv_state.dtype)], dim=1)
     q, k, v, logw, xh, _ = _ssd_inputs(p, cfg, dm, xBC, dt_raw)
 
-    qh = q[:, 0, None, :].expand(B, H, N)
-    kh = k[:, 0, None, :].expand(B, H, N)
+    G = cfg.ssm.n_groups
+    qh, kh = _per_head(q[:, 0], H, G), _per_head(k[:, 0], H, G)
     vh = v[:, 0]                                       # (B,H,P)
     lw = logw[:, 0, :, None].expand(B, H, N)
     y, new_state = gla.gla_decode_step(qh, kh, vh, lw, ssd_state)

@@ -15,6 +15,12 @@ if HAS_HYPOTHESIS:
     settings.load_profile("ci")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (a CUDA kernel has no CPU "
+        "mode); skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng_key():
     import jax

@@ -491,9 +491,9 @@ class _OffAttention(_ATTENTION):
     """A forward kernel whose output is 1% off; the backward stays plain."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, chunk, forward):
+    def forward(ctx, q, k, v, window, chunk, forward, scale=None):
         return _ATTENTION.forward(ctx, q, k, v, window, chunk,
-                                  lambda *a: 1.01 * forward(*a))
+                                  lambda *a: 1.01 * forward(*a), scale)
 
 
 @pytest.mark.parametrize("fault", ["none", "update x0.9", "update sign",
