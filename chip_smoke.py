@@ -14,9 +14,9 @@ the dry run of the production meshes and the examples, and
 holds every hand-written kernel against its plain PyTorch version:
 
   1. build   — compile ``csrc/dft_power.cu``, ``csrc/autocorr.cu``,
-               ``csrc/dirty_delta.cu``, ``csrc/ssm_scan.cu`` and
-               ``csrc/flash_attention.cu`` with nvcc (one process each, in
-               parallel);
+               ``csrc/dirty_delta.cu``, ``csrc/ssm_scan.cu``,
+               ``csrc/flash_attention.cu`` and ``csrc/decode_attention.cu``
+               with nvcc (one process each, in parallel);
   2. kernels — each kernel against its plain version at the tick's shape,
                at FleetSim's Table 3 windows (1,440 and 2,880 samples,
                with the lag grids its refinement scores there) and at
@@ -121,7 +121,22 @@ holds every hand-written kernel against its plain PyTorch version:
                card against the CPU. In every replica's event-timed
                second prefill, B5's first application is held against the
                oracle on the same q, k, v (the counted prefill's peak
-               memory stays the model's own).
+               memory stays the model's own). Right after B5's checks,
+               decode attention (``csrc/decode_attention.cu``) alone at
+               internlm2's (16, 4,096 slots, 8 KV heads, 16 query heads,
+               hd 128) and zamba2-7b's (16, 4,096, 32, 32, 224) bf16
+               rings, full, partly filled, wrapped and a wrapped window:
+               ring bytes equal to the plain version's, a relaunch
+               bit-equal, the output within the bound of
+               ``tests/test_torch_decode_attention.py`` against an f64
+               oracle and within 2 ulps + 6 u sqrt(sum p^2 v^2) of the
+               plain version's, and scores that pick one slot (the
+               window's edges, the token's own) picking it; its device
+               time at the full ring (calls queued behind a sleep)
+               beside its bytes bound, the plain version's (the decode
+               before the kernel) and ``scaled_dot_product_attention``'s.
+               The serving phases count its launches: one a KV ring a
+               decode step.
   8. train   — after phase 7, ``internlm2_1p8b`` at full width and depth
                (bf16 params, AdamW, block remat, 26.4 GB of state) trains
                on 4 x 2,048-token batches of ``SyntheticCorpus``: a
@@ -346,6 +361,28 @@ def _stream_ms(fn, n: int = 50) -> float:
         for _ in range(n):
             fn()
     return _median_ms(run, 5) / n
+
+
+def _queued_ms(fn, n: int = 20, reps: int = 7) -> float:
+    """ms per call of ``n`` calls queued behind a sleeping kernel (median
+    of ``reps``): the events time the device's work alone, where the host
+    takes longer to enqueue a call than the card to run it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(30_000_000)          # ~17 ms: the calls queue up
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    times.sort()
+    return times[len(times) // 2]
 
 
 def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -1276,8 +1313,11 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
         raise AssertionError(f"per-round dirty bytes {rep.per_round_dirty_bytes}"
                              f" != the ring slots' {want}")
     n_float = sum(t.is_floating_point() for t in tree.leaves(live))
-    if launches["dirty_blocks"] != _scan_launches(n_float) * len(scan_ms):
-        raise AssertionError(f"migration launched {launches}")
+    if launches["dirty_blocks"] != _scan_launches(n_float) * len(scan_ms) \
+            or launches["decode_attention"] != \
+            ATTN_LAUNCHES[ARCH] * box["produced"]:
+        raise AssertionError(f"migration launched {launches} over "
+                             f"{box['produced']} decode steps")
     blocks = sum(-(-t.numel() // PCFG["block_elems"])
                  for t in tree.leaves(live))
     scan_bound, _ = _bound_ms(0.0, 2.0 * rep.v_mem + 4.0 * blocks)
@@ -2038,8 +2078,9 @@ def phase_zamba2_7b_serve(torch, ops_mod):
     D = 224, one a shared call), counted; a second prefill beside the first
     batch's cache, its peak memory held under Z7_MEM_SHARE of the card;
     the event-timed third prefill's first B5 application held against the
-    oracle at the model's scale; then Z7_STEPS greedy decode steps, logits
-    finite. Returns (the counted prefill's launches, numbers to keep)."""
+    oracle at the model's scale; then Z7_STEPS greedy decode steps, counted
+    (decode attention once a shared call a step), logits finite. Returns
+    (the counted prefill's launches, the decode's, numbers to keep)."""
     from repro_torch import tree
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models import lm
@@ -2087,18 +2128,25 @@ def phase_zamba2_7b_serve(torch, ops_mod):
     split = _timed_prefill(torch, ops_mod, prefill, params, batch, Z7_NAME)
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     torch.cuda.synchronize()
+    ops_mod.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(Z7_STEPS):
         tok, logits, cache2 = decode(params, tok, cache2)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
+    decode_launches = ops_mod.launch_counts()
     if not bool(torch.isfinite(logits.float()).all()):
         raise AssertionError(f"{Z7_NAME} decode logits are not finite")
-    print(f"[{Z7_NAME}] {Z7_STEPS} decode steps {t_decode:.4f} s")
+    want = len(cfg.hybrid_layer_ids) * Z7_STEPS
+    if decode_launches["decode_attention"] != want:
+        raise AssertionError(f"{Z7_NAME} decode launched {decode_launches}, "
+                             f"want {want} decode_attention")
+    print(f"[{Z7_NAME}] {Z7_STEPS} decode steps {t_decode:.4f} s, launches "
+          f"{decode_launches}")
     del params, cache2, logits
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, dict(init_s=t_init, prefill_s=t_prefill,
+    return launches, decode_launches, dict(init_s=t_init, prefill_s=t_prefill,
                           peak_gb=peak / 1e9, peak_share=peak / card,
                           decode_s=t_decode, **split)
 
@@ -2385,12 +2433,226 @@ def phase_attention_kernel(torch, ref, fa):
     return record, times
 
 
+# decode attention's shapes: name, (B, W, ring heads, query heads, hd),
+# scale
+DECODE_SHAPES = (("internlm2", (16, 4096, 8, 16, 128), None),
+                 (Z7_NAME, (16, 4096, 32, 32, 224), 112 ** -0.5))
+# (name, pos, window) held at each shape: the full ring with the token at
+# its last slot (the timed case: every slot read), a ring partly filled
+# (decode-migrate's tokens sit near slot 3,500), the full ring after it
+# wrapped (the valid slots run on past the token's tile) and a window ring
+# whose valid slots wrap past the ring's end
+DECODE_POSITIONS = (("full", 4095, 0), ("partial", 3500, 0),
+                    ("wrapped", 5000, 0), ("window-wrapped", 9000, 1000))
+# the kernel held to the plain path on the same inputs: the two round the
+# probabilities once each (the kernel a split's, the plain path the whole
+# ring's), errors of at most u that sum over the slots like a random walk
+# of std sqrt(2/3) u sqrt(sum_j p_j^2 v_j^2); the limit takes DECODE_WALK
+# of u sqrt(sum_j p_j^2 v_j^2) (over 7 of those std), and 2 bf16 ulps of
+# |plain| for the two outputs' own rounding. A split weighted wrongly, a
+# tile dropped or read twice moves the output by several times that.
+DECODE_WALK = 6.0
+
+
+def _decode_bound_ms(B, W, Hr, n, hd, nbytes=2):
+    """Least time of one decode attention at a full ring: the ring's K and
+    V read once, q, k, v and the output once (bytes; the products are
+    4 hd flops a (query head, slot), ~g flops a byte)."""
+    moved = nbytes * (2 * B * W * Hr * hd + 2 * B * n * hd + 2 * B * Hr * hd)
+    return 1e3 * moved / PEAK_BYTES
+
+
+def _bf16_ulp(torch, x):
+    """The spacing of bf16 values at |x| (0 where x is 0)."""
+    _, e = torch.frexp(x.float())
+    return torch.where(x == 0, 0.0,
+                       torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                                   e - 8))
+
+
+def _decode_oracle(torch, ref, q, rings, angles, pos, window, scale):
+    """f64 decode attention of the rotated ``q`` over the written
+    ``rings``, a KV head at a time: (o, the bound 2u (|o| + sum p |v|) +
+    u max|s| sum p |v - o| of ``tests/test_torch_decode_attention.py``,
+    sqrt(sum_j p_j^2 v_j^2)), each (B, n, hd) f64."""
+    B, _, n, hd = q.shape
+    W, Hr = rings[0].shape[1], rings[0].shape[2]
+    G, u = n // Hr, 2.0 ** -8
+    qr = ref.apply_rope(q, angles)[:, 0].double()
+    valid = ref.decode_valid(window, W, pos, torch.remainder(pos, W).long(),
+                             torch.arange(W, device=q.device))
+    o_all, bound_all, walk_all = (
+        torch.empty(B, n, hd, dtype=torch.float64, device=q.device)
+        for _ in range(3))
+    for h in range(Hr):
+        K, V = (r[:, :, h].double() for r in rings)
+        heads = slice(h * G, (h + 1) * G)
+        s = torch.where(valid, torch.einsum("bgd,bkd->bgk", qr[:, heads], K)
+                        * scale, -torch.inf)
+        p = torch.softmax(s, dim=-1)
+        o = p @ V
+        top = torch.where(valid, s.abs(), 0.0).amax(-1, keepdim=True)
+        spread = torch.einsum("bgk,bgkd->bgd", p,
+                              (V[:, None] - o[:, :, None]).abs())
+        o_all[:, heads] = o
+        bound_all[:, heads] = 2 * u * (o.abs() + p @ V.abs()) + u * top * \
+            spread
+        walk_all[:, heads] = ((p * p) @ (V * V)).sqrt()
+        del K, V, s, p, o, spread
+    return o_all, bound_all, walk_all
+
+
+def _decode_check(torch, ops_mod, ref, q, k, v, angles, rings, pos, window,
+                  scale, what):
+    """The kernel and the plain path on copies of ``rings``, and the
+    kernel again on a third: the rings' bytes equal to the plain path's, the
+    relaunch bit-equal (output and rings), both outputs within the f64
+    oracle's bound, and the kernel within 2 ulps of |plain| + DECODE_WALK
+    u sqrt(sum p^2 v^2) of the plain output. Returns (the kernel's output
+    (B, n, hd), {what: largest share of its limit used})."""
+    B, _, n, hd = q.shape
+    copies = [[r.clone() for r in rings] for _ in range(3)]
+    plain = ref.decode_attention_ref(q, k, v, angles, copies[0], pos,
+                                     window=window, scale=scale)
+    got, again = (ops_mod.decode_attention(q, k, v, angles, c, pos,
+                                           window=window, scale=scale)
+                  for c in copies[1:])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(copies[1], copies[0])):
+        raise AssertionError(f"decode_attention {what}: ring bytes differ "
+                             f"from the plain version's")
+    if not (torch.equal(got, again) and all(
+            torch.equal(a, b) for a, b in zip(copies[2], copies[1]))):
+        raise AssertionError(f"decode_attention {what}: a relaunch differs")
+    o, bound, walk = _decode_oracle(torch, ref, q, copies[0], angles, pos,
+                                    window, scale or hd ** -0.5)
+    got, plain = (t.view(B, n, hd) for t in (got, plain))
+    tight = 2 * _bf16_ulp(torch, plain).double() + \
+        DECODE_WALK * 2.0 ** -8 * walk
+    use = {"kernel": float(((got.double() - o).abs() / bound).max()),
+           "plain": float(((plain.double() - o).abs() / bound).max()),
+           "kernel_vs_plain": float(((got.double() - plain.double()).abs()
+                                     / tight).max())}
+    if max(use.values()) > 1.0:
+        raise AssertionError(f"decode_attention {what}: outside its limits "
+                             f"(share used): {use}")
+    del copies, plain, again, o, bound, walk, tight
+    return got, use
+
+
+def _decode_magnets(torch, ops_mod, ref, q, k, v, angles, rings, pos,
+                    window, scale, what):
+    """Scores that pick one slot (``tests/test_torch_decode_attention.py``'s
+    magnets), each held by ``_decode_check``: keys that score 30 at the
+    oldest valid slot and the newest invalid one, every other key zero,
+    must give the oldest slot's v; a query along the token's own k must
+    give the token's v, not the ring's stale row. A slot read by mistake
+    or missed moves the output by about |v|. The query heads of a KV head
+    are made equal, so that one key picks for all of them."""
+    B, _, n, hd = q.shape
+    W, Hr = rings[0].shape[1], rings[0].shape[2]
+    G, p = n // Hr, int(pos)
+    nv, slot = min(p + 1, W, window or W), p % W
+    q = q[:, :, ::G].repeat_interleave(G, dim=2)
+    qr = ref.apply_rope(q, angles).float()[:, 0, ::G]     # (B, Hr, hd)
+    magnet = qr * (30 / (qr.pow(2).sum(-1, keepdim=True)
+                         * (scale or hd ** -0.5)))
+    edges = torch.zeros_like(rings[0])
+    for j in {(slot - nv + 1) % W, (slot - nv) % W} - {slot}:
+        edges[:, j] = magnet.to(edges.dtype)
+    own = (3 * k.float()).repeat_interleave(G, dim=2).to(q.dtype)
+    use = {}
+    for name, qq, ring_k, pick in (
+            ("edges", q, edges, rings[1][:, (slot - nv + 1) % W]),
+            ("own", own, rings[0], v[:, 0])):
+        got, use[name] = _decode_check(
+            torch, ops_mod, ref, qq, k, v, angles, [ring_k, rings[1]], pos,
+            window, scale, f"{what} {name}")
+        err = float((got.float() - pick.float().repeat_interleave(G, dim=1)
+                     ).abs().max())
+        if err >= 0.05:
+            raise AssertionError(f"decode_attention {what} {name}: the "
+                                 f"picked slot's v missed by {err}")
+        del got
+    del edges
+    return use
+
+
+def phase_decode_attention(torch, ops_mod, ref):
+    """Decode attention (``csrc/decode_attention.cu``) alone at
+    internlm2's and zamba2-7b's rings, 16 x 4,096 slots, at each of
+    DECODE_POSITIONS: held by ``_decode_check`` (ring bytes, relaunch, the
+    f64 oracle's bound and the plain path at a tight limit) on random
+    inputs and by ``_decode_magnets``; then, at the full ring, device
+    times (calls queued behind a sleep, ``_queued_ms``) of the kernel, the
+    plain version (rotary, the ring write and the two einsums over the
+    whole ring, the decode before the kernel) and the library's
+    ``scaled_dot_product_attention`` over the same ring (the attention
+    alone, GQA, on the ring's (B, Hkv, W, hd) view; never called by the
+    port) beside the bytes bound. Returns {name: record}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    bf16 = torch.bfloat16
+    records = {}
+    for name, (B, W, Hr, n, hd), scale in DECODE_SHAPES:
+        q = torch.randn(B, 1, n, hd, device="cuda", generator=g).to(bf16)
+        k, v = (torch.randn(B, 1, Hr, hd, device="cuda", generator=g).to(bf16)
+                for _ in range(2))
+        rings = [torch.randn(B, W, Hr, hd, device="cuda",
+                             generator=g).to(bf16) for _ in range(2)]
+        inv = 1e4 ** (-torch.arange(hd // 2, device="cuda") / (hd // 2))
+        use = {}
+        for case, p, window in DECODE_POSITIONS:
+            what = f"{name} {case} (pos {p}, window {window})"
+            angles = (p * inv).expand(B, 1, hd // 2).contiguous()
+            pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+            _, use[case] = _decode_check(torch, ops_mod, ref, q, k, v,
+                                         angles, rings, pos, window, scale,
+                                         what)
+            use[case].update(_decode_magnets(torch, ops_mod, ref, q, k, v,
+                                             angles, rings, pos, window,
+                                             scale, what))
+            print(f"[decode] decode_attention {what}: rings and relaunch "
+                  f"bit-equal, magnets picked; share of each limit used "
+                  f"{use[case]}")
+        angles = ((W - 1) * inv).expand(B, 1, hd // 2).contiguous()
+        pos = torch.tensor(W - 1, dtype=torch.int32, device="cuda")
+        plain_rings = [r.clone() for r in rings]
+        ms = _queued_ms(lambda: ops_mod.decode_attention(
+            q, k, v, angles, rings, pos, scale=scale))
+        op_ms = _median_ms(lambda: ops_mod.decode_attention(
+            q, k, v, angles, rings, pos, scale=scale))
+        plain_ms = _queued_ms(lambda: ref.decode_attention_ref(
+            q, k, v, angles, plain_rings, pos, scale=scale), 5, 3)
+        kv = [r.transpose(1, 2) for r in rings]        # (B, Hkv, W, hd)
+        library_ms = _queued_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), *kv, scale=scale or hd ** -0.5,
+            enable_gqa=True))
+        bound_ms = _decode_bound_ms(B, W, Hr, n, hd)
+        records[name] = dict(
+            at=f"{(B, W, Hr, n, hd)} bf16", ms=ms, op_ms=op_ms,
+            bound_ms=bound_ms, bound_by="bytes", share=bound_ms / ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            splits=da.plan(B * Hr, W, n // Hr), limit_use=use)
+        print(f"[decode] decode_attention {name} {(B, W, Hr, n, hd)} bf16: "
+              f"{ms:.4f} ms queued ({op_ms:.4f} one call), bound "
+              f"{bound_ms:.4f} ms (bytes), {100 * bound_ms / ms:.2f}% of "
+              f"it; plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+              f"{library_ms:.4f} ms; splits {records[name]['splits']}")
+        del q, k, v, rings, plain_rings, kv
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_dense_serve(torch, ops_mod):
     """A full-width, full-depth qwen3-8b replica (bf16, seeded random
     weights) served: prefill SERVE_BATCH x SERVE_PROMPT (36 B5 launches,
     full causal, qk-norm, D 128, G 4), DENSE_STEPS greedy decode steps,
     then a second, event-timed prefill whose first B5 application is held
-    against the oracle. No migration: phase 5 covers pre-copy of an
+    against the oracle. The decode steps launch decode attention 36 times
+    a step. Returns (the prefill's launches, the decode's, numbers to
+    keep). No migration: phase 5 covers pre-copy of an
     attention replica."""
     from repro_torch import tree
     from repro_torch.launch.serve import build_replica
@@ -2412,14 +2674,22 @@ def phase_dense_serve(torch, ops_mod):
                              f"misshapen")
     tok = logits.argmax(-1)[:, None].to(torch.int32)
     torch.cuda.synchronize()
+    ops_mod.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(DENSE_STEPS):
         tok, logits, cache = r.decode(r.params, tok, cache)
     torch.cuda.synchronize()
     t_tok = (time.perf_counter() - t0) / DENSE_STEPS
+    decode_launches = ops_mod.launch_counts()
     if not bool(torch.isfinite(logits.float()).all()) or \
             int(cache["pos"]) != SERVE_PROMPT + DENSE_STEPS:
         raise AssertionError(f"{DENSE_ARCH} decode logits are not finite")
+    if decode_launches["decode_attention"] != \
+            ATTN_LAUNCHES[DENSE_ARCH] * DENSE_STEPS:
+        raise AssertionError(f"{DENSE_ARCH} decode launched "
+                             f"{decode_launches}, want "
+                             f"{ATTN_LAUNCHES[DENSE_ARCH]} decode_attention "
+                             f"a step")
     n = sum(t.numel() for t in tree.leaves(r.params))
     v_cache = sum(t.numel() * t.element_size() for t in tree.leaves(cache))
     del cache, logits
@@ -2431,10 +2701,11 @@ def phase_dense_serve(torch, ops_mod):
           f"{SERVE_BATCH} x {SERVE_PROMPT} in {t_prefill:.4f} s, peak "
           f"{peak:.4f} GB; KV cache {v_cache / 1e9:.4f} GB; decode "
           f"{1e3 * t_tok:.4f} ms per step of {SERVE_BATCH} tokens (mean of "
-          f"{DENSE_STEPS}); launches {launches}")
+          f"{DENSE_STEPS}); launches: prefill {launches}, decode "
+          f"{decode_launches}")
     del r
     torch.cuda.empty_cache()
-    return launches, {"params": n, "init_s": t_init, "prefill_s": t_prefill,
+    return launches, decode_launches, {"params": n, "init_s": t_init, "prefill_s": t_prefill,
                       "prefill_peak_gb": peak, "kv_cache_gb": v_cache / 1e9,
                       "decode_ms_per_step": 1e3 * t_tok,
                       "prefill_split": split}
@@ -2522,9 +2793,9 @@ def _train_split(torch, step_fn, state, batch):
 
     class TimedAttention(attention):
         @staticmethod
-        def forward(ctx, q, k, v, window, chunk, forward):
+        def forward(ctx, q, k, v, window, chunk, forward, scale=None):
             return attention.forward(ctx, q, k, v, window, chunk,
-                                     timed("b5_forward", forward))
+                                     timed("b5_forward", forward), scale)
 
         @staticmethod
         def backward(ctx, grad_out):
@@ -5293,6 +5564,8 @@ def main() -> int:
                                                        ssm_scan)
     records["flash_attention"], attn_times = phase_attention_kernel(
         torch, ref, flash_attention)
+    decode_times = phase_decode_attention(torch, ops, ref)
+    records["decode_attention"] = decode_times["internlm2"]
     tick_launches, tick_times, tick_b2, tick_states = phase_tick(
         torch, np, ops)
     # phase 2's B2 check at each shape the tick sent (captured in phase 3)
@@ -5319,8 +5592,9 @@ def main() -> int:
     ssm_times["card_vs_cpu_max_abs_err"] = phase_ssm_cpu_check(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    z7_launches, ssm_times[Z7_NAME] = phase_zamba2_7b_serve(torch, ops)
-    dense_launches, dense_times = phase_dense_serve(torch, ops)
+    z7_launches, z7_decode, ssm_times[Z7_NAME] = phase_zamba2_7b_serve(
+        torch, ops)
+    dense_launches, dense_decode, dense_times = phase_dense_serve(torch, ops)
     dense_times["card_vs_cpu_max_abs_err"] = phase_dense_cpu_check(torch)
     gc.collect()                       # every replica freed before training
     torch.cuda.empty_cache()
@@ -5361,11 +5635,15 @@ def main() -> int:
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:82",
-                   "flash_attention")}
+                   "flash_attention"),
+               "decode_attention": (
+                   "src/repro_torch/kernels/csrc/decode_attention.cu",
+                   "none (the JAX package decodes outside any Pallas "
+                   "kernel)", "decode_attention")}
     paths = (tick_launches, fleet_launches, controller_launches,
              serve_prefill, serve_launches,
              ssm_prefill, ssm_migrate, rwkv_launches, z7_launches,
-             dense_launches,
+             z7_decode, dense_launches, dense_decode,
              train_launches, train_mig_launches, *check_launches.values(),
              trainer_launches, inc_launches, *moe_launches, dist_launches,
              tp_launches, ssm_tp_launches, heads_launches)
@@ -5378,7 +5656,8 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches, **records[name]))
     # zamba2-7b's shapes: B5 at D = 224 and the model's scale, B4 on one
-    # group's heads; the launches of its counted prefill
+    # group's heads, decode attention at its ring; the launches of its
+    # counted prefill (B4, B5) and decode steps (decode attention)
     z7 = _zamba2_7b_config()
     attn_at = (_z7_pass(), z7.num_heads, z7.num_kv_heads, Z7_PROMPT,
                z7.head_dim)
@@ -5387,13 +5666,17 @@ def main() -> int:
              f"{z7.attn_scale:.6g}", attn_times[Z7_NAME]),
             ("ssm_scan", f"{Z7_NAME} one group {_z7_scan_shape()}",
              next(v for k, v in scan_times.items()
-                  if k.startswith(Z7_NAME)))):
+                  if k.startswith(Z7_NAME))),
+            ("decode_attention", f"{Z7_NAME} {decode_times[Z7_NAME]['at']}",
+             decode_times[Z7_NAME])):
         src, replaces, op = sources[name]
+        path = z7_decode if name == "decode_attention" else z7_launches
         kernels.append(dict(name=name, at=at, route="cuda", source=src,
-                            replaces=replaces, launches=z7_launches[op],
+                            replaces=replaces, launches=path[op],
                             **{k: v for k, v in record.items()
-                               if k != "op_ms"}))
+                               if k not in ("op_ms", "at")}))
     print("[attn] " + json.dumps(attn_times))
+    print("[decode] " + json.dumps(decode_times))
     print("[tick] " + json.dumps(tick_times))
     print("[serve] " + json.dumps(serve_times))
     print("[ssm] " + json.dumps(ssm_times))

@@ -42,6 +42,8 @@ SIGNATURES = {
     "ssm_scan": {"ssm_scan_launch": ([_P] * 12, _I)},
     "flash_attention": {"flash_attention_launch": ([_P] * 6
                                                    + [_I, _I, _F, _P], _I)},
+    "decode_attention": {"decode_attention_launch": ([_P] * 11 + [_F, _P],
+                                                     _I)},
 }
 
 _LOCK = threading.Lock()

@@ -1,6 +1,6 @@
 """The port's accelerated ops, dispatched by the tensor's device: the cycle
 fit's spectrum and lag scores, pre-copy's dirty-block scan, the SSM
-layers' chunked scan and attention prefill.
+layers' chunked scan, attention prefill and decode attention.
 
   ==============  ===============================  ===========================
   op              CUDA tensor                      CPU tensor
@@ -20,6 +20,12 @@ layers' chunked scan and attention prefill.
   ssm_scan        ssm_scan.ssm_scan (ssm_scan.cu)  models/gla.gla_chunked
   flash_attention flash_attention.flash_attention  ref.attention_chunked
                   (flash_attention.cu)
+  decode_attention decode_attention                ref.decode_attention_ref
+                  .decode_attention
+                  (decode_attention.cu): rotary,
+                  the ring write and the
+                  attention over the ring's
+                  valid slots, in place
   ==============  ===============================  ===========================
 
 ``power_spectrum`` and ``autocorr_score`` take an optional ``mesh`` (a
@@ -41,15 +47,18 @@ backward (the VJP of the chunked plain version, recomputed), as the JAX
 package differentiates its XLA functions and never a kernel. With grad
 off the path is the one above.
 
-B4 and B5 are reached through operators of the dispatcher
-(``repro_torch::ssm_scan``, ``repro_torch::flash_attention``). On a real
-CUDA tensor the op runs the same wrapper (``_ss.ssm_scan``,
-``_fa.flash_attention``), which launches the kernel or raises. Under
-``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) the op's fake form
-gives the output's shape, dtype and strides; no library is built or
-touched. Each op has a flop formula for ``torch.utils.flop_counter``: B5
-4 D flops per causal (query, key) pair inside the window, B4 the products
-of its chunked form (equal to the count of ``models/gla.gla_chunked``).
+B4, B5 and decode attention are reached through operators of the
+dispatcher (``repro_torch::ssm_scan``, ``repro_torch::flash_attention``,
+``repro_torch::decode_attention``, which writes its two rings in place).
+On a real CUDA tensor the op runs the same wrapper (``_ss.ssm_scan``,
+``_fa.flash_attention``, ``_da.decode_attention``), which launches the
+kernel or raises. Under ``FakeTensorMode`` (the dry run,
+``launch/dryrun.py``) the op's fake form gives the output's shape, dtype
+and strides; no library is built or touched. Each op has a flop formula
+for ``torch.utils.flop_counter``: B5 4 D flops per causal (query, key)
+pair inside the window, B4 the products of its chunked form (equal to the
+count of ``models/gla.gla_chunked``), decode attention 4 hd flops per
+(query head, ring slot), the count of its plain version's two einsums.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import autocorr as _ac
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dft as _dft
 from repro_torch.kernels import dirty_delta as _dd
 from repro_torch.kernels import flash_attention as _fa
@@ -228,6 +238,9 @@ _LIB.define("ssm_scan(Tensor q, Tensor k, Tensor v, Tensor log_decay, "
             "Tensor? bonus, Tensor? initial_state) -> (Tensor, Tensor)")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, int window, "
             "float scale=0.0) -> Tensor")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor angles, "
+            "Tensor(a!) k_ring, Tensor(b!) v_ring, Tensor cache_pos, "
+            "int window, float scale, int kv0, int kv1) -> Tensor")
 
 
 def _ssm_scan_cuda(q, k, v, log_decay, bonus, initial_state):
@@ -241,6 +254,7 @@ def _flash_attention_cuda(q, k, v, window, scale=0.0):
 
 _LIB.impl("ssm_scan", _ssm_scan_cuda, "CUDA")
 _LIB.impl("flash_attention", _flash_attention_cuda, "CUDA")
+_LIB.impl("decode_attention", _da.decode_attention, "CUDA")
 
 
 @torch.library.register_fake("repro_torch::ssm_scan")
@@ -255,6 +269,12 @@ def _(q, k, v, log_decay, bonus, initial_state):
 def _(q, k, v, window, scale=0.0):
     B, H, S, D = q.shape
     return q.new_empty((B, S, H, D))
+
+
+@torch.library.register_fake("repro_torch::decode_attention")
+def _(q, k, v, angles, k_ring, v_ring, cache_pos, window, scale, kv0, kv1):
+    B, _, n, hd = q.shape
+    return q.new_empty((B, 1, n * hd))
 
 
 def attention_pairs(S: int, window: int) -> int:
@@ -280,6 +300,13 @@ def _attention_flops(q_shape, k_shape, v_shape, window, *args,
                      out_shape=None, **kwargs) -> int:
     B, H, S, D = q_shape
     return 4 * D * B * H * attention_pairs(S, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _decode_flops(q_shape, k_shape, v_shape, angles_shape, ring_shape,
+                  *args, out_shape=None, **kwargs) -> int:
+    B, _, n, hd = q_shape
+    return 4 * hd * B * n * ring_shape[1]
 
 
 @register_flop_formula(torch.ops.repro_torch.ssm_scan)
@@ -335,11 +362,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return forward(q, k, v)
 
 
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     angles: torch.Tensor, ring, cache_pos: torch.Tensor, *,
+                     window: int = 0, scale: Optional[float] = None,
+                     kv: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One token's attention against a KV ring ``ring`` = (k, v), each
+    (B, W, heads, hd): q (B, 1, n, hd) and k, v (B, 1, heads, hd) before
+    rotary, ``angles`` (B, 1, hd/2) f32, ``cache_pos`` 0-dim. Rotary on q
+    and k, the token's k and v written into slot ``cache_pos`` % W in
+    place, the query heads reading the ring's KV heads ``kv`` = [kv0, kv1)
+    (every head by default) in GQA groups over the valid slots (``window``
+    > 0: the sliding window's), scores scaled by ``scale`` (default
+    ``hd**-0.5``). Returns (B, 1, n hd) in q's dtype."""
+    ck, cv = ring
+    kv0, kv1 = kv or (0, ck.shape[2])
+    if _device_type(q) == "cuda":
+        return torch.ops.repro_torch.decode_attention(
+            q, k, v, angles, ck, cv, cache_pos, window,
+            0.0 if scale is None else scale, kv0, kv1)
+    return ref.decode_attention_ref(q, k, v, angles, ring, cache_pos,
+                                    window=window, scale=scale,
+                                    kv=(kv0, kv1))
+
+
 KERNELS = {"power_spectrum": _dft.power_spectrum,
            "autocorr_score": _ac.autocorr_score,
            "dirty_blocks": _dd.max_abs_delta,
            "ssm_scan": _ss.ssm_scan,
-           "flash_attention": _fa.flash_attention}
+           "flash_attention": _fa.flash_attention,
+           "decode_attention": _da.decode_attention}
 
 
 def launch_counts() -> Dict[str, int]:

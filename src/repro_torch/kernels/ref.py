@@ -20,6 +20,11 @@ version, ``chunked_causal_attention`` (the model's layout) and
 ``attention_chunked`` (the kernel's (B, H, S, D) layout around it, the op's
 CPU path), and ``attention_ref``, the naive softmax over the whole masked
 score matrix, for tests and ``chip_smoke.py`` only.
+
+Decode attention (``csrc/decode_attention.cu``) has one,
+``decode_attention_ref``: the model's decode composition as it was before
+the kernel, ``apply_rope`` on q and k, the ring write, then the two
+einsums over the whole masked ring (``decode_valid``).
 """
 from __future__ import annotations
 
@@ -35,6 +40,15 @@ ATTN_CHUNK = 512          # the plain attention's kv chunk
 _TABLE_CACHE_MAX = 2
 _TABLE_CACHE: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = \
     OrderedDict()
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); angles: (B, S, D/2). Rotate-half convention."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 def dft_tables(n: int, device: torch.device
@@ -227,3 +241,45 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k.transpose(1, 2), v.transpose(1, 2), window, chunk=chunk,
         scale=scale)
     return out.reshape(B, S, H, D).transpose(1, 2)
+
+
+def decode_valid(window: int, W: int, cache_pos, slot, idx):
+    """Which ring slots ``idx`` (of a ring of ``W``) hold tokens the new
+    one at ``cache_pos`` (ring slot ``slot``) attends to: with a sliding
+    ``window`` > 0 those inside it, else every slot written so far."""
+    if window > 0:
+        abs_pos = torch.where(idx <= slot, cache_pos - slot + idx,
+                              cache_pos - slot + idx - W)
+        return (abs_pos >= 0) & (abs_pos > cache_pos - window)
+    return idx < cache_pos + 1
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         angles: torch.Tensor, ring, cache_pos, *,
+                         window: int = 0, scale: Optional[float] = None,
+                         kv: Optional[Tuple[int, int]] = None
+                         ) -> torch.Tensor:
+    """One token's decode against a ring that holds every slot of the
+    window: ``q`` (B, 1, n, hd) and ``k``/``v`` (B, 1, heads, hd), the
+    heads the ring holds, before rotary; ``angles`` (B, 1, hd/2). Rotary
+    on q and k, then k/v written into slot ``cache_pos`` % W in place; the
+    query heads read the ring's KV heads ``kv`` = [kv0, kv1) (all of them
+    by default) in GQA groups, the scores scaled by ``scale`` (default
+    ``hd**-0.5``). Returns (B, 1, n hd)."""
+    q, k = apply_rope(q, angles), apply_rope(k, angles)
+    ck, cv = ring
+    B, _, n, hd = q.shape
+    W = ck.shape[1]
+    slot = torch.remainder(cache_pos, W).long()
+    ck.index_copy_(1, slot.view(1), k.to(ck.dtype))
+    cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
+    kv0, kv1 = kv or (0, ck.shape[2])
+    ck, cv = ck[:, :, kv0:kv1], cv[:, :, kv0:kv1]
+    qh = q.reshape(B, 1, kv1 - kv0, n // (kv1 - kv0), hd)
+    logits = (torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float()
+              * (scale or hd ** -0.5))
+    logits = torch.where(decode_valid(window, W, cache_pos, slot,
+                                      torch.arange(W, device=q.device)),
+                         logits, MASK_FILL)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, cv).reshape(B, 1, n * hd)

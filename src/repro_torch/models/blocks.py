@@ -10,8 +10,13 @@ before P.V, the online-softmax accumulator in the activation dtype, -1e30
 as the mask fill). Attention prefill goes through ``ops.flash_attention``:
 on the card kernel B5 (``kernels/csrc/flash_attention.cu``), on the CPU
 ``kernels/ref.chunked_causal_attention``, the JAX package's XLA-path
-equivalent of its Pallas kernel. Decode attention and the projections are plain
-torch, as the JAX package computes them outside any Pallas kernel.
+equivalent of its Pallas kernel. Decode attention against a whole ring
+goes through ``ops.decode_attention`` from the projections' outputs
+(rotary, the ring write and the attention over the ring in place): on the
+card ``kernels/csrc/decode_attention.cu``, on the CPU
+``kernels/ref.decode_attention_ref``, the composition the JAX package
+computes outside any Pallas kernel. The projections, and the decode
+against a ring cut along its window (``_decode_window``), are plain torch.
 
 zamba2's shared block (``shared_block``: attention over concat(h, token
 embeddings), a gated MLP with a per-call LoRA, the call's linear) is here
@@ -55,7 +60,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import MASK_FILL
+from repro_torch.kernels.ref import MASK_FILL, apply_rope, decode_valid
 from repro_torch.runtime import spans
 
 Params = Dict[str, Any]
@@ -128,15 +133,6 @@ def rope_angles(cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
     return pos[..., None] * inv_freq                         # (B, S, half)
 
 
-def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, D); angles: (B, S, D/2). Rotate-half convention."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
@@ -183,7 +179,7 @@ def multihead_attention(
         return _attention_tp(params, cfg, x, angles, kv_cache, cache_pos,
                              ctx)
     B, S, _ = x.shape
-    q, k, v = _qkv(params, cfg, x, angles)
+    q, k, v = _qkv(params, cfg, x, angles, rotate=kv_cache is None)
     if kv_cache is None:
         # ---- prefill: causal (+SWA) attention, B5 on the card ---------------
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -194,14 +190,15 @@ def multihead_attention(
         return (out.transpose(1, 2).reshape(B, S, -1) @ params["wo"],
                 (k, v))
     # ---- decode: write one token into the (ring) cache, in place -----------
-    out = _decode_whole(cfg, q, k, v, kv_cache, cache_pos)
+    out = _decode_whole(cfg, q, k, v, angles, kv_cache, cache_pos)
     return out @ params["wo"], kv_cache
 
 
 def _qkv(params: Params, cfg: ArchConfig, x: torch.Tensor,
-         angles: torch.Tensor):
+         angles: torch.Tensor, *, rotate: bool = True):
     """Every head's q, k, v (B, S, heads, hd) from whole weights: the
-    projections, ``qk_norm``, rotary on q and k."""
+    projections, ``qk_norm``, and unless ``rotate`` is False (a whole-ring
+    decode, whose op takes them before rotary) rotary on q and k."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
@@ -210,32 +207,23 @@ def _qkv(params: Params, cfg: ArchConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    if not rotate:
+        return q, k, v
     return apply_rope(q, angles), apply_rope(k, angles), v
 
 
 def _decode_whole(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, ring, cache_pos, kv=None) -> torch.Tensor:
+                  v: torch.Tensor, angles: torch.Tensor, ring, cache_pos,
+                  kv=None) -> torch.Tensor:
     """One token's decode against a ring that holds every slot of the
-    window: ``k``/``v`` (B, 1, heads, hd), the heads the ring holds, written
-    into slot ``cache_pos`` % W in place; the query heads ``q`` (B, 1, n,
-    hd) read the ring's KV heads ``kv`` = [kv0, kv1) (all of them by
+    window, by ``ops.decode_attention``: ``q`` (B, 1, n, hd) and ``k``/``v``
+    (B, 1, heads, hd), the heads the ring holds, before rotary; rotary on
+    q and k, k/v written into slot ``cache_pos`` % W in place; the query
+    heads read the ring's KV heads ``kv`` = [kv0, kv1) (all of them by
     default) in GQA groups. Returns (B, 1, n hd)."""
-    ck, cv = ring
-    B, _, n, hd = q.shape
-    W = ck.shape[1]
-    slot = torch.remainder(cache_pos, W).long()
-    ck.index_copy_(1, slot.view(1), k.to(ck.dtype))
-    cv.index_copy_(1, slot.view(1), v.to(cv.dtype))
-    kv0, kv1 = kv or (0, ck.shape[2])
-    ck, cv = ck[:, :, kv0:kv1], cv[:, :, kv0:kv1]
-    qh = q.reshape(B, 1, kv1 - kv0, n // (kv1 - kv0), hd)
-    logits = (torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float()
-              * (cfg.attn_scale or hd ** -0.5))
-    logits = torch.where(_decode_valid(cfg, W, cache_pos, slot,
-                                       torch.arange(W, device=q.device)),
-                         logits, MASK_FILL)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", probs, cv).reshape(B, 1, n * hd)
+    return ops.decode_attention(q, k, v, angles, ring, cache_pos,
+                                window=cfg.sliding_window,
+                                scale=cfg.attn_scale or None, kv=kv)
 
 
 def _decode_window(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
@@ -265,8 +253,8 @@ def _decode_window(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     qh = q.reshape(B, 1, Hkv, H // Hkv, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qh, ck).float() * hd ** -0.5
     idx = r * Wl + torch.arange(Wl, device=q.device)
-    logits = torch.where(_decode_valid(cfg, W, cache_pos, slot, idx),
-                         logits, MASK_FILL)
+    logits = torch.where(decode_valid(cfg.sliding_window, W, cache_pos, slot,
+                                      idx), logits, MASK_FILL)
     # log-sum-exp merge over the window's blocks: the max over every block
     # first, then each block's exp-sums and P.V summed over ``model``
     top = dist.all_reduce_max(logits.amax(dim=-1, keepdim=True), mesh, ax)
@@ -276,16 +264,6 @@ def _decode_window(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
         torch.einsum("bhgqk,bkhd->bqhgd", p, cv.float()), mesh, ax)
     out = (pv / denom.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
     return out.reshape(B, 1, H * hd)
-
-
-def _decode_valid(cfg: ArchConfig, W: int, cache_pos, slot, idx):
-    """Which ring slots ``idx`` (of a ring of ``W``) hold tokens the new
-    one attends to, as the local decode decides."""
-    if cfg.sliding_window > 0:
-        abs_pos = torch.where(idx <= slot, cache_pos - slot + idx,
-                              cache_pos - slot + idx - W)
-        return (abs_pos >= 0) & (abs_pos > cache_pos - cfg.sliding_window)
-    return idx < cache_pos + 1
 
 
 def head_split(cfg: ArchConfig, tp: int) -> str:
@@ -402,11 +380,12 @@ def _attention_tp(params: Params, cfg: ArchConfig, x: torch.Tensor,
     by_window = where == "window"
     if by_window:                          # every query head, see below
         wq = dist.all_gather(wq, mesh, ax, dim=1)
-    q = apply_rope(project(wq, H if by_window else Hq,
-                           cfg.qk_norm and "q_norm"), angles)
+    q = project(wq, H if by_window else Hq, cfg.qk_norm and "q_norm")
     n_kv = wk.shape[1] // hd
-    k = apply_rope(project(wk, n_kv, cfg.qk_norm and "k_norm"), angles)
+    k = project(wk, n_kv, cfg.qk_norm and "k_norm")
     v = project(wv, n_kv, None)
+    if kv_cache is None or by_window:      # the whole-ring op rotates
+        q, k = apply_rope(q, angles), apply_rope(k, angles)
     lo = kv0 if own_kv else 0              # the rank's heads within k, v
     if kv_cache is None:
         out = ops.flash_attention(
@@ -419,7 +398,7 @@ def _attention_tp(params: Params, cfg: ArchConfig, x: torch.Tensor,
         out = _decode_window(cfg, q, k, v, kv_cache, cache_pos, ctx)
         out = out[..., r * Hq * hd:(r + 1) * Hq * hd]
     else:                                  # the rank's KV heads, or all
-        out = _decode_whole(cfg, q, k, v, kv_cache, cache_pos,
+        out = _decode_whole(cfg, q, k, v, angles, kv_cache, cache_pos,
                             (kv0 - lo, kv1 - lo))
     return dist.tp_exit(out @ wo, ctx), kv_cache
 

@@ -117,4 +117,5 @@ def test_cpu_run_launches_no_kernel():
     assert sim.lmcm.engine.jobs[jobs[1].job_id].model.period > 1
     assert ops.launch_counts() == {"power_spectrum": 0, "autocorr_score": 0,
                                    "dirty_blocks": 0, "ssm_scan": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}

@@ -101,7 +101,8 @@ def test_cpu_dispatch_leaves_launch_counters_at_zero():
     ops.ssm_scan(q, q, q, -q.abs())
     assert ops.launch_counts() == {"power_spectrum": 0, "autocorr_score": 0,
                                    "dirty_blocks": 0, "ssm_scan": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
 
 
 def test_dft_table_cache_capped():
