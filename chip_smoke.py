@@ -25,8 +25,9 @@ holds every hand-written kernel against its plain PyTorch version:
                1,031 (its direct route), and against itself (a second
                launch must be bit-equal), with times of kernel, plain
                version and the PyTorch library call (``torch.fft.rfft``
-               for the spectrum) beside the least time the card could
-               take (bytes, or FFT-count flops); the lag scores also at
+               for the spectrum) beside the least time of the call
+               (``_bound``: the benchmark's count of it, from
+               ``portbench/counts/kernels.py``); the lag scores also at
                (64, 16,384, lags 1..8,192), (37, 1,031, lags 2..515), a
                grid whose first tile is consecutive and the rest
                scattered, and one that starts at clamped negatives, each
@@ -70,9 +71,8 @@ holds every hand-written kernel against its plain PyTorch version:
                zamba2's layout in f32, odd widths, a d stride of 2, a
                per-token decay with q/k per head), the edges against
                the step recurrence too, each bit-equal on a second
-               launch; its bound is the least time on this card for the
-               scan's bytes or its flops as 3xTF32 tensor-core
-               products; after phase 5, a full-width, full-depth
+               launch; its bound is the benchmark's count of the call
+               (``_bound``); after phase 5, a full-width, full-depth
                ``zamba2_2p7b`` replica (bf16) prefills 16 x 4,096
                tokens (45 B4 and 9 B5 launches) and
                pre-copies with one decode step per round, each round's
@@ -292,15 +292,19 @@ its trainers and its incremental checkpoints, 9's two counted prefills,
 10's sharded ticks in each rank and its one-rank prefill, 11's, 12's and
 15's mesh steps, prefills, decode steps and 11's rescale in each rank) and
 read after
-it: each kernel of the path must have run in it. The last lines are the
-card (``nvidia-smi``), one JSON object per kernel, and ``{"ok": true,
-"device": ...}``.
+it: each kernel of the path must have run in it. ``_recording`` records
+the shape of each launch that a later hold reads; ``_spawn_ranks`` and
+``_rank_main`` are the frame of every phase that spawns ranks. The last
+lines are the card (``nvidia-smi``), one JSON object per kernel, and
+``{"ok": true, "device": ...}``.
 
 Run from the repository root with one CUDA device: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -311,19 +315,14 @@ import sys
 import time
 import types
 
+from portbench.counts import kernels as bench_kernels
+from portbench.lib.calls import distinct
+
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
 FLEET, WINDOW, CHECK_JOBS = 16384, 512, 1024
 STEADY_TICKS = 8          # one sample per job, then a tick, this many times
 CYCLE_OPS = ("power_spectrum", "autocorr_score")   # the decide loop's kernels
-# H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-# bf16 on the tensor cores (a bf16 product with f32 accumulation is the
-# same work there): the least time of bf16 attention
-PEAK_BF16_TENSOR_FLOPS = 989e12
-# TF32 on the tensor cores; an f32 product that keeps 2e-4 there takes
-# three of them (3xTF32: hi*hi + hi*lo + lo*hi)
-PEAK_TF32_TENSOR_FLOPS, TF32_SPLIT_PRODUCTS = 495e12, 3
 # the caching allocator's setting for the whole run (PYTORCH_CUDA_ALLOC_CONF,
 # unless the caller sets its own), as ``repro_torch.launch.train`` sets it
 ALLOC_CONF = "expandable_segments:True"
@@ -385,33 +384,24 @@ def _queued_ms(fn, n: int = 20, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
-def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def _bound(work) -> tuple:
+    """(least ms, "operations" or "bytes": the term that sets it) of a
+    kernel call whose (operations, bytes) ``bench_kernels`` gave: the
+    benchmark's own count and peaks, which its ``*_roofline`` metrics
+    read."""
+    flops, nbytes = work
+    by = ("operations" if bench_kernels.seconds(flops, 0.0)
+          >= bench_kernels.seconds(0.0, nbytes) else "bytes")
+    return 1e3 * bench_kernels.seconds(flops, nbytes), by
 
 
-def _rfft_flops(m: int) -> float:
-    """Flops of one real FFT of length m: the usual 2.5 m log2 m count."""
-    return 2.5 * m * math.log2(max(m, 2))
-
-
-def _spectrum_flops(B: int, N: int) -> float:
-    """The least work of the power spectrum: per row a mean removal
-    (2N), one real FFT and |.|^2 of the N//2+1 bins (3 each)."""
-    return B * (2.0 * N + _rfft_flops(N) + 3.0 * (N // 2 + 1))
-
-
-def _autocorr_flops(J: int, N: int, lags) -> float:
-    """The least work of the lag scores: per row the cheaper of the direct
-    products (2 per term, sum over lags of N - lag) and Wiener-Khinchin
-    (real FFT of the row zero-padded to N + the largest lag, |.|^2,
-    inverse real FFT)."""
-    lag = lags.clamp(0, N)
-    direct = 2.0 * float((N - lag).sum())
-    m = N + int(lag.max())
-    wk = 2.0 * _rfft_flops(m) + 3.0 * (m // 2 + 1)
-    return J * min(direct, wk)
+def _scan_bound(leaves, block: int) -> float:
+    """Least ms of one pre-copy scan of a state's ``leaves``: B3's count
+    (``bench_kernels.dirty_scan``, which its bytes set) over every leaf.
+    The integer leaves count too, as in ``v_mem``: the scan reads both
+    copies of them for its exact ``!=``."""
+    return _bound(bench_kernels.dirty_scan(
+        [(t.numel(), t.element_size()) for t in leaves], block))[0]
 
 
 def _fleet_lags(torch, N: int):
@@ -446,8 +436,7 @@ def phase_kernels(torch, ops_mod, ref, dft, autocorr):
         plain = _median_ms(lambda: ref.power_spectrum_ref(x, center=True), 5)
         lib = _median_ms(lambda: torch.fft.rfft(
             x - x.mean(dim=1, keepdim=True)).abs().square())
-        F = N // 2 + 1
-        bound, by = _bound_ms(_spectrum_flops(B, N), 4.0 * (B * N + B * F))
+        bound, by = _bound(bench_kernels.spectrum(B, N))
         print(f"[kernels] dft_power B={B} N={N} route {dft.route(N)} "
               f"{dft.fft_plan(N) or ''}: max_abs_err "
               f"{float(err.max()):.6g} (atol {atol:.3g}) kernel {ms:.4f} ms "
@@ -549,8 +538,7 @@ def _autocorr_case(torch, ref, autocorr, g, J, N, lags, *,
     idx = lags.clamp(0, N).long()
     wk = _median_ms(lambda: torch.fft.irfft(
         torch.fft.rfft(x, m).abs().square(), m)[:, idx])
-    bound, by = _bound_ms(_autocorr_flops(J, N, lags),
-                          4.0 * (J * N + L + J * L))
+    bound, by = _bound(bench_kernels.autocorr(J, N, lags.tolist()))
     print(f"[kernels] autocorr J={J} N={N} L={L}: max_abs_err "
           f"{float(err.max()):.6g} kernel {ms:.4f} ms plain {plain:.4f} ms "
           f"bound {bound:.6g} ms ({by}); Wiener-Khinchin in f32 (rfft, "
@@ -673,26 +661,16 @@ def phase_tick(torch, np, ops_mod):
     the ticks' decisions (``_tick_state``: cold, steady, full refit)."""
     vals = _tick_values(np)
     fleet, eng = _tick_engine(np, vals, "cuda", FLEET)
-    # record what B2 receives: the cycle fit calls ops.autocorr_score
-    # through the module; the launch counter stays on the kernel's wrapper
-    scores, b2_calls = ops_mod.autocorr_score, []
-
-    def recording(x, lags, **kw):
-        b2_calls.append((*x.shape, lags))
-        return scores(x, lags, **kw)
-
-    states = {}
-    ops_mod.autocorr_score = recording
-    try:
+    states, seen = {}, collections.defaultdict(list)
+    with _recording(ops_mod, seen):
         ops_mod.reset_launch_counts()
         remain_cold, remain_steady, t_cold, t_steady, refits = _tick_run(
             torch, np, vals, fleet, eng, FLEET, states)
         launches = ops_mod.launch_counts()
         t_full, profile = _full_refit_profile(torch, eng, states)
-    finally:
-        ops_mod.autocorr_score = scores
+    b2_calls = seen["autocorr"]
     print("[tick] B2 received (J, N, L, lags): " + ", ".join(
-        f"({J}, {N}, {lags.numel()}, {int(lags[0])}..{int(lags[-1])})"
+        f"({J}, {N}, {len(lags)}, {lags[0]}..{lags[-1]})"
         for J, N, lags in b2_calls))
     print(f"[tick] {FLEET} jobs x window {WINDOW}: cold {t_cold:.4f} s, "
           f"steady {t_steady:.4f} s per tick (mean of {STEADY_TICKS}), "
@@ -799,55 +777,92 @@ def _fleet_run(policy, device, **kw):
 
 
 @contextlib.contextmanager
-def _capturing(ops_mod, seen, names=("power_spectrum", "autocorr_score")):
-    """Record the shape of every B1 call, (B, N), and every B2 call,
-    (J, N, lags), made through ``ops`` while the block runs, into
-    ``seen["dft_power"]`` and ``seen["autocorr"]``. ``names`` are the two
-    functions of ``ops`` to wrap: the public ones (the cycle fit's calls)
-    or ``("_power", "_scores")``, which see each launch, a rank's row
-    block under ``mesh=``. The lag grids are read on the host after the
-    block. The launch counters stay on the kernels' wrappers."""
-    spectrum, scores = (getattr(ops_mod, n) for n in names)
+def _recording(ops_mod, seen, launches=None):
+    """Record each launch of B1, B2, B4 and B5 made while the block runs,
+    appending its shape to the list ``seen[kernel]`` (``seen`` a
+    ``defaultdict(list)``):
+
+      dft_power        (B, N), the rows the launch gets: a rank's row
+                       block under ``mesh=``
+      autocorr         (J, N, the lags as a tuple, read on the host after
+                       the block)
+      ssm_scan         (B, H, S, Dk, Dv, dtype, kind, initial state
+                       given), ``kind`` "mamba" where every head shares q
+                       and k (stride 0 over H), else "rwkv" with a bonus
+                       or "plain"
+      flash_attention  (B, H, Hkv, S, D, dtype, window)
+
+    The wrappers go on names of ``ops`` that hold no launch counter
+    (``_power`` and ``_scores``, which every launch of B1 and B2 passes,
+    and the entries ``ssm_scan`` and ``flash_attention``, which the models
+    call through the module), so the kernels count their launches as
+    ever. With ``launches`` (a dict) the counters are set to 0 at the
+    start and their counts added to it at the end."""
     grids = []
 
-    def spectrum_rec(x, *args, **kw):
-        seen["dft_power"].add(tuple(x.shape))
-        return spectrum(x, *args, **kw)
+    def power(x, *a, **kw):
+        seen["dft_power"].append(tuple(x.shape))
+        return saved["_power"](x, *a, **kw)
 
-    def scores_rec(x, lags, *args, **kw):
+    def scores(x, lags, *a, **kw):
         grids.append((*x.shape, lags))
-        return scores(x, lags, *args, **kw)
+        return saved["_scores"](x, lags, *a, **kw)
 
-    setattr(ops_mod, names[0], spectrum_rec)
-    setattr(ops_mod, names[1], scores_rec)
+    def scan(q, k, v, log_decay, *, bonus=None, initial_state=None):
+        kind = ("mamba" if q.stride(1) == 0 and k.stride(1) == 0
+                else "rwkv" if bonus is not None else "plain")
+        seen["ssm_scan"].append((*q.shape, v.shape[-1], str(q.dtype), kind,
+                                 initial_state is not None))
+        return saved["ssm_scan"](q, k, v, log_decay, bonus=bonus,
+                                 initial_state=initial_state)
+
+    def attention(q, k, v, *, window=0, **kw):
+        seen["flash_attention"].append((*q.shape[:2], k.shape[1],
+                                        *q.shape[2:], str(q.dtype),
+                                        int(window)))
+        return saved["flash_attention"](q, k, v, window=window, **kw)
+
+    wrappers = {"_power": power, "_scores": scores, "ssm_scan": scan,
+                "flash_attention": attention}
+    saved = {name: getattr(ops_mod, name) for name in wrappers}
+    if launches is not None:
+        ops_mod.reset_launch_counts()
+    for name, fn in wrappers.items():
+        setattr(ops_mod, name, fn)
     try:
         yield
+        if launches is not None:
+            for op, n in ops_mod.launch_counts().items():
+                launches[op] = launches.get(op, 0) + n
     finally:
-        setattr(ops_mod, names[0], spectrum)
-        setattr(ops_mod, names[1], scores)
+        for name, fn in saved.items():
+            setattr(ops_mod, name, fn)
         for J, N, lags in grids:
-            seen["autocorr"].add((J, N, tuple(lags.tolist())))
+            seen["autocorr"].append((J, N, tuple(lags.tolist())))
 
 
 def _hold_captured(torch, seen, tag: str = "fleet"):
     """Phase 2's B1 and B2 checks, at phase 2's tolerances, on seeded
-    inputs at each distinct shape in ``seen`` (from ``_capturing``)."""
+    inputs at each distinct shape in ``seen`` (as ``_recording`` records
+    them)."""
     from repro_torch.kernels import autocorr, dft, ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    spectra, grids = sorted(set(seen["dft_power"])), \
+        sorted(set(seen["autocorr"]))
     worst, routes = 0.0, {}
-    for B, N in sorted(seen["dft_power"]):
+    for B, N in spectra:
         _, err, _ = _dft_case(torch, ref, dft, g, B, N)
         worst = max(worst, float(err.max()))
         routes[dft.route(N)] = routes.get(dft.route(N), 0) + 1
-    print(f"[{tag}] B1 received {len(seen['dft_power'])} distinct (B, N): "
-          + ", ".join(f"({B}, {N})" for B, N in sorted(seen["dft_power"])))
+    print(f"[{tag}] B1 received {len(spectra)} distinct (B, N): "
+          + ", ".join(f"({B}, {N})" for B, N in spectra))
     print(f"[{tag}] B1 held at each (phase 2's tolerance, bit-equal "
           f"relaunch): routes {routes}, max_abs_err {worst:.6g}")
-    print(f"[{tag}] B2 received {len(seen['autocorr'])} distinct "
+    print(f"[{tag}] B2 received {len(grids)} distinct "
           "(J, N, L, lags): " + ", ".join(
               f"({J}, {N}, {len(lags)}, {lags[0]}..{lags[-1]})"
-              for J, N, lags in sorted(seen["autocorr"])))
-    for J, N, lags in sorted(seen["autocorr"]):
+              for J, N, lags in grids))
+    for J, N, lags in grids:
         _autocorr_case(torch, ref, autocorr, g, J, N,
                        torch.tensor(lags, dtype=torch.int32))
 
@@ -860,11 +875,11 @@ def phase_fleet(torch, ops_mod):
     from repro_torch.core import fleetsim as fs
     from repro_torch.core.orchestrator import MigrationRequest
 
-    seen = {"dft_power": set(), "autocorr": set()}
+    seen = collections.defaultdict(list)
     ops_mod.reset_launch_counts()
     t0 = time.perf_counter()
     trace = fs.WorkloadTrace([("MEM", 30), ("CPU", 60), ("IDLE", 30)], 3600)
-    with _capturing(ops_mod, seen):
+    with _recording(ops_mod, seen):
         sim = fs.FleetSim([fs.SimJob("job0", trace, v_bytes=1e9)],
                           policy="alma-paper", warmup_s=600.0, device="cuda")
         model = sim.lmcm.refresh_job("job0")
@@ -879,7 +894,7 @@ def phase_fleet(torch, ops_mod):
     results = {}
     for policy in ("alma-paper", "immediate"):
         t1 = time.perf_counter()
-        with _capturing(ops_mod, seen):
+        with _recording(ops_mod, seen):
             res = _fleet_run(policy, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
@@ -948,7 +963,7 @@ def phase_controller(torch, ops_mod, seen):
     mid-drain; aborts, retries, recovery). Each run's selections,
     ``scheduled_at`` and ``SimResult`` (or report) equal its CPU run's
     (floats within 1e-9), and each launches both cycle-fit kernels. The
-    card runs' B1 and B2 shapes go into ``seen`` (``_capturing``).
+    card runs' B1 and B2 shapes go into ``seen`` (``_recording``).
     Returns the launches of the three runs."""
     from repro_torch.scenarios import suite
     runs = {
@@ -963,7 +978,7 @@ def phase_controller(torch, ops_mod, seen):
     for name, run in runs.items():
         ops_mod.reset_launch_counts()
         t0 = time.perf_counter()
-        with _capturing(ops_mod, seen):
+        with _recording(ops_mod, seen):
             got = run("cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1077,8 +1092,8 @@ def phase_dirty_delta(torch, ref, dirty_delta):
                                  f"{n_nan} NaN")
         ms = _median_ms(lambda: dirty_delta.max_abs_delta(new, old, block))
         plain = _median_ms(lambda: ref.max_abs_delta_ref(new, old, block), 5)
-        bound, by = _bound_ms(2.0 * n, 2.0 * n * new.element_size()
-                              + 4.0 * nb)
+        bound, by = _bound(bench_kernels.dirty_scan(
+            [(n, new.element_size())], block))
         print(f"[serve] dirty_delta {name}: n={n} block={block} "
               f"{nb} blocks ({dirty} dirty, {n_nan} NaN), bit-equal, kernel "
               f"{ms:.4f} ms plain {plain:.4f} ms bound {bound:.6g} ms ({by})")
@@ -1318,9 +1333,7 @@ def phase_serve(torch, ops_mod, ref, dirty_delta):
             ATTN_LAUNCHES[ARCH] * box["produced"]:
         raise AssertionError(f"migration launched {launches} over "
                              f"{box['produced']} decode steps")
-    blocks = sum(-(-t.numel() // PCFG["block_elems"])
-                 for t in tree.leaves(live))
-    scan_bound, _ = _bound_ms(0.0, 2.0 * rep.v_mem + 4.0 * blocks)
+    scan_bound = _scan_bound(tree.leaves(live), PCFG["block_elems"])
     print(f"[serve] state {rep.v_mem / 1e9:.4f} GB (KV cache "
           f"{(rep.v_mem - v_params) / 1e9:.4f} GB); migrate {out.rounds} "
           f"rounds, stop {out.stop_reason}, bytes sent / v_mem "
@@ -1473,32 +1486,17 @@ def _z7_scan_shape():
             s.head_dim)
 
 
-def _distinct_bytes(t) -> int:
-    """Bytes a function must read of ``t``: its distinct elements (a
-    stride-0 dimension holds one), each once."""
-    n = 1
-    for size, stride in zip(t.shape, t.stride()):
-        if stride != 0:
-            n *= size
-    return n * t.element_size()
-
-
-def _scan_flops(B: int, H: int, S: int, Dk: int, Dv: int, *,
-                qk_shared: bool = False) -> float:
-    """The scan's least work: the chunked form's flops at the chunk size Q
-    that needs fewest (B4 itself runs Q = 32). Per (b, h): the state's
-    readout and update (2 S Dk Dv each) and its decay once per chunk
-    (Dk Dv); per chunk, for each causal pair, the score (2 Dk, once per b
-    when every head shares q and k, then 1 for the head's decay) and its
-    product with v (2 Dv). Exponentials and scalings are not counted."""
-    def work(Q: int) -> float:
-        n, r = divmod(S, Q)
-        pairs = n * Q * (Q + 1) // 2 + r * (r + 1) // 2
-        chunks = n + (r > 0)
-        per_pair = 2.0 * Dk / H + 1.0 if qk_shared else 2.0 * Dk
-        return B * H * (pairs * (per_pair + 2.0 * Dv) + chunks * Dk * Dv
-                        + 4.0 * S * Dk * Dv)
-    return min(work(Q) for Q in range(1, min(S, 256) + 1))
+def _scan_work(ins, u, s0):
+    """B4's (operations, bytes) on one launch's inputs (``_scan_case``'s
+    ((q, k, v, log decay), bonus, initial state)), as the benchmark counts
+    them (``bench_kernels.ssm_scan``: each input's distinct elements read
+    once)."""
+    q, k, v, lw = ins
+    B, H, S, Dk = q.shape
+    return bench_kernels.ssm_scan(
+        B, H, S, Dk, v.shape[-1],
+        [(distinct(t), t.element_size())
+         for t in (q, k, v, lw, u, s0) if t is not None])
 
 
 def _scan_case(torch, g, kind, B, H, S, Dk, Dv, *, dtype=None, ssd=True,
@@ -1627,20 +1625,11 @@ def phase_ssm_kernel(torch, ref, gla, ssm_scan):
                 *ins, u, s0))
             plain = _median_ms(lambda: gla.gla_chunked(
                 *ins, bonus=u, initial_state=s0), 5)
-            nbytes = (sum(_distinct_bytes(t) for t in ins)
-                      + 4.0 * B * H * (S * Dv + Dk * Dv)
-                      + (0 if u is None else _distinct_bytes(u)))
-            shared = ins[0].stride(1) == 0 and ins[1].stride(1) == 0
-            flops = _scan_flops(B, H, S, Dk, Dv, qk_shared=shared)
-            # the least time on this card, whatever runs the scan: its
-            # bytes, or its flops as 3xTF32 products on the tensor cores
-            bound, by = _bound_ms(TF32_SPLIT_PRODUCTS * flops, nbytes,
-                                  PEAK_TF32_TENSOR_FLOPS)
-            f32_bound, f32_by = _bound_ms(flops, nbytes)
+            work = _scan_work(ins, u, s0)
+            bound, by = _bound(work)
             line += (f"; kernel {ms:.4f} ms (through the custom op "
                      f"{op_ms:.4f} ms) plain {plain:.4f} ms bound "
-                     f"{bound:.6g} ms ({by}, {nbytes / 1e9:.4f} GB; at the "
-                     f"f32 CUDA-core peak {f32_bound:.6g} ms, {f32_by})")
+                     f"{bound:.6g} ms ({by}, {work[1] / 1e9:.4f} GB)")
             timed[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=bound, bound_by=by, library_ms=None)
             if record is None:
@@ -1957,8 +1946,7 @@ def phase_ssm_serve(torch, ops_mod, ref):
     n_float = sum(t.is_floating_point() for t in leaves)
     if launches["dirty_blocks"] != _scan_launches(n_float) * len(scan_ms):
         raise AssertionError(f"zamba2 migration launched {launches}")
-    blocks = sum(-(-t.numel() // block) for t in leaves)
-    scan_bound, _ = _bound_ms(0.0, 2.0 * rep.v_mem + 4.0 * blocks)
+    scan_bound = _scan_bound(leaves, block)
     wall = rep.wall_time - box["check_s"]
     print(f"[ssm] state {rep.v_mem / 1e9:.4f} GB (cache "
           f"{(rep.v_mem - v_params) / 1e9:.4f} GB: SSD {ssd.numel() * 4 / 1e9:.4f}"
@@ -2167,24 +2155,14 @@ WINDOW_RATIO_LIMIT = 0.6  # windowed over causal time at S = 16,384
 ATTN_LAUNCHES = {ARCH: 24, SSM_ARCH: 9, DENSE_ARCH: 36}
 
 
-def _attention_pairs(S: int, window: int) -> int:
-    """Causal (query, key) pairs, trimmed to the window when one is set."""
-    if window <= 0 or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
-
-
-def _attention_bound(q, k, window: int):
-    """(ms, by) of the least work of attention on these inputs: 4 D flops
-    per causal, window-trimmed pair and head (exponentials not counted), at
-    the bf16 tensor-core peak for bf16 inputs; q, k, v read and the output
-    written once."""
+def _attn_work(q, k, window: int):
+    """B5's (operations, bytes) on one launch's q (B, H, S, D) and k (B,
+    Hkv, S, D), as the benchmark counts them (``bench_kernels.attention``:
+    4 D a causal, window-trimmed pair and head; q, k, v read and the
+    output written once)."""
     B, H, S, D = q.shape
-    flops = 4.0 * B * H * _attention_pairs(S, window) * D
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    peak = PEAK_BF16_TENSOR_FLOPS if q.element_size() == 2 else \
-        PEAK_F32_FLOPS
-    return _bound_ms(flops, nbytes, peak)
+    return bench_kernels.attention(B, H, k.shape[1], S, D,
+                                   in_bytes=q.element_size(), window=window)
 
 
 def _attn_inputs(torch, g, B, H, Hkv, S, D, dtype, layout="heads"):
@@ -2366,11 +2344,12 @@ def phase_attention_kernel(torch, ref, fa):
         ms_win = _median_ms(lambda: fa.flash_attention(q, k, v, window), 5)
         ms_causal = _median_ms(lambda: fa.flash_attention(q, k, v, 0), 5)
         ratio = ms_win / ms_causal
+        pairs = bench_kernels.causal_pairs(S, window) / \
+            bench_kernels.causal_pairs(S)
         print(f"[attn] flash_attention (1, 32, 8, {S}, 120) "
               f"{str(dtype)[6:]} window {window}: max_abs_err {err:.6g} "
               f"{what}; {ms_win:.4f} ms against {ms_causal:.4f} ms causal, "
-              f"ratio {ratio:.4f} (pairs predict "
-              f"{_attention_pairs(S, window) / _attention_pairs(S, 0):.4f})")
+              f"ratio {ratio:.4f} (pairs predict {pairs:.4f})")
         if ratio > WINDOW_RATIO_LIMIT:
             raise AssertionError(f"windowed over causal time {ratio:.4f} > "
                                  f"{WINDOW_RATIO_LIMIT} in {dtype}: B5 does "
@@ -2412,8 +2391,8 @@ def phase_attention_kernel(torch, ref, fa):
             scale=scale or None), 5)
         lib = _median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True, scale=scale or None))
-        bound, by = _attention_bound(q, k, window)
-        flops = 4.0 * B * H * _attention_pairs(S, window) * D
+        flops, nbytes = _attn_work(q, k, window)
+        bound, by = _bound((flops, nbytes))
         print(f"[attn] flash_attention {name} prefill "
               f"{(B, H, Hkv, S, D)} bf16 window {window} scale "
               f"{scale or D ** -0.5:.6g}: max_abs_err {err:.6g} against "
@@ -2457,9 +2436,11 @@ DECODE_WALK = 6.0
 def _decode_bound_ms(B, W, Hr, n, hd, nbytes=2):
     """Least time of one decode attention at a full ring: the ring's K and
     V read once, q, k, v and the output once (bytes; the products are
-    4 hd flops a (query head, slot), ~g flops a byte)."""
+    4 hd flops a (query head, slot), ~g flops a byte), at the benchmark's
+    HBM peak. Counted here until ``portbench/counts/kernels.py`` counts
+    decode attention (PERF.md §7)."""
     moved = nbytes * (2 * B * W * Hr * hd + 2 * B * n * hd + 2 * B * Hr * hd)
-    return 1e3 * moved / PEAK_BYTES
+    return 1e3 * bench_kernels.seconds(0.0, moved)
 
 
 def _bf16_ulp(torch, x):
@@ -3021,9 +3002,7 @@ def phase_train(torch, ops_mod, ref):
         raise AssertionError(f"train-state pre-copy: {n_steps} steps in "
                              f"{out.rounds} rounds, launches {mig_launches} "
                              f"(want {want_b3} dirty_blocks)")
-    blocks = sum(-(-t.numel() // TRAIN_PCFG["block_elems"])
-                 for t in tree.leaves(src))
-    scan_bound, _ = _bound_ms(0.0, 2.0 * rep.precopy.v_mem + 4.0 * blocks)
+    scan_bound = _scan_bound(tree.leaves(src), TRAIN_PCFG["block_elems"])
     del src
     torch.cuda.empty_cache()
     print(f"[train] pre-copy of the training state ({rep.precopy.v_mem / 1e9:.4f}"
@@ -3675,20 +3654,11 @@ def _blocks_bit_equal(torch, dft, autocorr):
     return plans
 
 
-def _dist_tick(torch, np, ops_mod, workdir):
+def _dist_ticks(torch, np, ops_mod, workdir):
     """This rank's sharded ticks (``shards=DIST_RANKS``), overlap off and
     on: the cold, steady and full-refit decisions against phase 3's
     (``tick_states.npz``), bit for bit, with B1 and B2 launched in each
-    run. Returns (times and launches, the shapes of the row blocks this
-    rank launched B1 and B2 on, as ``_capturing`` records them)."""
-    seen = {"dft_power": set(), "autocorr": set()}
-    with _capturing(ops_mod, seen, ("_power", "_scores")):
-        out = _dist_ticks(torch, np, ops_mod, workdir)
-    return out, {"dft_power": sorted(seen["dft_power"]),
-                 "autocorr": sorted(seen["autocorr"])}
-
-
-def _dist_ticks(torch, np, ops_mod, workdir):
+    run. Returns the times and launches of each."""
     ref = np.load(workdir / "tick_states.npz")
     vals = _tick_values(np)
     # warm-up: a small sharded tick takes this process's first use of
@@ -3926,15 +3896,14 @@ def _dist_moe(torch):
     return out
 
 
-def _dist_rank(rank: int, world: int, workdir: str):
-    """One rank of phase 10(b), a spawned process on the card shared with
-    the others, in an explicitly named gloo group (NCCL refuses two ranks
-    on one card) whose FileStore lies in ``workdir``: the sharded ticks
-    (``_dist_tick``), then the expert-parallel MoE layer (``_dist_moe``).
-    Writes ``rank<r>.json``; any failure raises, and the process exits
-    non-zero."""
+def _rank_main(rank: int, world: int, workdir: str, body):
+    """One rank of phases 10(b), 11, 12 and 15, a spawned process on the
+    card shared with the others: the port on ``sys.path``, TF32 off, and a
+    gloo group (NCCL refuses two ranks on one card) whose FileStore lies in
+    ``workdir``; then ``body(torch, ops, rank, workdir as a path)``, a
+    barrier, and its record written to ``rank<r>.json``. Any failure
+    raises, and the process exits non-zero."""
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
     import torch
     import torch.distributed as tdist
     from repro_torch.kernels import ops
@@ -3946,49 +3915,76 @@ def _dist_rank(rank: int, world: int, workdir: str):
     tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
                              rank=rank, world_size=world)
     try:
-        tick, blocks = _dist_tick(torch, np, ops, work)
-        out = {"tick": tick, "blocks": blocks, "moe": _dist_moe(torch)}
+        out = body(torch, ops, rank, work)
         tdist.barrier()
     finally:
         tdist.destroy_process_group()
     (work / f"rank{rank}.json").write_text(json.dumps(out))
 
 
+def _spawn_ranks(torch, ops_mod, body, world: int, write):
+    """``world`` ranks of ``body`` spawned on the card (``_rank_main``),
+    once the parent's garbage and cached blocks are freed, in a temporary
+    directory where ``write(directory)`` first puts their inputs; joined,
+    a failed rank failing the run. Returns (each rank's record, their
+    ``launches`` summed, the wall seconds of the ranks, spawn
+    included)."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        work = pathlib.Path(tmp)
+        write(work)
+        t0 = time.perf_counter()
+        mp.start_processes(_rank_main, args=(world, tmp, body),
+                           nprocs=world, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    launches = {op: 0 for op in ops_mod.launch_counts()}
+    for rec in ranks:
+        for op, n in rec["launches"].items():
+            launches[op] += n
+    return ranks, launches, wall
+
+
+def _dist_body(torch, ops, rank, work):
+    """Phase 10(b)'s rank: the sharded ticks (``_dist_ticks``), recording
+    the row blocks it launches B1 and B2 on, then the expert-parallel MoE
+    layer (``_dist_moe``); its launches are the ticks'."""
+    import numpy as np
+    seen = collections.defaultdict(list)
+    with _recording(ops, seen):
+        tick = _dist_ticks(torch, np, ops, work)
+    blocks = {k: sorted(set(seen[k])) for k in ("dft_power", "autocorr")}
+    return {"tick": tick, "blocks": blocks, "moe": _dist_moe(torch),
+            "launches": {op: sum(t["launches"][op] for t in tick.values())
+                         for op in CYCLE_OPS}}
+
+
 def phase_dist_ranks(torch, np, ops_mod, dft, autocorr, tick_states,
                      tick_times):
     """Phase 10(b): B1 and B2 bit-equal on row blocks (``_blocks_bit_equal``),
-    then DIST_RANKS ranks spawned on the one card (``_dist_rank``), each
+    then DIST_RANKS ranks spawned on the one card (``_dist_body``), each
     running the sharded tick against phase 3's decisions and its share of
     the expert-parallel MoE layer. The parent joins every rank (a failed
     rank fails the run), then holds B1 and B2 to their plain versions at
     every row-block shape the ranks launched them on (``_hold_captured``,
     phase 2's checks). Returns (the ranks' launches together, numbers to
     keep)."""
-    import tempfile
-    import torch.multiprocessing as mp
-
     plans = _blocks_bit_equal(torch, dft, autocorr)
-    gc.collect()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
-        work = pathlib.Path(tmp)
-        np.savez(work / "tick_states.npz", steady_remain=tick_states[
-            "steady_remain"], **{f"{t}/{k}": tick_states[t][k]
-                                 for t in ("cold", "steady", "full")
-                                 for k in TICK_KEYS})
-        t0 = time.perf_counter()
-        mp.start_processes(_dist_rank, args=(DIST_RANKS, tmp),
-                           nprocs=DIST_RANKS, join=True,
-                           start_method="spawn")
-        wall = time.perf_counter() - t0
-        ranks = [json.loads((work / f"rank{r}.json").read_text())
-                 for r in range(DIST_RANKS)]
-    launches = {op: 0 for op in ops_mod.launch_counts()}
+    ranks, launches, wall = _spawn_ranks(
+        torch, ops_mod, _dist_body, DIST_RANKS,
+        lambda work: np.savez(
+            work / "tick_states.npz",
+            steady_remain=tick_states["steady_remain"],
+            **{f"{t}/{k}": tick_states[t][k]
+               for t in ("cold", "steady", "full") for k in TICK_KEYS}))
     for r, rec in enumerate(ranks):
         for o in (0, 1):
             t = rec["tick"][f"overlap_{o}"]
-            for op, n in t["launches"].items():
-                launches[op] += n
             print(f"[dist] rank {r} tick shards={DIST_RANKS} overlap {o}: "
                   f"cold {t['tick_cold_s']:.4f} s, steady "
                   f"{t['tick_steady_s']:.4f} s, full refit "
@@ -4023,10 +4019,10 @@ def phase_dist_ranks(torch, np, ops_mod, dft, autocorr, tick_states,
         raise AssertionError("expert-parallel MoE layer in f32 at the "
                              "config's capacity: no rank dropped a pair, "
                              "the drop check held nothing")
-    seen = {"dft_power": {tuple(b) for rec in ranks
-                          for b in rec["blocks"]["dft_power"]},
-            "autocorr": {(J, N, tuple(lags)) for rec in ranks
-                         for J, N, lags in rec["blocks"]["autocorr"]}}
+    seen = {"dft_power": [tuple(b) for rec in ranks
+                          for b in rec["blocks"]["dft_power"]],
+            "autocorr": [(J, N, tuple(lags)) for rec in ranks
+                         for J, N, lags in rec["blocks"]["autocorr"]]}
     print("[dist] the ranks' row blocks, each held to its plain version:")
     _hold_captured(torch, seen, "dist")
     return launches, {"ranks_wall_s": wall, "ranks": ranks,
@@ -4145,28 +4141,6 @@ def _tp_batch(torch, corpus, step: int):
 
 
 @contextlib.contextmanager
-def _capturing_attention(ops_mod, seen):
-    """Record every B5 launch's (B, H, Hkv, S, D, dtype, window) into
-    ``seen`` while the block runs. The kernel's wrapper counts its launches
-    on the module's name, which the recorder holds meanwhile: the count
-    moves with it and back."""
-    kernel = ops_mod._fa.flash_attention
-
-    def rec(q, k, v, window, *args, **kw):
-        seen.add((*q.shape[:2], k.shape[1], *q.shape[2:], str(q.dtype),
-                  int(window)))
-        return kernel(q, k, v, window, *args, **kw)
-
-    rec.launches = kernel.launches
-    ops_mod._fa.flash_attention = rec
-    try:
-        yield
-    finally:
-        ops_mod._fa.flash_attention = kernel
-        kernel.launches = rec.launches
-
-
-@contextlib.contextmanager
 def _collective_ms(torch, tdist, box, telemetry=None):
     """Host ms, calls and input bytes of every collective call by kind
     while the block runs, the card synchronised before and after each
@@ -4237,51 +4211,6 @@ def _tp_setup(cfg, mesh):
     return dist.model_context(mesh, cfg.seq_shard), dict(
         constrain=sharding.make_constrain(mesh, cfg),
         constrain_logits=sharding.make_constrain_logits(mesh))
-
-
-@contextlib.contextmanager
-def _capturing_scan(ops_mod, seen):
-    """Record every B4 launch's (B, H, S, Dk, Dv, dtype, kind, initial
-    state) into ``seen`` while the block runs, ``kind`` "mamba" where q
-    and k are shared by every head (stride 0 over H), else "rwkv" with a
-    bonus or "plain"; the launch count moves as in
-    ``_capturing_attention`` (``ops.launch_counts`` reads it after the
-    block)."""
-    kernel = ops_mod._ss.ssm_scan
-
-    def rec(q, k, v, log_decay, bonus=None, initial_state=None):
-        kind = ("mamba" if q.stride(1) == 0 and k.stride(1) == 0
-                else "rwkv" if bonus is not None else "plain")
-        seen.add((*q.shape, v.shape[-1], str(q.dtype), kind,
-                  initial_state is not None))
-        return kernel(q, k, v, log_decay, bonus, initial_state)
-
-    rec.launches = kernel.launches
-    ops_mod._ss.ssm_scan = rec
-    try:
-        yield
-    finally:
-        ops_mod._ss.ssm_scan = kernel
-        kernel.launches = rec.launches
-
-
-class _Counted:
-    """Kernel launches summed over the blocks run under it (the mesh's
-    own work; the local references a rank computes are left out), and
-    every B5 and B4 launch's shape."""
-
-    def __init__(self, ops_mod):
-        self.ops, self.total, self.seen = ops_mod, {}, set()
-        self.scans = set()
-
-    @contextlib.contextmanager
-    def __call__(self):
-        self.ops.reset_launch_counts()
-        with _capturing_attention(self.ops, self.seen), \
-                _capturing_scan(self.ops, self.scans):
-            yield
-        for k, v in self.ops.launch_counts().items():
-            self.total[k] = self.total.get(k, 0) + v
 
 
 def _kernel_layers(cfg) -> dict:
@@ -4706,41 +4635,27 @@ def _tp_elastic(torch, tdist, ops_mod, counted, rank):
             "dst_loss": float(m["loss"])}
 
 
-def _tp_rank(rank: int, world: int, workdir: str):
-    """One rank of phase 11, a spawned process on the card shared with the
-    others, in a gloo group whose FileStore lies in ``workdir``: train,
-    serve, the f32 check and the rescale (``_tp_train``, ``_tp_serve``,
-    ``_tp_f32``, ``_tp_elastic``). Writes ``rank<r>.json``; any failure
-    raises, and the process exits non-zero."""
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
+def _tp_body(torch, ops, rank, work):
+    """Phase 11's rank: train, serve, the f32 check and the rescale
+    (``_tp_train``, ``_tp_serve``, ``_tp_f32``, ``_tp_elastic``)."""
     import torch.distributed as tdist
-    from repro_torch.kernels import ops
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    work = pathlib.Path(workdir)
     first = json.loads((work / "first_step.json").read_text())
-    tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
-                             rank=rank, world_size=world)
-    try:
-        counted = _Counted(ops)
-        out = {"train": _tp_train(torch, ops, counted, first, rank)}
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["serve"] = _tp_serve(torch, ops, counted, rank)
-        out["f32"] = _tp_f32(torch, counted, rank)
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["elastic"] = _tp_elastic(torch, tdist, ops, counted, rank)
-        out["launches"] = counted.total
-        out["b5_shapes"] = sorted(counted.seen)
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        tdist.barrier()
-    finally:
-        tdist.destroy_process_group()
-    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    # the mesh's own work: the local references a rank computes are left
+    # out of ``seen`` and ``launches``
+    seen, launches = collections.defaultdict(list), {}
+    counted = functools.partial(_recording, ops, seen, launches)
+    out = {"train": _tp_train(torch, ops, counted, first, rank)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = _tp_serve(torch, ops, counted, rank)
+    out["f32"] = _tp_f32(torch, counted, rank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["elastic"] = _tp_elastic(torch, tdist, ops, counted, rank)
+    out["launches"] = launches
+    out["b5_shapes"] = sorted(set(seen["flash_attention"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
 
 
 def _hold_attention(torch, seen, tag: str):
@@ -4767,31 +4682,17 @@ def _hold_attention(torch, seen, tag: str):
 def phase_tp_ranks(torch, ops_mod, first_step):
     """Phase 11: TP_RANKS ranks spawned on the one card (gloo; NCCL refuses
     ranks that share a card), each running full-width internlm2 on a
-    TP_MESH ``(data, model)`` mesh (``_tp_rank``): training held to phase
+    TP_MESH ``(data, model)`` mesh (``_tp_body``): training held to phase
     8's first step (``first_step``), a prefill and greedy decode held to
     the local path, an f32 step held to the local one, and
     ``elastic.rescale`` onto TP_DST_MESH. The parent joins every rank (a
     failed rank fails the run), requires every rank to take the same
     rescale rounds, then holds B5 at every shape the ranks launched it at.
     Returns (the ranks' launches together, numbers to keep)."""
-    import tempfile
-    import torch.multiprocessing as mp
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-        work = pathlib.Path(tmp)
-        (work / "first_step.json").write_text(json.dumps(first_step))
-        t0 = time.perf_counter()
-        mp.start_processes(_tp_rank, args=(TP_RANKS, tmp), nprocs=TP_RANKS,
-                           join=True, start_method="spawn")
-        wall = time.perf_counter() - t0
-        ranks = [json.loads((work / f"rank{r}.json").read_text())
-                 for r in range(TP_RANKS)]
-    launches = {op: 0 for op in ops_mod.launch_counts()}
-    for rec in ranks:
-        for op, n in rec["launches"].items():
-            launches[op] += n
+    ranks, launches, wall = _spawn_ranks(
+        torch, ops_mod, _tp_body, TP_RANKS,
+        lambda work: (work / "first_step.json").write_text(
+            json.dumps(first_step)))
     keys = ("rounds", "stop_reason", "per_round_bytes", "source_steps")
     if any([r["elastic"][k] for k in keys] !=
            [ranks[0]["elastic"][k] for k in keys] for r in ranks):
@@ -4911,63 +4812,46 @@ def phase_ssm_tp_first(torch):
     return first
 
 
-def _ssm_tp_rank(rank: int, world: int, workdir: str):
-    """One rank of phase 12, spawned on the card shared with the others as
-    in phase 11: rwkv6 trained and served (bf16, then f32) at full width
-    and depth, zamba2 served at full width and depth and trained
-    SSM_TP_TRAIN_LAYERS deep, then the f32 steps of SSM_TP_F32 against the
-    local ones. Writes ``rank<r>.json``; any failure but the f32 verdicts
-    (which the parent reads) raises, and the process exits non-zero."""
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    import torch.distributed as tdist
-    from repro_torch.kernels import ops
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    work = pathlib.Path(workdir)
+def _ssm_tp_body(torch, ops, rank, work):
+    """Phase 12's rank, as in phase 11: rwkv6 trained and served (bf16,
+    then f32) at full width and depth, zamba2 served at full width and
+    depth and trained SSM_TP_TRAIN_LAYERS deep, then the f32 steps of
+    SSM_TP_F32 against the local ones (their verdicts the parent reads)."""
     first = json.loads((work / "first_step.json").read_text())
-    tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
-                             rank=rank, world_size=world)
 
     def freed():
         gc.collect()
         torch.cuda.empty_cache()
 
-    try:
-        counted = _Counted(ops)
-        # training first, as in phase 11: its warm-up step takes the
-        # ranks' first CUDA and gloo calls
-        out = {"rwkv6_train": _tp_train(torch, ops, counted,
-                                        first[RWKV_ARCH], rank, RWKV_ARCH,
-                                        held=("loss",))}
+    seen, launches = collections.defaultdict(list), {}
+    counted = functools.partial(_recording, ops, seen, launches)
+    # training first, as in phase 11: its warm-up step takes the ranks'
+    # first CUDA and gloo calls
+    out = {"rwkv6_train": _tp_train(torch, ops, counted, first[RWKV_ARCH],
+                                    rank, RWKV_ARCH, held=("loss",))}
+    freed()
+    out["rwkv6_serve"] = _tp_serve(torch, ops, counted, rank, RWKV_ARCH,
+                                   hold=False)
+    freed()
+    out["rwkv6_serve_f32"] = _tp_serve(torch, ops, counted, rank, RWKV_ARCH,
+                                       dtype="float32",
+                                       prompt_len=SSM_TP_F32_PROMPT)
+    freed()
+    out["zamba2_serve"] = _tp_serve(torch, ops, counted, rank, SSM_ARCH)
+    freed()
+    out["zamba2_train"] = _tp_train(torch, ops, counted, first[SSM_ARCH],
+                                    rank, SSM_ARCH,
+                                    layers=SSM_TP_TRAIN_LAYERS, steps=0)
+    freed()
+    for arch, layers, tol in SSM_TP_F32:
+        out[f"{arch}_f32"] = _tp_f32(torch, counted, rank, arch, layers,
+                                     tol=tol)
         freed()
-        out["rwkv6_serve"] = _tp_serve(torch, ops, counted, rank, RWKV_ARCH,
-                                       hold=False)
-        freed()
-        out["rwkv6_serve_f32"] = _tp_serve(torch, ops, counted, rank,
-                                           RWKV_ARCH, dtype="float32",
-                                           prompt_len=SSM_TP_F32_PROMPT)
-        freed()
-        out["zamba2_serve"] = _tp_serve(torch, ops, counted, rank, SSM_ARCH)
-        freed()
-        out["zamba2_train"] = _tp_train(torch, ops, counted,
-                                        first[SSM_ARCH], rank, SSM_ARCH,
-                                        layers=SSM_TP_TRAIN_LAYERS, steps=0)
-        freed()
-        for arch, layers, tol in SSM_TP_F32:
-            out[f"{arch}_f32"] = _tp_f32(torch, counted, rank, arch, layers,
-                                         tol=tol)
-            freed()
-        out["launches"] = counted.total
-        out["b5_shapes"] = sorted(counted.seen)
-        out["b4_shapes"] = sorted(counted.scans)
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        tdist.barrier()
-    finally:
-        tdist.destroy_process_group()
-    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    out["launches"] = launches
+    out["b5_shapes"] = sorted(set(seen["flash_attention"]))
+    out["b4_shapes"] = sorted(set(seen["ssm_scan"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
 
 
 def _hold_scans(torch, seen, tag: str):
@@ -5003,30 +4887,17 @@ def _hold_scans(torch, seen, tag: str):
 
 def phase_ssm_tp_ranks(torch, ops_mod):
     """Phase 12: the local first steps (``phase_ssm_tp_first``), then
-    TP_RANKS ranks spawned on the card as in phase 11 (``_ssm_tp_rank``).
+    TP_RANKS ranks spawned on the card as in phase 11 (``_ssm_tp_body``).
     The parent joins every rank (a failed rank fails the run), requires
     every f32 step within its limit (SSM_TP_F32), then holds B4 and B5 at
     every shape the ranks launched them at. Returns (the ranks' launches
     together, numbers to keep)."""
-    import tempfile
-    import torch.multiprocessing as mp
-
     gc.collect()
     torch.cuda.empty_cache()
     first = phase_ssm_tp_first(torch)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_tp_") as tmp:
-        work = pathlib.Path(tmp)
-        (work / "first_step.json").write_text(json.dumps(first))
-        t0 = time.perf_counter()
-        mp.start_processes(_ssm_tp_rank, args=(TP_RANKS, tmp),
-                           nprocs=TP_RANKS, join=True, start_method="spawn")
-        wall = time.perf_counter() - t0
-        ranks = [json.loads((work / f"rank{r}.json").read_text())
-                 for r in range(TP_RANKS)]
-    launches = {op: 0 for op in ops_mod.launch_counts()}
-    for rec in ranks:
-        for op, n in rec["launches"].items():
-            launches[op] += n
+    ranks, launches, wall = _spawn_ranks(
+        torch, ops_mod, _ssm_tp_body, TP_RANKS,
+        lambda work: (work / "first_step.json").write_text(json.dumps(first)))
     for r, rec in enumerate(ranks):
         for arch, key, dt, n in (
                 (SSM_ARCH, "zamba2_serve", "bf16", TP_PROMPT),
@@ -5145,28 +5016,19 @@ def phase_heads_first(torch):
     return first
 
 
-def _heads_rank(rank: int, world: int, workdir: str):
-    """One rank of phase 15, spawned on the card shared with the others as
-    in phase 11, on a HEADS_MESH mesh where neither model's heads divide
-    the model axis (``blocks.head_split`` "replicated"): the f32 checks of
-    both at TP_F32_LAYERS (logits, the step's loss, grad norm, first
-    moments and params against the local path), then one starcoder2 train
-    step HEADS_TRAIN_LAYERS deep (bf16) held to the local first step, then
+def _heads_body(torch, ops, rank, work):
+    """Phase 15's rank, as in phase 11, on a HEADS_MESH mesh where neither
+    model's heads divide the model axis (``blocks.head_split``
+    "replicated"): the f32 checks of both at TP_F32_LAYERS (logits, the
+    step's loss, grad norm, first moments and params against the local
+    path; their verdicts the parent reads), then one starcoder2 train step
+    HEADS_TRAIN_LAYERS deep (bf16) held to the local first step, then
     qwen2-vl served at full width and depth (bf16, its ring cut along the
-    window) with its collectives timed. Writes ``rank<r>.json``; any
-    failure but the f32 verdicts (which the parent reads) raises."""
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    import torch.distributed as tdist
+    window) with its collectives timed."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch.sharding import kv_split
     from repro_torch.models import blocks, lm
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    work = pathlib.Path(workdir)
     first = json.loads((work / "first_step.json").read_text())
     tp = HEADS_MESH[1]
     for arch in (HEADS_SERVE_ARCH, HEADS_TRAIN_ARCH):
@@ -5177,37 +5039,31 @@ def _heads_rank(rank: int, world: int, workdir: str):
                 serve.num_kv_heads,
                 lm._kv_window(serve, HEADS_CACHE)) != "window":
         raise AssertionError("phase 15's ring is not cut along its window")
-    tdist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
-                             rank=rank, world_size=world)
 
     def freed():
         gc.collect()
         torch.cuda.empty_cache()
 
-    try:
-        counted = _Counted(ops)
-        # the f32 checks first: they take each rank's first CUDA and gloo
-        # calls, which the timed step and prefill after them do not pay
-        out = {}
-        for arch in (HEADS_SERVE_ARCH, HEADS_TRAIN_ARCH):
-            out[f"{arch}_f32"] = _tp_f32(torch, counted, rank, arch,
-                                         mesh_shape=HEADS_MESH, logits=True)
-            freed()
-        out["train"] = _tp_train(torch, ops, counted, first, rank,
-                                 HEADS_TRAIN_ARCH, layers=HEADS_TRAIN_LAYERS,
-                                 steps=1, mesh_shape=HEADS_MESH,
-                                 warmup=False)
+    seen, launches = collections.defaultdict(list), {}
+    counted = functools.partial(_recording, ops, seen, launches)
+    # the f32 checks first: they take each rank's first CUDA and gloo
+    # calls, which the timed step and prefill after them do not pay
+    out = {}
+    for arch in (HEADS_SERVE_ARCH, HEADS_TRAIN_ARCH):
+        out[f"{arch}_f32"] = _tp_f32(torch, counted, rank, arch,
+                                     mesh_shape=HEADS_MESH, logits=True)
         freed()
-        out["serve"] = _tp_serve(torch, ops, counted, rank, HEADS_SERVE_ARCH,
-                                 mesh_shape=HEADS_MESH, cache_len=HEADS_CACHE,
-                                 collectives=True)
-        out["launches"] = counted.total
-        out["b5_shapes"] = sorted(counted.seen)
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        tdist.barrier()
-    finally:
-        tdist.destroy_process_group()
-    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    out["train"] = _tp_train(torch, ops, counted, first, rank,
+                             HEADS_TRAIN_ARCH, layers=HEADS_TRAIN_LAYERS,
+                             steps=1, mesh_shape=HEADS_MESH, warmup=False)
+    freed()
+    out["serve"] = _tp_serve(torch, ops, counted, rank, HEADS_SERVE_ARCH,
+                             mesh_shape=HEADS_MESH, cache_len=HEADS_CACHE,
+                             collectives=True)
+    out["launches"] = launches
+    out["b5_shapes"] = sorted(set(seen["flash_attention"]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
 
 
 def _coll_line(coll: dict) -> str:
@@ -5217,7 +5073,7 @@ def _coll_line(coll: dict) -> str:
 
 def phase_heads_tp(torch, ops_mod):
     """Phase 15: the local first step (``phase_heads_first``), then
-    HEADS_RANKS ranks spawned on the one card (``_heads_rank``) on a
+    HEADS_RANKS ranks spawned on the one card (``_heads_body``) on a
     HEADS_MESH mesh whose model axis divides neither qwen2-vl's 12 nor
     starcoder2's 36 query heads, nor their 2 and 4 KV heads: every rank
     computes every head through B5. The parent joins every rank (a failed
@@ -5225,28 +5081,14 @@ def phase_heads_tp(torch, ops_mod):
     holds B5 at every shape the ranks launched it at and at musicgen's
     production shape (HEADS_MHA_SHAPE). Returns (the ranks' launches
     together, numbers to keep)."""
-    import tempfile
-    import torch.multiprocessing as mp
-
     gc.collect()
     torch.cuda.empty_cache()
     t_first = time.perf_counter()
     first = phase_heads_first(torch)
     t_first = time.perf_counter() - t_first
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_heads_") as tmp:
-        work = pathlib.Path(tmp)
-        (work / "first_step.json").write_text(json.dumps(first))
-        t0 = time.perf_counter()
-        mp.start_processes(_heads_rank, args=(HEADS_RANKS, tmp),
-                           nprocs=HEADS_RANKS, join=True,
-                           start_method="spawn")
-        wall = time.perf_counter() - t0
-        ranks = [json.loads((work / f"rank{r}.json").read_text())
-                 for r in range(HEADS_RANKS)]
-    launches = {op: 0 for op in ops_mod.launch_counts()}
-    for rec in ranks:
-        for op, n in rec["launches"].items():
-            launches[op] += n
+    ranks, launches, wall = _spawn_ranks(
+        torch, ops_mod, _heads_body, HEADS_RANKS,
+        lambda work: (work / "first_step.json").write_text(json.dumps(first)))
     for r, rec in enumerate(ranks):
         tr, sv = rec["train"], rec["serve"]
         row = tr["steps"][0]
@@ -5572,10 +5414,11 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     seen = set()
     for J, N, lags in tick_b2:
-        key = (J, N, lags.numel(), int(lags[0]), int(lags[-1]))
+        key = (J, N, len(lags), lags[0], lags[-1])
         if key not in seen:
             seen.add(key)
-            _autocorr_case(torch, ref, autocorr, g, J, N, lags,
+            _autocorr_case(torch, ref, autocorr, g, J, N,
+                           torch.tensor(lags, dtype=torch.int32),
                            back_to_back=True)
     fleet_launches, controller_launches = phase_fleet(torch, ops)
     # phase 10(b) before any replica: four ranks' contexts beside this one

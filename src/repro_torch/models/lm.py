@@ -42,9 +42,12 @@ the same tensors and a new ``pos``.
 
 Prefill's attention layers (``attn``, ``shared_attn``, ``moe``) go
 through ``ops.flash_attention``: kernel B5 on the card, the chunked plain
-version on the CPU; decode attention is plain torch. A ``moe`` layer's
-expert FFN (``blocks.moe_ffn``) returns a load-balance aux loss, summed
-over the layers in order as the reference's scan sums it.
+version on the CPU; decode attention through ``ops.decode_attention``
+(rotary, the ring write and attention over the ring in one kernel on the
+card, ``ref.decode_attention_ref`` on the CPU), but for a ring that a mesh
+cuts along its window (``blocks._decode_window``, plain torch). A ``moe``
+layer's expert FFN (``blocks.moe_ffn``) returns a load-balance aux loss,
+summed over the layers in order as the reference's scan sums it.
 
 Training: ``lm_loss`` runs the same layers with grad on (``_forward``),
 each layer of a uniform stack or each hybrid group under

@@ -23,6 +23,9 @@ Tolerances (measured on this container, then given margin):
 - Exact: the learning rate, tokens, the step counter and count, every
   dirty fraction and dirty byte count.
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 
@@ -48,6 +51,10 @@ from repro_torch.models import convert, lm  # noqa: E402
 from repro_torch.optim import make_schedule  # noqa: E402
 from repro_torch.train import (dirty_block_stats, init_train_state,  # noqa: E402
                                make_train_step)
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
@@ -472,18 +479,6 @@ def test_ops_without_grad_take_the_plain_path():
     assert issubclass(vjp.Scan, torch.autograd.Function)
 
 
-def _smoke_check_module():
-    """``chip_smoke.py`` (the repository root's card smoke) as a module:
-    its train-check limits are tested here, on CPU-only runs."""
-    import importlib.util
-    import pathlib
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 _ATTENTION = vjp.Attention
 
 
@@ -505,7 +500,6 @@ def test_smoke_train_check_fails_a_faulty_step(fault, monkeypatch):
     ~0.1 lr, within the 2.5 lr a sign-blind limit allows), one whose update
     has the wrong sign (~2 lr), and a forward attention 1% off (the first
     moment's limit). Without a fault every error is 0."""
-    smoke = _smoke_check_module()
     cfg = get_config("internlm2_1p8b").smoke().replace(param_dtype="float32")
 
     def run(faulty):
@@ -525,9 +519,9 @@ def test_smoke_train_check_fails_a_faulty_step(fault, monkeypatch):
         start = {id(b): a for a, b in zip(p0, tree.leaves(sg["params"]))}
         sg = dict(sg, params=tree.map(
             lambda b: start[id(b)] + f * (b - start[id(b)]), sg["params"]))
-    errs, ok = smoke._train_errors(torch, (mg, sg), want)
+    errs, ok = chip_smoke._train_errors(torch, (mg, sg), want)
     print(f"{fault}: {errs}, within the limits: {ok}")
-    lim = smoke.TRAIN_CHECK
+    lim = chip_smoke.TRAIN_CHECK
     if fault == "none":
         assert ok and errs["share"] > 0.5
         assert all(errs[k] == 0 for k in ("loss", "grad_norm", "moment",
